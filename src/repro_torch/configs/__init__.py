@@ -1,0 +1,15 @@
+"""Architecture registry of the port: the architectures it serves."""
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.llama32_1b import CONFIG as LLAMA32_1B
+
+ARCHS = {c.name: c for c in (LLAMA32_1B,)}
+
+
+def get_arch(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; the port serves: "
+                       f"{sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+__all__ = ["ModelConfig", "ARCHS", "get_arch"]

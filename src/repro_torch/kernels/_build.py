@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), under ``build/kernels/`` at the repository root. All
+sources build at once, one ``nvcc`` process each, at the first launch of
+any kernel; a library is named by the hash of its sources and flags, so a
+changed source rebuilds and an unchanged one is reused. The wrappers load
+the libraries with ``ctypes`` and read each launch's error code.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("flash_attention", "decode_attention", "pim_matvec")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+ARGTYPES = {
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL,
+                               _I, _I, _F, _I, _P],
+    "decode_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                _I, _P],
+    "pim_matvec_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return str(path)
+
+
+def lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all() -> Dict[str, dict]:
+    """Compile every kernel library that is not built yet, one ``nvcc``
+    per source, all started together. Returns, for each source, the
+    seconds its build took (0 when it was reused) and what ``ptxas``
+    reported (registers, shared memory, spills). Raises on any failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, out = {}, {}
+    t0 = time.perf_counter()
+    for name in SOURCES:
+        target = lib_path(name)
+        if target.exists():
+            out[name] = {"seconds": 0.0, "ptxas": ""}
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    failed = []
+    for name, (proc, tmp, target) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, target)
+        out[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        if not lib_path(name).exists():
+            build_all()
+        lib = ctypes.CDLL(str(lib_path(name)))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = ARGTYPES[f"{name}_launch"]
+        fn.restype = ctypes.c_int
+        lib.rt_error_string.argtypes = [ctypes.c_int]
+        lib.rt_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        msg = lib.rt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed ({err}: {msg})")

@@ -1,0 +1,97 @@
+"""Plain PyTorch versions of the port's kernels (the correctness contract).
+
+Each function computes what its kernel computes, with plain tensor
+operations: the CPU tests run these against the reference package's
+oracles, and ``chip_smoke.py`` holds each CUDA/Triton kernel against them
+on the card. They repeat the kernels' arithmetic (f32 math, ``-1e30``
+masking, the ``1e-30`` clamp) and are no yardstick of speed.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+NORM_EPS = {"rmsnorm": 1e-6, "layernorm": 1e-5, "np_layernorm": 1e-5}
+
+
+def activate(x: torch.Tensor, activation: str) -> torch.Tensor:
+    """The matvec epilogue; GELU is the tanh form, as ``jax.nn.gelu``'s
+    default."""
+    if activation == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if activation == "silu":
+        return F.silu(x)
+    if activation != "none":
+        raise ValueError(f"unknown activation {activation!r}")
+    return x
+
+
+def matvec_ref(x, w, bias=None, activation: str = "none") -> torch.Tensor:
+    """x: (n, d_in); w: (d_in, d_out) -> act(x @ w + b), f32 accumulation,
+    out in x.dtype."""
+    out = x.float() @ w.float()
+    if bias is not None:
+        out = out + bias.float()
+    return activate(out, activation).to(x.dtype)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True,
+                        q_offset: int = 0) -> torch.Tensor:
+    """q: (B, H, S, D); k, v: (B, KH, Skv, D) -> (B, H, S, D). Queries sit
+    at global positions [q_offset, q_offset + S) against keys [0, Skv)."""
+    B, H, S, D = q.shape
+    KH, Skv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KH, H // KH, S, D).float() * (1.0 / math.sqrt(D))
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qg, k.float())
+    if causal:
+        q_pos = q_offset + torch.arange(S, device=q.device)
+        kv_pos = torch.arange(Skv, device=q.device)
+        mask = q_pos[:, None] >= kv_pos[None, :]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float())
+    o = o / torch.clamp(l, min=1e-30)
+    return o.reshape(B, H, S, D).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, lengths) -> torch.Tensor:
+    """q: (B, H, D); k, v: (B, KH, S, D); lengths: (B,) valid prefix
+    lengths (at least 1) -> (B, H, D)."""
+    B, H, D = q.shape
+    KH, S = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KH, H // KH, D).float() * (1.0 / math.sqrt(D))
+    s = torch.einsum("bkgd,bkcd->bkgc", qg, k.float())
+    valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgc,bkcd->bkgd", p, v.float())
+    o = o / torch.clamp(l, min=1e-30)
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+def norm_ref(x, scale=None, bias=None, *, mode: str = "layernorm",
+             eps=None) -> torch.Tensor:
+    """x: (rows, d). ``mode``: "rmsnorm" (scale; eps 1e-6), "layernorm"
+    (scale and bias; eps 1e-5, the reference's two-phase LN) or
+    "np_layernorm" (no affine; eps 1e-5). f32 math, out in x.dtype."""
+    if mode not in NORM_EPS:
+        raise ValueError(f"unknown norm mode {mode!r}")
+    eps = NORM_EPS[mode] if eps is None else eps
+    xf = x.float()
+    if mode == "rmsnorm":
+        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        y = y * scale.float()
+    else:
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf - mean).square().mean(-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + eps)
+        if mode == "layernorm":
+            y = y * scale.float() + bias.float()
+    return y.to(x.dtype)

@@ -1,0 +1,131 @@
+"""Serving launcher of the port: batched request replay through its engine.
+
+  python -m repro_torch.launch.serve --arch llama3.2-1b --requests 8
+  python -m repro_torch.launch.serve --smoke --device cpu
+
+Runs on the card unless ``--device cpu`` is given (then through the
+kernels' plain PyTorch versions). Weights are random, from ``--seed``.
+On the card, one short request through a throwaway engine warms the
+kernels up before the timed run. Prints tok/s, the PAS log summary,
+dispatch counts, host syncs and the launch count of each kernel. ``--profile`` (card only) traces the run with
+``torch.profiler`` and prints the device's busy share of the wall time and
+the kernels that took the most device time.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.kernels import ops
+from repro_torch.models import transformer as T
+from repro_torch.models.params import init_params, resolve_device
+from repro_torch.serve import ServeConfig, ServeEngine
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced (tiny) config")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--prompt-len", type=int, default=0,
+                    help="fixed prompt length (0 = random 2..9)")
+    ap.add_argument("--prefill-mode", default="batched",
+                    choices=["batched", "sequential"])
+    ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="trace the run with torch.profiler (card only)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    if args.profile and dev.type != "cuda":
+        ap.error("--profile measures the card: it needs --device cuda")
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    params = init_params(T.param_defs(cfg), device=dev, seed=args.seed)
+    scfg = ServeConfig(max_slots=args.slots, max_len=args.max_len,
+                       prefill_mode=args.prefill_mode,
+                       prefill_chunk=args.prefill_chunk)
+    if dev.type == "cuda":
+        # one short request through a throwaway engine first, so that the
+        # kernels' build, Triton's JIT and the libraries' set-up stay out
+        # of the timed run
+        warm = ServeEngine(cfg, params, scfg, device=dev)
+        plen = min(args.prefill_chunk + 2, args.max_len - 1)
+        warm.add_request(np.arange(plen) % cfg.vocab_size, max_new_tokens=2)
+        warm.run_until_done()
+        del warm
+    eng = ServeEngine(cfg, params, scfg, device=dev)
+    rng = np.random.default_rng(args.seed)
+    for _ in range(args.requests):
+        plen = args.prompt_len or int(rng.integers(2, 10))
+        eng.add_request(rng.integers(0, cfg.vocab_size, plen),
+                        max_new_tokens=args.max_new)
+    ops.reset_launch_counts()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    prof = None
+    if args.profile:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+    t0 = time.perf_counter()
+    results = eng.run_until_done()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    if prof is not None:
+        prof.stop()
+    tokens = sum(len(v) for v in results.values())
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"[serve] {len(results)} requests, {tokens} tokens "
+          f"in {dt:.2f}s ({tokens / dt:.1f} tok/s) on {where}")
+    by_phase = {}
+    for e in eng.pas_log:
+        by_phase.setdefault(e["phase"], []).append(e)
+    for phase, entries in by_phase.items():
+        gemv = sum(1 for e in entries if e["gemv_path"])
+        print(f"[serve] PAS {phase}: {len(entries)} steps, "
+              f"{gemv} on the GEMV (PIM-analogue) path")
+    print(f"[serve] dispatches: {eng.dispatch_counts['prefill']} prefill "
+          f"({eng.effective_prefill_mode}), "
+          f"{eng.dispatch_counts['decode']} decode; "
+          f"{eng.host_syncs} host syncs")
+    print(f"[serve] kernel launches: {ops.launch_counts()}")
+    if prof is not None:
+        print_device_time(prof, dt)
+    return results
+
+
+def print_device_time(prof, wall_s: float, top: int = 15) -> None:
+    """The device's busy share of the wall time (the sum of kernel and
+    copy times on the card; the run uses one stream) and the device ops
+    that took the most time, by name."""
+    by_name = defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += 1
+            by_name[e.name][1] += e.time_range.elapsed_us()
+    busy_s = sum(us for _, us in by_name.values()) / 1e6
+    print(f"[serve] profile: device busy {busy_s:.4f}s of {wall_s:.4f}s "
+          f"wall ({100 * busy_s / wall_s:.1f}%)")
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]
+                                )[:top]:
+        print(f"[serve] profile: {us / 1e3:10.3f} ms {n:7d}x  {name[:90]}")
+
+
+if __name__ == "__main__":
+    main()

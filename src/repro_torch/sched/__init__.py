@@ -1,0 +1,7 @@
+"""Scheduler subsystem of the port (``repro.sched``'s counterpart)."""
+from repro_torch.sched.base import PrefillJob, Scheduler
+from repro_torch.sched.policies import (POLICY_NAMES, SerialScheduler,
+                                        choose_superstep, make_scheduler)
+
+__all__ = ["PrefillJob", "Scheduler", "POLICY_NAMES", "SerialScheduler",
+           "choose_superstep", "make_scheduler"]

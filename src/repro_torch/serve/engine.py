@@ -1,0 +1,447 @@
+"""Serving engine of the port: phase-separated continuous batching.
+
+Counterpart of ``repro/serve/engine.py`` under the ``serial`` policy:
+
+  * summarization (prefill) — admitted prompts run as whole chunks through
+    ``T.prefill_chunk`` (the flash kernel), filling every slot's KV cache in
+    ceil(S / chunk) calls; ``prefill_mode="sequential"`` is the reference
+    path of one teacher-forced ``T.decode_step`` per prompt token;
+  * generation (decode) — one ``T.decode_and_sample`` call per step across
+    all slots: decode, sampling and the length / termination update stay
+    on the device, and the step's only host sync is the (3, B) int32 fetch
+    of (token, done, length). On the card that fetch is double-buffered:
+    a ``non_blocking`` copy into a pinned host buffer plus a CUDA event at
+    dispatch, synchronized in ``resolve_decode``. Nothing else in a step
+    reads a device value on the host (no ``.item()``, ``.tolist()`` or
+    ``bool(tensor)``), and host-to-device uploads go through pinned memory
+    with ``non_blocking`` copies, so they never wait for the card;
+  * every dispatch's phase and FC route lands in ``pas_log``.
+
+Counters: one call of ``prefill_chunk`` or ``decode_and_sample`` (or, on
+the sequential path, of ``decode_step``) is one dispatch; ``host_syncs``
+counts blocking fetches. A ``repro.trace.TraceRecorder`` (or anything with
+its hooks) can be attached; the port never imports one.
+
+Knobs of later slices raise ``NotImplementedError`` at construction:
+``pack``, ``fuse``, ``superstep > 1``, the interleaving policies, the int8
+KV cache and non-dense families; KV-snapshot restores raise in
+``add_request``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.pas import phase_log_entry
+from repro_torch.models import transformer as T
+from repro_torch.models.params import init_params, resolve_device
+from repro_torch.sched import PrefillJob, make_scheduler
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (prompt_len,) int32
+    max_new_tokens: int = 32
+    generated: List[int] = field(default_factory=list)
+    done: bool = False
+    deferred: int = 0             # admission waves this request was passed over
+    gid: Optional[int] = None     # fleet-global id
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """Same fields and defaults as the reference's ``ServeConfig``."""
+    max_slots: int = 4
+    max_len: int = 256
+    temperature: float = 0.0      # 0 = greedy
+    eos_token: Optional[int] = None
+    seed: int = 0
+    prefill_chunk: int = 32       # summarization chunk (tokens per dispatch)
+    prefill_mode: str = "batched"  # "batched" | "sequential" (reference)
+    admission: str = "bucketed"   # "bucketed" (length-sorted) | "fifo"
+    policy: str = "serial"        # only "serial" is ported
+    sub_batch: int = 0            # interleaving policies only
+    map_dims: Optional[Tuple[int, int]] = None  # pim_aware only
+    double_buffer: bool = True    # async fetch of the decode result
+    pack: bool = False            # packed prefill: not ported yet
+    max_prefill_jobs: int = 1     # interleaving policies only
+    decode_floor: int = 0         # interleaving policies only
+    fuse: bool = False            # fused steps: not ported yet
+    superstep: int = 1            # decode supersteps: not ported yet
+    queue_cap: int = 0            # admission-queue capacity (0 = unbounded)
+
+
+class AdmissionRejected(RuntimeError):
+    """The admission queue is at capacity; the arrival was NOT enqueued."""
+
+
+@dataclass
+class PendingDecode:
+    """A dispatched-but-unresolved decode step: its (3, B) fetch (on the
+    device, or the pinned host buffer it is being copied into plus the
+    event that marks the copy done) and the host view of its batch."""
+    fetch: torch.Tensor
+    ready: Optional[torch.cuda.Event]
+    active_np: np.ndarray
+    n_tok: int
+    route: dict
+
+
+def _unsupported(scfg: ServeConfig) -> Optional[str]:
+    # non-dense families and the int8 cache raise in T.cache_defs
+    if scfg.pack:
+        return "packed prefill (ROADMAP queue 1, item 6)"
+    if scfg.fuse or scfg.superstep > 1:
+        return "fused steps and supersteps (ROADMAP queue 1, item 8)"
+    return None
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params,
+                 scfg: ServeConfig = ServeConfig(), recorder=None, *,
+                 device=None):
+        why = _unsupported(scfg)
+        if why is not None:
+            raise NotImplementedError(f"not ported yet: {why}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.scfg = scfg
+        B, L = scfg.max_slots, scfg.max_len
+        self.cache = init_params(T.cache_defs(cfg, B, L), device=self.device)
+        zeros = lambda: torch.zeros((B,), dtype=torch.int32,  # noqa: E731
+                                    device=self.device)
+        self.lens = zeros()           # device (decode input)
+        self.last_tok = zeros()       # device (next decode input)
+        self.gen_count = zeros()      # device (termination)
+        self.max_new = zeros()        # device (termination)
+        self.slot_req: List[Optional[Request]] = [None] * B
+        self.slot_ready: List[bool] = [False] * B
+        self.queue: List[Request] = []
+        self._next_rid = 0
+        self._gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
+        self._batched_ok = T.supports_batched_prefill(cfg)
+        self.scheduler = make_scheduler(self.effective_policy)
+        self.pas_log: List[dict] = []
+        self.dispatch_counts = {"prefill": 0, "decode": 0, "fused": 0}
+        self.host_syncs = 0           # blocking device->host transfers
+        self.async_fetches = 0        # fetches whose copy started at dispatch
+        # read by TraceRecorder's summary; only the interleaving policies
+        # and supersteps (not ported yet) move them
+        self.decode_deferrals = 0
+        self.superstep_tokens = 0
+        self.prefill_stats = {"token_slots": 0, "valid_tokens": 0,
+                              "kv_cells": 0}
+        self.step_idx = 0
+        self.wave_count = 0
+        self.admission_rejects = 0
+        # two pinned host buffers for the double-buffered decode fetch
+        self._fetch_bufs = []
+        if self.device.type == "cuda" and scfg.double_buffer:
+            self._fetch_bufs = [torch.empty((3, B), dtype=torch.int32,
+                                            pin_memory=True) for _ in range(2)]
+        self._buf_i = 0
+        self.recorder = recorder
+        if recorder is not None:
+            recorder.bind(self)
+
+    # ---- host -> device ---------------------------------------------------- #
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """Host array to the engine's device without waiting for the card:
+        through pinned memory and a ``non_blocking`` copy on CUDA."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    # ---- request lifecycle ------------------------------------------------- #
+    def add_request(self, prompt_tokens, max_new_tokens: int = 32,
+                    arrival_step: Optional[int] = None,
+                    gid: Optional[int] = None,
+                    restore: Optional[dict] = None) -> int:
+        prompt = np.asarray(prompt_tokens, np.int32).reshape(-1)
+        if len(prompt) == 0:
+            raise ValueError("empty prompt")
+        if len(prompt) > self.scfg.max_len - 1:
+            raise ValueError(f"prompt ({len(prompt)} tokens) exceeds "
+                             f"max_len-1 ({self.scfg.max_len - 1})")
+        if restore is not None:
+            raise NotImplementedError("not ported yet: KV-snapshot restore "
+                                      "(ROADMAP queue 1, item 9)")
+        if 0 < self.scfg.queue_cap <= len(self.queue):
+            self.admission_rejects += 1
+            raise AdmissionRejected(
+                f"admission queue at capacity ({self.scfg.queue_cap})")
+        rid = self._next_rid
+        self._next_rid += 1
+        self.queue.append(Request(rid, prompt, max_new_tokens, gid=gid))
+        if self.recorder is not None:
+            offset = 0 if arrival_step is None \
+                else max(self.step_idx - arrival_step, 0)
+            self.recorder.on_request(self.step_idx, rid, len(prompt),
+                                     max_new_tokens, arrival_offset=offset,
+                                     gid=gid)
+        return rid
+
+    def free_slot_ids(self) -> List[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    def ready_slot_ids(self) -> List[int]:
+        return [i for i, r in enumerate(self.slot_req)
+                if r is not None and self.slot_ready[i]]
+
+    @property
+    def effective_prefill_mode(self) -> str:
+        if self._batched_ok and self.scfg.prefill_mode == "batched":
+            return "batched"
+        return "sequential"
+
+    @property
+    def effective_policy(self) -> str:
+        if self.scfg.policy != "serial" \
+                and self.effective_prefill_mode != "batched":
+            return "serial"
+        return self.scfg.policy
+
+    def _chunk_bucket(self, req: Request) -> int:
+        C = self.scfg.prefill_chunk
+        return -(-max(len(req.prompt) - 1, 1) // C)
+
+    # ---- summarization (prefill) phase ------------------------------------- #
+    def admit_wave(self, limit: Optional[int] = None
+                   ) -> List[Tuple[int, Request]]:
+        """Admit up to ``limit`` queued requests into free slots: reset their
+        cache rows and budgets and mark them resident-but-not-ready.
+        Bucketed admission sorts the queue stably by chunk-count bucket,
+        aged by the waves a request was passed over."""
+        free = self.free_slot_ids()
+        if not (free and self.queue):
+            return []
+        if self.scfg.admission == "bucketed" and len(self.queue) > 1:
+            self.queue.sort(key=lambda r: max(
+                self._chunk_bucket(r) - r.deferred, 0))
+        cap = len(free) if limit is None else min(limit, len(free))
+        admitted: List[Tuple[int, Request]] = []
+        while len(admitted) < cap and self.queue:
+            admitted.append((free.pop(0), self.queue.pop(0)))
+        for r in self.queue:
+            r.deferred += 1
+        sl = self._upload(np.array([s for s, _ in admitted], np.int64))
+        for leaves in self.cache.values():
+            for leaf in leaves.values():
+                leaf[:, sl] = 0
+        # the decode step writes K/V at lens[slot] for every slot; a slot
+        # mid-prefill parks its cursor at max_len-1 (never attended) so a
+        # decode cannot clobber its prompt cache. The sequential path drives
+        # lens itself and starts at 0.
+        park = self.scfg.max_len - 1 \
+            if self.effective_prefill_mode == "batched" else 0
+        self.lens[sl] = park
+        self.gen_count[sl] = 0
+        self.max_new[sl] = self._upload(
+            np.array([r.max_new_tokens for _, r in admitted], np.int32))
+        for slot, req in admitted:
+            self.slot_req[slot] = req
+            self.slot_ready[slot] = False
+        self.wave_count += 1
+        if self.recorder is not None:
+            self.recorder.on_admit(
+                self.step_idx,
+                [(int(s), r.rid, int(len(r.prompt))) for s, r in admitted])
+        return admitted
+
+    def build_prefill_job(self, wave) -> Optional[PrefillJob]:
+        """Lay a wave's prompt tokens (all but the last of each) out for
+        chunked dispatch; None when there is nothing to cache."""
+        B, C = self.scfg.max_slots, self.scfg.prefill_chunk
+        S = max(len(r.prompt) - 1 for _, r in wave)
+        if S == 0:
+            return None
+        n_chunks = -(-S // C)
+        tokens = np.zeros((B, n_chunks * C), np.int32)
+        valid = np.zeros((B, n_chunks * C), bool)
+        for slot, req in wave:
+            p = req.prompt[:-1]
+            tokens[slot, :len(p)] = p
+            valid[slot, :len(p)] = True
+        return PrefillJob(wave=wave, tokens=tokens, valid=valid, chunk=C,
+                          n_chunks=n_chunks, sub_batch=self.wave_count - 1)
+
+    def _account_chunk_prefill(self, job: PrefillJob, c: int,
+                               vc: np.ndarray) -> None:
+        B, C = self.scfg.max_slots, job.chunk
+        self.prefill_stats["token_slots"] += B * C
+        self.prefill_stats["valid_tokens"] += int(vc.sum())
+        self.prefill_stats["kv_cells"] += B * (c * C + C)
+        entry = self._phase_entry("summarization", int(vc.sum()),
+                                  len(job.wave))
+        self.pas_log.append(entry)
+        if self.recorder is not None:
+            self.recorder.on_prefill(
+                self.step_idx, offset=c * C, chunk=C,
+                valid=int(vc.sum()), kv=c * C + C,
+                slots=[int(s) for s, _ in job.wave if vc[s].any()],
+                route=entry, sub_batch=job.sub_batch, overlap=False,
+                fused=False)
+
+    def dispatch_prefill_chunk(self, job: PrefillJob) -> None:
+        """Run the job's next chunk through ``T.prefill_chunk``."""
+        c, C = job.next_chunk, job.chunk
+        job.next_chunk += 1
+        vc = job.valid[:, c * C:(c + 1) * C]
+        if not vc.any():
+            return
+        self.cache = T.prefill_chunk(
+            self.cfg, self.params,
+            self._upload(job.tokens[:, c * C:(c + 1) * C]), self.cache,
+            self._upload(vc), offset=c * C)
+        self.dispatch_counts["prefill"] += 1
+        self._account_chunk_prefill(job, c, vc)
+
+    def finish_prefill(self, wave) -> None:
+        """A wave's prompt is cached: arm its slots for generation (the last
+        prompt token is the first generation step's input)."""
+        sl = self._upload(np.array([s for s, _ in wave], np.int64))
+        plens = np.array([len(r.prompt) for _, r in wave], np.int32)
+        self.lens[sl] = self._upload(plens - 1)
+        self.last_tok[sl] = self._upload(
+            np.array([r.prompt[-1] for _, r in wave], np.int32))
+        for slot, _ in wave:
+            self.slot_ready[slot] = True
+
+    def prefill_wave(self, wave) -> None:
+        """Serial-policy prefill: the whole wave, within the admission
+        step (batched chunk loop, or the sequential reference path)."""
+        if self.effective_prefill_mode == "batched":
+            job = self.build_prefill_job(wave)
+            if job is not None:
+                while not job.done:
+                    self.dispatch_prefill_chunk(job)
+        else:
+            self._prefill_sequential(wave)
+        self.finish_prefill(wave)
+
+    def _prefill_sequential(self, wave) -> None:
+        """Reference path: teacher-forced decode steps, one dispatch per
+        prompt token."""
+        B = self.scfg.max_slots
+        for slot, req in wave:
+            for pos, tok in enumerate(req.prompt[:-1]):
+                t = np.zeros((B, 1), np.int32)
+                t[slot, 0] = tok
+                _logits, self.cache = T.decode_step(
+                    self.cfg, self.params, self._upload(t), self.cache,
+                    self.lens)
+                self.lens[slot:slot + 1] += 1
+                self.dispatch_counts["prefill"] += 1
+                self.prefill_stats["token_slots"] += B
+                self.prefill_stats["valid_tokens"] += 1
+                self.prefill_stats["kv_cells"] += B * (pos + 1)
+            n_valid = max(len(req.prompt) - 1, 0)
+            entry = self._phase_entry("summarization", n_valid, len(wave))
+            self.pas_log.append(entry)
+            if self.recorder is not None and n_valid:
+                self.recorder.on_prefill(
+                    self.step_idx, offset=0, chunk=n_valid, valid=n_valid,
+                    kv=n_valid, slots=[slot], route=entry,
+                    sub_batch=self.wave_count - 1, overlap=False)
+
+    # ---- generation phase: one decode call across ready slots -------------- #
+    def _phase_entry(self, phase: str, n_tokens: int, active: int) -> dict:
+        return phase_log_entry(phase, n_tokens, active,
+                               self.cfg.d_model, self.cfg.d_ff)
+
+    def dispatch_decode(self) -> Optional[PendingDecode]:
+        """Issue the decode + sample + terminate call for every ready slot
+        and start the fetch's copy to the host; the blocking sync happens
+        in ``resolve_decode``."""
+        ready = self.ready_slot_ids()
+        if not ready:
+            return None
+        active_np = np.zeros((self.scfg.max_slots,), bool)
+        active_np[ready] = True
+        entry = self._phase_entry("generation", len(ready), len(ready))
+        self.pas_log.append(entry)
+        (fetch, self.cache, self.last_tok, self.lens, self.gen_count,
+         self._gen) = T.decode_and_sample(
+            self.cfg, self.params, self.cache, self.last_tok, self.lens,
+            self._upload(active_np), self.gen_count, self.max_new, self._gen,
+            temperature=self.scfg.temperature, eos_token=self.scfg.eos_token,
+            max_len=self.scfg.max_len)
+        self.dispatch_counts["decode"] += 1
+        ready_ev = None
+        if self.scfg.double_buffer:
+            if self._fetch_bufs:
+                buf = self._fetch_bufs[self._buf_i]
+                self._buf_i ^= 1
+                buf.copy_(fetch, non_blocking=True)
+                ready_ev = torch.cuda.Event()
+                ready_ev.record()
+                fetch = buf
+            self.async_fetches += 1
+        return PendingDecode(fetch=fetch, ready=ready_ev, active_np=active_np,
+                             n_tok=len(ready), route=entry)
+
+    def _finish_slot(self, i: int) -> None:
+        r = self.slot_req[i]
+        r.done = True
+        self.slot_req[i] = None
+        self.slot_ready[i] = False
+        if self.recorder is not None:
+            if self.scfg.eos_token is not None \
+                    and r.generated[-1] == self.scfg.eos_token:
+                reason = "eos"
+            elif len(r.generated) >= r.max_new_tokens:
+                reason = "max_new"
+            else:
+                reason = "cache_full"
+            self.recorder.on_complete(self.step_idx, r.rid, reason,
+                                      len(r.generated))
+
+    def resolve_decode(self, pending: PendingDecode
+                       ) -> List[Tuple[int, int]]:
+        """Wait for the step's (token, done, len) fetch -- the step's one
+        blocking host sync -- and apply it: tokens, trace, completions."""
+        if pending.ready is not None:
+            pending.ready.synchronize()
+            fetch_np = pending.fetch.numpy().copy()
+        else:
+            fetch_np = pending.fetch.cpu().numpy()
+        self.host_syncs += 1
+        toks_np, done_np, lens_np = (fetch_np[0], fetch_np[1].astype(bool),
+                                     fetch_np[2])
+        active_idx = np.nonzero(pending.active_np)[0]
+        out = [(self.slot_req[i].rid, int(toks_np[i])) for i in active_idx]
+        for i, (_rid, tok) in zip(active_idx, out):
+            self.slot_req[i].generated.append(tok)
+        if self.recorder is not None:
+            self.recorder.on_decode(
+                self.step_idx, occupancy=pending.n_tok,
+                slot_lens=[int(x) for x in lens_np],
+                slots=[int(i) for i in active_idx],
+                tokens=list(out), route=pending.route, overlap=False,
+                fused=False)
+        for i in active_idx:
+            if done_np[i]:
+                self._finish_slot(i)
+        return out
+
+    # ---- step: composition delegated to the scheduling policy --------------- #
+    def step(self) -> List[Tuple[int, int]]:
+        out = self.scheduler.step(self)
+        self.step_idx += 1
+        return out
+
+    def run_until_done(self, max_steps: int = 10_000) -> Dict[int, List[int]]:
+        results: Dict[int, List[int]] = {}
+        for _ in range(max_steps):
+            if not self.queue and all(r is None for r in self.slot_req):
+                break
+            for rid, tok in self.step():
+                results.setdefault(rid, []).append(tok)
+        return results

@@ -1,0 +1,152 @@
+"""The port's hand-written kernels against their plain PyTorch versions, on
+the card. Marked ``cuda``: each test skips without a CUDA device. On a
+machine with an H100, nvcc and triton:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Shapes are small and ragged (no tile divides them), so every masked edge
+is exercised. Tolerances are those of ``tests/test_kernels.py::_tol``:
+f32 1e-4 (sums taken in another order), bf16 5e-2 (the kernel and the
+plain version round to bf16 at other places)."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.layernorm import layernorm
+from repro_torch.kernels.pim_matvec import pim_matvec
+from repro_torch.models import transformer as T
+from repro_torch.models.params import init_params
+from repro_torch.serve import ServeConfig, ServeEngine
+
+pytestmark = pytest.mark.cuda
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels are built for sm_90a)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tol(dtype):
+    return dict(rtol=5e-2, atol=5e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-4, atol=1e-4)
+
+
+def _rand(shape, seed, dtype, scale=1.0):
+    a = np.random.default_rng(seed).standard_normal(shape) * scale
+    return torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+
+
+def _close(got, want, dtype):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("B,H,KH,S,L,offset,D", [
+    (2, 4, 2, 37, 165, 128, 64),     # ragged chunk, prefix of a cache
+    (1, 8, 8, 16, 40, 32, 64),       # last chunk overhangs the cache end
+    (3, 6, 2, 5, 5, 0, 128),         # plain causal self-attention
+    (1, 2, 1, 70, 90, 20, 32),
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_matches_plain(card, B, H, KH, S, L, offset, D, dtype):
+    q = _rand((B, H, S, D), 1, dtype)
+    kc, vc = _rand((B, KH, L, D), 2, dtype), _rand((B, KH, L, D), 3, dtype)
+    span = min(offset + S, L)
+    k, v = kc[:, :, :span], vc[:, :, :span]
+    got = flash_attention(q, k, v, causal=True, q_offset=offset)
+    want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=offset)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("B,H,KH,L,D,lens", [
+    (3, 8, 2, 100, 64, (1, 33, 100)),
+    (2, 32, 8, 77, 64, (77, 2)),
+    (1, 4, 4, 9, 128, (5,)),
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_matches_plain(card, B, H, KH, L, D, lens, dtype):
+    q = _rand((B, H, D), 1, dtype)
+    k, v = _rand((B, KH, L, D), 2, dtype), _rand((B, KH, L, D), 3, dtype)
+    n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    _close(decode_attention(q, k, v, n), ref.decode_attention_ref(q, k, v, n),
+           dtype)
+    # garbage past each length must not leak in
+    k2, v2 = k.clone(), v.clone()
+    for b, m in enumerate(lens):
+        k2[b, :, m:], v2[b, :, m:] = 1e4, -1e4
+    _close(decode_attention(q, k2, v2, n), ref.decode_attention_ref(q, k, v, n),
+           dtype)
+
+
+@pytest.mark.parametrize("n,d_in,d_out,act,bias", [
+    (1, 64, 64, "none", False),
+    (3, 100, 37, "silu", True),      # ragged: no vector loads
+    (8, 256, 520, "gelu", True),
+    (11, 130, 64, "silu", False),    # more rows than one launch takes
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_matvec_kernel_matches_plain(card, n, d_in, d_out, act, bias, dtype):
+    x = _rand((n, d_in), 1, dtype)
+    w = _rand((d_in, d_out), 2, dtype, d_in ** -0.5)
+    b = _rand((d_out,), 3, dtype) if bias else None
+    _close(pim_matvec(x, w, b, act), ref.matvec_ref(x, w, b, act), dtype)
+
+
+@pytest.mark.parametrize("mode", ["rmsnorm", "layernorm", "np_layernorm"])
+@pytest.mark.parametrize("rows,d", [(1, 64), (7, 300)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_norm_kernel_matches_plain(card, mode, rows, d, dtype):
+    x = _rand((rows, d), 1, dtype, 3.0)
+    s, b = _rand((d,), 2, dtype), _rand((d,), 3, dtype)
+    s = s if mode != "np_layernorm" else None
+    b = b if mode == "layernorm" else None
+    _close(layernorm(x, s, b, mode=mode), ref.norm_ref(x, s, b, mode=mode),
+           dtype)
+
+
+def test_each_launch_counts_once(card):
+    ops.reset_launch_counts()
+    x, w = _rand((10, 64), 1, torch.float32), _rand((64, 32), 2, torch.float32)
+    ops.fused_matvec(x, w)                      # 10 rows: two launches
+    ops.layernorm(x, x[0], mode="rmsnorm")
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "decode_attention": 0, "pim_matvec": 2,
+                                   "layernorm": 1}
+
+
+@pytest.mark.parametrize("kv_update", ["onehot", "scatter"])
+def test_engine_on_the_card_matches_the_cpu(card, kv_update):
+    """The reduced llama in float32 through the kernels gives the plain
+    path's greedy tokens and counters."""
+    cfg = dataclasses.replace(get_arch("llama3.2-1b").reduced(),
+                              dtype="float32", kv_update=kv_update)
+    params = init_params(T.param_defs(cfg), device="cpu", seed=4)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, p) for p in (3, 20, 1, 41)]
+    runs = []
+    for dev in ("cuda", "cpu"):
+        p = _tree(lambda a: a.float().to(dev), params)
+        eng = ServeEngine(cfg, p, ServeConfig(max_slots=3, max_len=48,
+                                              prefill_chunk=16), device=dev)
+        for pr in prompts:
+            eng.add_request(pr, max_new_tokens=6)
+        runs.append((eng.run_until_done(), eng.dispatch_counts,
+                     eng.host_syncs))
+    assert runs[0] == runs[1]
+
+
+def _tree(fn, t):
+    return {k: _tree(fn, v) for k, v in t.items()} if isinstance(t, dict) \
+        else fn(t)

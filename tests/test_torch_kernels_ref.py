@@ -1,0 +1,179 @@
+"""Port parity: the plain PyTorch versions of the port's kernels against the
+reference's oracles (``repro/kernels/ref.py``) and its Pallas kernels in
+interpret mode, on the CPU.
+
+Inputs are made with numpy from a seed and handed to both sides.
+Tolerances are those of ``tests/test_kernels.py::_tol``: f32 1e-4 (sums
+taken in another order), bf16 5e-2 (bf16 rounds at other places in the two
+frameworks)."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as jax_arch
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.kernels.layernorm import layernorm as pallas_layernorm
+from repro.kernels.pim_matvec import pim_matvec as pallas_matvec
+from repro.models import layers as JL
+from repro_torch.kernels import ref
+from repro_torch.models.params import from_jax_tree
+
+
+def _tol(dtype):
+    return dict(rtol=5e-2, atol=5e-2) if dtype == jnp.bfloat16 \
+        else dict(rtol=1e-4, atol=1e-4)
+
+
+def _rand(shape, seed, dtype=jnp.float32, scale=1.0, shift=0.0):
+    """A seeded standard-normal numpy array as a JAX array."""
+    a = np.random.default_rng(seed).standard_normal(shape) * scale + shift
+    return jnp.asarray(a.astype(np.float32)).astype(dtype)
+
+
+def _t(a):
+    """A JAX array as a torch tensor (bf16 included)."""
+    return from_jax_tree(np.asarray(a))
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+@pytest.mark.parametrize("n,d_in,d_out,act,bias", [
+    (1, 256, 512, "none", False),
+    (1, 1024, 1024, "gelu", True),
+    (4, 512, 256, "silu", True),
+    (8, 2048, 512, "gelu", False),
+])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_matvec_plain(n, d_in, d_out, act, bias, dtype):
+    x = _rand((n, d_in), 1, dtype, 0.5)
+    w = _rand((d_in, d_out), 2, dtype, 0.02)
+    b = _rand((d_out,), 3, dtype) if bias else None
+    got = ref.matvec_ref(_t(x), _t(w), None if b is None else _t(b), act)
+    assert got.dtype == _t(x).dtype and tuple(got.shape) == (n, d_out)
+    oracle = jref.matvec_ref(x, w, b, act)
+    pallas = pallas_matvec(x, w, b, act, block_n=256, block_k=256,
+                           interpret=True)
+    for want in (oracle, pallas):
+        np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                                   **_tol(dtype))
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Skv,offset", [
+    (1, 4, 2, 32, 64, 32),     # chunk 1 of a 2-chunk prefill
+    (2, 4, 4, 64, 192, 128),   # chunk 2 of 3
+    (1, 8, 2, 32, 32, 0),      # degenerate: plain causal self-attn
+])
+def test_flash_plain_q_offset(B, H, KH, Sq, Skv, offset):
+    """Queries at [offset, offset+Sq) against KV [0, Skv) equal the row
+    block of full causal attention, and the Pallas kernel's q_offset
+    mode."""
+    D = 32
+    q_full = _rand((B, H, Skv, D), 1)
+    k = _rand((B, KH, Skv, D), 2)
+    v = _rand((B, KH, Skv, D), 3)
+    q = q_full[:, :, offset:offset + Sq]
+    got = ref.flash_attention_ref(_t(q), _t(k), _t(v), causal=True,
+                                  q_offset=offset)
+    oracle = jref.flash_attention_ref(q_full, k, v, causal=True
+                                      )[:, :, offset:offset + Sq]
+    pallas = pallas_flash(q, k, v, causal=True, block_q=16, block_kv=32,
+                          q_offset=offset, interpret=True)
+    for want in (oracle, pallas):
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("B,H,KH,S,D,causal", [
+    (1, 4, 4, 64, 32, True),
+    (2, 8, 1, 128, 64, False),   # MQA
+])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_flash_plain_full(B, H, KH, S, D, causal, dtype):
+    q = _rand((B, H, S, D), 1, dtype)
+    k = _rand((B, KH, S, D), 2, dtype)
+    v = _rand((B, KH, S, D), 3, dtype)
+    got = ref.flash_attention_ref(_t(q), _t(k), _t(v), causal=causal)
+    want = jref.flash_attention_ref(q, k, v, causal=causal)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("B,H,KH,S,D", [
+    (2, 8, 2, 256, 64),
+    (3, 4, 1, 512, 64),
+])
+def test_decode_plain(B, H, KH, S, D):
+    q = _rand((B, H, D), 1, jnp.bfloat16)
+    k = _rand((B, KH, S, D), 2, jnp.bfloat16)
+    v = _rand((B, KH, S, D), 3, jnp.bfloat16)
+    lens = jnp.asarray(np.random.default_rng(4).integers(1, S + 1, B),
+                       jnp.int32)
+    got = ref.decode_attention_ref(_t(q), _t(k), _t(v), _t(lens))
+    oracle = jref.decode_attention_ref(q, k, v, lens)
+    pallas = pallas_decode(q, k, v, lens, block_kv=64, interpret=True)
+    for want in (oracle, pallas):
+        np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                                   **_tol(jnp.bfloat16))
+
+
+def test_decode_plain_masks_beyond_length():
+    """Garbage past the length must not leak into the output (the case of
+    test_kernels.py::test_decode_attention_masks_beyond_length)."""
+    B, H, KH, S, D = 1, 2, 2, 128, 32
+    q = _rand((B, H, D), 1)
+    k = _rand((B, KH, S, D), 2)
+    v = _rand((B, KH, S, D), 3)
+    lens = jnp.array([40], jnp.int32)
+    pallas = pallas_decode(q, k, v, lens, block_kv=32, interpret=True)
+    k2 = k.at[:, :, 40:].set(1e4)
+    v2 = v.at[:, :, 40:].set(-1e4)
+    base = ref.decode_attention_ref(_t(q), _t(k), _t(v), _t(lens))
+    got = ref.decode_attention_ref(_t(q), _t(k2), _t(v2), _t(lens))
+    np.testing.assert_allclose(_np(got), _np(base), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(got), np.asarray(pallas), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,d", [(32, 256), (64, 512)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_layernorm_plain(rows, d, dtype):
+    x = _rand((rows, d), 1, dtype, 3.0, 1.0)
+    s = _rand((d,), 2, dtype)
+    b = _rand((d,), 3, dtype)
+    got = ref.norm_ref(_t(x), _t(s), _t(b), mode="layernorm")
+    oracle = jref.layernorm_ref(x, s, b)
+    pallas = pallas_layernorm(x, s, b, block_rows=16, interpret=True)
+    for want in (oracle, pallas):
+        np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                                   **_tol(dtype))
+
+
+def test_norm_modes_need_their_params():
+    x = torch.randn(4, 8)
+    with pytest.raises(ValueError):
+        ref.norm_ref(x, mode="bogus")
+    y = ref.norm_ref(x, mode="np_layernorm")
+    np.testing.assert_allclose(y.mean(-1).numpy(), 0.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["rmsnorm", "np_layernorm"])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_norm_plain_other_modes(mode, dtype):
+    """The norm kernel's other modes against the reference's
+    ``layers.apply_norm`` (the Pallas kernel is LayerNorm only)."""
+    cfg = dataclasses.replace(jax_arch("llama3.2-1b").reduced(), norm=mode)
+    d = cfg.d_model
+    x = _rand((16, d), 1, dtype, 3.0, 1.0)
+    p = {"scale": _rand((d,), 2, dtype)} if mode == "rmsnorm" else {}
+    got = ref.norm_ref(_t(x), *(_t(v) for v in p.values()), mode=mode)
+    assert got.dtype == _t(x).dtype
+    want = JL.apply_norm(cfg, p, x)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **_tol(dtype))
