@@ -27,8 +27,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 ARGTYPES = {
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL,
-                               _I, _I, _F, _I, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _LL, _I, _I, _F, _I, _P],
     "decode_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                 _I, _P],
     "pim_matvec_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

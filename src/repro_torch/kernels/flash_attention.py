@@ -1,12 +1,18 @@
-"""flash_attention — blocked causal GQA attention for the prefill stage.
+"""flash_attention — blocked GQA attention for the prefill stage.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``
-in its static ``q_offset`` mode. The kernel is hand-written CUDA
+in both of its masking modes, with one hand-written CUDA kernel template
 (``csrc/flash_attention.cu``, whose header says what bounds it on an H100
-and what its design does about that); ``ref.flash_attention_ref`` is its
-plain PyTorch version. Unlike the TPU kernel it masks ragged edges itself,
-so every chunk shape goes to it, including a last prefill chunk that
-overhangs the cache.
+and what its design does about that):
+
+  * ``flash_attention`` — the static ``q_offset`` mode (unpacked chunked
+    prefill); plain version ``ref.flash_attention_ref``;
+  * ``flash_attention_segmented`` — the ``segment_info`` mode (packed
+    prefill); plain version ``ref.segment_attention_ref``.
+
+Each wrapper keeps its own launch count. Unlike the TPU kernel, the CUDA
+kernel masks ragged edges itself, so every chunk shape goes to it,
+including a last prefill chunk that overhangs the cache.
 """
 from __future__ import annotations
 
@@ -16,18 +22,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import dtype_code, on_cuda, stream_of
-from repro_torch.kernels.ref import flash_attention_ref  # noqa: F401  (plain version)
+from repro_torch.kernels.ref import (  # noqa: F401  (plain versions)
+    flash_attention_ref, segment_attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 128)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
-    """q: (B, H, S, D) contiguous; k, v: (B, KH, Skv, D) with contiguous
-    (Skv, D) rows per head (a prefix slice of a cache is fine) ->
-    (B, H, S, D) in q.dtype. Launches the CUDA kernel."""
-    on_cuda(q, k, v)
-    code = dtype_code(q, k, v)
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """Shapes and layout the kernel takes; returns K/V's head stride."""
     B, H, S, D = q.shape
     KH, Skv = k.shape[1], k.shape[2]
     if k.shape != (B, KH, Skv, D) or v.shape != k.shape or H % KH:
@@ -44,17 +46,58 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"kernel needs {name} as (B, KH, Skv, D) rows "
                              f"of a (B, KH, L, D) layout, got strides "
                              f"{t.stride()}")
-    if causal and q_offset < 0:
-        raise ValueError(f"q_offset {q_offset} < 0")
+    return head_stride
+
+
+def _launch(q, k, v, ids, *, q_offset: int, causal: bool) -> torch.Tensor:
+    code = dtype_code(q, k, v)
+    head_stride = _check_qkv(q, k, v)
+    B, H, S, D = q.shape
+    KH, Skv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lib = _build.load("flash_attention")
+    ptrs = [None] * 4 if ids is None else [t.data_ptr() for t in ids]
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, KH, S,
-        Skv, D, head_stride, q_offset, int(causal), 1.0 / math.sqrt(D), code,
-        stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *ptrs, B, H,
+        KH, S, Skv, D, head_stride, q_offset, int(causal),
+        1.0 / math.sqrt(D), code, stream_of(q))
     _build.check(lib, err, "flash_attention")
+    return o
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Static mode. q: (B, H, S, D) contiguous; k, v: (B, KH, Skv, D) with
+    contiguous (Skv, D) rows per head (a prefix slice of a cache is fine)
+    -> (B, H, S, D) in q.dtype. Launches the CUDA kernel."""
+    on_cuda(q, k, v)
+    if causal and q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} < 0")
+    o = _launch(q, k, v, None, q_offset=q_offset, causal=causal)
     flash_attention.launches += 1
     return o
 
 
+def flash_attention_segmented(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, segment_info) -> torch.Tensor:
+    """Segmented mode. q, k, v as for ``flash_attention``; ``segment_info``
+    = (q_pos, q_seg, kv_pos, kv_seg), contiguous int32 of shape (B, S),
+    (B, S), (B, Skv), (B, Skv) on q's device. A query attends a key iff
+    ``q_seg == kv_seg and q_pos >= kv_pos`` -> (B, H, S, D) in q.dtype.
+    Launches the CUDA kernel."""
+    ids = tuple(segment_info)
+    on_cuda(q, k, v, *ids)
+    B, S, Skv = q.shape[0], q.shape[2], k.shape[2]
+    for name, t, n in zip(("q_pos", "q_seg", "kv_pos", "kv_seg"), ids,
+                          (S, S, Skv, Skv)):
+        if t.dtype != torch.int32 or t.shape != (B, n) \
+                or not t.is_contiguous():
+            raise ValueError(f"kernel needs {name} as contiguous int32 "
+                             f"({B}, {n}), got {t.dtype} {tuple(t.shape)}")
+    o = _launch(q, k, v, ids, q_offset=0, causal=False)
+    flash_attention_segmented.launches += 1
+    return o
+
+
 flash_attention.launches = 0
+flash_attention_segmented.launches = 0

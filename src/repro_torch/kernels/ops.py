@@ -20,11 +20,14 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention as _decode
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.flash_attention import \
+    flash_attention_segmented as _flash_seg
 from repro_torch.kernels.layernorm import layernorm as _norm
 from repro_torch.kernels.pim_matvec import pim_matvec as _matvec
 
-KERNELS = {"flash_attention": _flash, "decode_attention": _decode,
-           "pim_matvec": _matvec, "layernorm": _norm}
+KERNELS = {"flash_attention": _flash, "flash_attention_segmented": _flash_seg,
+           "decode_attention": _decode, "pim_matvec": _matvec,
+           "layernorm": _norm}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -64,12 +67,22 @@ def fused_matvec(x, w, bias=None, activation: str = "none"):
                    None if bias is None else bias.contiguous(), activation)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
-    """q: (B, H, S, D); k, v: (B, KH, Skv, D) -> (B, H, S, D) in q.dtype."""
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    segment_info=None):
+    """q: (B, H, S, D); k, v: (B, KH, Skv, D) -> (B, H, S, D) in q.dtype.
+    ``segment_info`` = (q_pos, q_seg, kv_pos, kv_seg) int arrays of shape
+    (B, S), (B, S), (B, Skv), (B, Skv) replaces ``q_offset``/``causal``
+    with the packed-prefill mask (the segmented kernel)."""
     out_dtype = q.dtype
     q, k, v = _common(q, k, v)
+    if segment_info is not None:
+        segment_info = [t.to(torch.int32) for t in segment_info]
     if not _use_kernel(q):
-        o = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+        o = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                    segment_info=segment_info)
+    elif segment_info is not None:
+        o = _flash_seg(q.contiguous(), k.contiguous(), v.contiguous(),
+                       [t.contiguous() for t in segment_info])
     else:
         o = _flash(q.contiguous(), k, v, causal=causal, q_offset=q_offset)
     return o.to(out_dtype)

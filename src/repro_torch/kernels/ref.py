@@ -38,18 +38,45 @@ def matvec_ref(x, w, bias=None, activation: str = "none") -> torch.Tensor:
     return activate(out, activation).to(x.dtype)
 
 
-def flash_attention_ref(q, k, v, causal: bool = True,
-                        q_offset: int = 0) -> torch.Tensor:
+def flash_attention_ref(q, k, v, causal: bool = True, q_offset: int = 0,
+                        segment_info=None) -> torch.Tensor:
     """q: (B, H, S, D); k, v: (B, KH, Skv, D) -> (B, H, S, D). Queries sit
-    at global positions [q_offset, q_offset + S) against keys [0, Skv)."""
-    B, H, S, D = q.shape
-    KH, Skv = k.shape[1], k.shape[2]
-    qg = q.reshape(B, KH, H // KH, S, D).float() * (1.0 / math.sqrt(D))
-    s = torch.einsum("bkgqd,bkcd->bkgqc", qg, k.float())
+    at global positions [q_offset, q_offset + S) against keys [0, Skv).
+    ``segment_info`` = (q_pos, q_seg, kv_pos, kv_seg) replaces
+    ``q_offset``/``causal`` with the packed-prefill mask
+    (``segment_attention_ref``)."""
+    if segment_info is not None:
+        return segment_attention_ref(q, k, v, *segment_info)
+    S, Skv = q.shape[2], k.shape[2]
+    mask = None
     if causal:
         q_pos = q_offset + torch.arange(S, device=q.device)
         kv_pos = torch.arange(Skv, device=q.device)
         mask = q_pos[:, None] >= kv_pos[None, :]
+    return _masked_attention(q, k, v, mask)
+
+
+def segment_attention_ref(q, k, v, q_pos, q_seg, kv_pos,
+                          kv_seg) -> torch.Tensor:
+    """The packed-prefill mask. q: (B, H, Sq, D); k, v: (B, KH, Skv, D);
+    q_pos/q_seg: (B, Sq); kv_pos/kv_seg: (B, Skv) int32. A query attends a
+    key iff they share a segment id and the key's position does not exceed
+    the query's (causal within the segment). A query that matches no key
+    (padding, segment -2) averages every key, as a softmax over equal
+    ``-1e30`` scores does."""
+    mask = ((q_seg[:, :, None] == kv_seg[:, None, :])
+            & (q_pos[:, :, None] >= kv_pos[:, None, :]))     # (B, Sq, Skv)
+    return _masked_attention(q, k, v, mask[:, None, None])
+
+
+def _masked_attention(q, k, v, mask) -> torch.Tensor:
+    """Softmax attention in f32 with masked scores at ``-1e30`` and the row
+    sum clamped at 1e-30; ``mask`` broadcasts to (B, KH, G, S, Skv)."""
+    B, H, S, D = q.shape
+    KH = k.shape[1]
+    qg = q.reshape(B, KH, H // KH, S, D).float() * (1.0 / math.sqrt(D))
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qg, k.float())
+    if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)

@@ -1,7 +1,7 @@
 """Serving launcher of the port: batched request replay through its engine.
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --requests 8
-  python -m repro_torch.launch.serve --smoke --device cpu
+  python -m repro_torch.launch.serve --smoke --device cpu [--pack]
 
 Runs on the card unless ``--device cpu`` is given (then through the
 kernels' plain PyTorch versions). Weights are random, from ``--seed``.
@@ -41,6 +41,9 @@ def main(argv=None):
     ap.add_argument("--prefill-mode", default="batched",
                     choices=["batched", "sequential"])
     ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--pack", action="store_true",
+                    help="pack several prompts per prefill chunk row "
+                         "(sched/packing.py)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     ap.add_argument("--seed", type=int, default=0)
@@ -57,7 +60,7 @@ def main(argv=None):
     params = init_params(T.param_defs(cfg), device=dev, seed=args.seed)
     scfg = ServeConfig(max_slots=args.slots, max_len=args.max_len,
                        prefill_mode=args.prefill_mode,
-                       prefill_chunk=args.prefill_chunk)
+                       prefill_chunk=args.prefill_chunk, pack=args.pack)
     if dev.type == "cuda":
         # one short request through a throwaway engine first, so that the
         # kernels' build, Triton's JIT and the libraries' set-up stay out
@@ -104,6 +107,12 @@ def main(argv=None):
           f"({eng.effective_prefill_mode}), "
           f"{eng.dispatch_counts['decode']} decode; "
           f"{eng.host_syncs} host syncs")
+    st = eng.prefill_stats
+    if st["token_slots"]:
+        print(f"[serve] prefill valid fraction "
+              f"{st['valid_tokens'] / st['token_slots']:.3f} "
+              f"({st['valid_tokens']} of {st['token_slots']} token slots"
+              f"{', packed' if args.pack else ''})")
     print(f"[serve] kernel launches: {ops.launch_counts()}")
     if prof is not None:
         print_device_time(prof, dt)

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-          "float16": torch.float16}
+          "float16": torch.float16, "int8": torch.int8}
 
 
 @dataclasses.dataclass(frozen=True)

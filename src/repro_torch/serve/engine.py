@@ -17,14 +17,22 @@ Counterpart of ``repro/serve/engine.py`` under the ``serial`` policy:
     with ``non_blocking`` copies, so they never wait for the card;
   * every dispatch's phase and FC route lands in ``pas_log``.
 
+Packed prefill (``ServeConfig.pack``): a wave's prompts are first-fit-
+decreasing packed into chunk lanes (several short prompts, or a long
+prompt's tail plus shorts, per row; ``sched/packing.py``), and each packed
+dispatch runs ``T.prefill_chunk_packed`` (the flash kernel's segmented
+mode). The segment mask makes packing numerically invisible: packed and
+unpacked serves give the same greedy tokens. A packed dispatch uploads its
+layout arrays and adds no host sync.
+
 Counters: one call of ``prefill_chunk`` or ``decode_and_sample`` (or, on
 the sequential path, of ``decode_step``) is one dispatch; ``host_syncs``
 counts blocking fetches. A ``repro.trace.TraceRecorder`` (or anything with
 its hooks) can be attached; the port never imports one.
 
 Knobs of later slices raise ``NotImplementedError`` at construction:
-``pack``, ``fuse``, ``superstep > 1``, the interleaving policies, the int8
-KV cache and non-dense families; KV-snapshot restores raise in
+``fuse``, ``superstep > 1``, the interleaving policies (with or without
+``pack``) and non-dense families; KV-snapshot restores raise in
 ``add_request``.
 """
 from __future__ import annotations
@@ -39,7 +47,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pas import phase_log_entry
 from repro_torch.models import transformer as T
 from repro_torch.models.params import init_params, resolve_device
-from repro_torch.sched import PrefillJob, make_scheduler
+from repro_torch.sched import (PackedPrefillJob, PrefillJob, make_scheduler,
+                               plan_packed_job)
 
 
 @dataclass
@@ -68,7 +77,7 @@ class ServeConfig:
     sub_batch: int = 0            # interleaving policies only
     map_dims: Optional[Tuple[int, int]] = None  # pim_aware only
     double_buffer: bool = True    # async fetch of the decode result
-    pack: bool = False            # packed prefill: not ported yet
+    pack: bool = False            # packed prefill (sched/packing.py)
     max_prefill_jobs: int = 1     # interleaving policies only
     decode_floor: int = 0         # interleaving policies only
     fuse: bool = False            # fused steps: not ported yet
@@ -93,9 +102,8 @@ class PendingDecode:
 
 
 def _unsupported(scfg: ServeConfig) -> Optional[str]:
-    # non-dense families and the int8 cache raise in T.cache_defs
-    if scfg.pack:
-        return "packed prefill (ROADMAP queue 1, item 6)"
+    # non-dense families raise in T.cache_defs, the interleaving policies
+    # (with or without pack) in make_scheduler
     if scfg.fuse or scfg.superstep > 1:
         return "fused steps and supersteps (ROADMAP queue 1, item 8)"
     return None
@@ -137,6 +145,11 @@ class ServeEngine:
         self.superstep_tokens = 0
         self.prefill_stats = {"token_slots": 0, "valid_tokens": 0,
                               "kv_cells": 0}
+        # read by TraceRecorder's summary; KV snapshots (not ported yet)
+        # move them
+        self.snapshot_stats = {"exports": 0, "export_bytes": 0,
+                               "export_syncs": 0, "restores": 0,
+                               "restored_tokens": 0, "restore_bytes": 0}
         self.step_idx = 0
         self.wave_count = 0
         self.admission_rejects = 0
@@ -232,17 +245,20 @@ class ServeEngine:
         for r in self.queue:
             r.deferred += 1
         sl = self._upload(np.array([s for s, _ in admitted], np.int64))
+        # index_fill_ takes its value as a kernel argument; assigning a
+        # Python scalar through an index would copy it to the card with a
+        # blocking copy
         for leaves in self.cache.values():
             for leaf in leaves.values():
-                leaf[:, sl] = 0
+                leaf.index_fill_(1, sl, 0)
         # the decode step writes K/V at lens[slot] for every slot; a slot
         # mid-prefill parks its cursor at max_len-1 (never attended) so a
         # decode cannot clobber its prompt cache. The sequential path drives
         # lens itself and starts at 0.
         park = self.scfg.max_len - 1 \
             if self.effective_prefill_mode == "batched" else 0
-        self.lens[sl] = park
-        self.gen_count[sl] = 0
+        self.lens.index_fill_(0, sl, park)
+        self.gen_count.index_fill_(0, sl, 0)
         self.max_new[sl] = self._upload(
             np.array([r.max_new_tokens for _, r in admitted], np.int32))
         for slot, req in admitted:
@@ -257,8 +273,13 @@ class ServeEngine:
 
     def build_prefill_job(self, wave) -> Optional[PrefillJob]:
         """Lay a wave's prompt tokens (all but the last of each) out for
-        chunked dispatch; None when there is nothing to cache."""
+        chunked dispatch; None when there is nothing to cache. With
+        ``pack=True`` the wave is first-fit-decreasing packed into chunk
+        lanes (``plan_packed_job``) instead of one row per slot."""
         B, C = self.scfg.max_slots, self.scfg.prefill_chunk
+        if self.scfg.pack:
+            return plan_packed_job(wave, max_slots=B, chunk=C,
+                                   sub_batch=self.wave_count - 1)
         S = max(len(r.prompt) - 1 for _, r in wave)
         if S == 0:
             return None
@@ -289,8 +310,45 @@ class ServeEngine:
                 route=entry, sub_batch=job.sub_batch, overlap=False,
                 fused=False)
 
+    def _account_packed_prefill(self, job: PackedPrefillJob, d) -> None:
+        """Stats, PAS log and trace event of one packed dispatch. A packed
+        event has no single offset (each lane sits elsewhere in its
+        prompts), so the trace records offset -1 and the packing."""
+        C = job.chunk
+        self.prefill_stats["token_slots"] += d.token_slots
+        self.prefill_stats["valid_tokens"] += d.n_valid
+        self.prefill_stats["kv_cells"] += d.rows * (d.prefix_span + C)
+        slots = sorted({int(s) for s in d.seg_slot[d.valid]})
+        entry = self._phase_entry("summarization", d.n_valid, len(slots))
+        self.pas_log.append(entry)
+        if self.recorder is not None:
+            self.recorder.on_prefill(
+                self.step_idx, offset=-1, chunk=C, valid=d.n_valid,
+                kv=d.prefix_span + C, slots=slots, route=entry,
+                sub_batch=job.sub_batch, overlap=False, fused=False,
+                packed=True, segments=d.segments, rows=d.rows)
+
+    def _dispatch_packed_chunk(self, job: PackedPrefillJob) -> None:
+        """Run the job's next packed dispatch through
+        ``T.prefill_chunk_packed``: its grid is exactly the lanes the plan
+        uses, and the per-token (slot, position) layout drives the K/V
+        scatter and the segment mask."""
+        d = job.dispatches[job.next_chunk]
+        job.next_chunk += 1
+        self.cache = T.prefill_chunk_packed(
+            self.cfg, self.params, self._upload(d.tokens), self.cache,
+            self._upload(d.seg_slot), self._upload(d.seg_pos),
+            self._upload(d.seg_ids), self._upload(d.valid),
+            self._upload(d.row_slot), self._upload(d.prefix_len),
+            prefix_span=d.prefix_span)
+        self.dispatch_counts["prefill"] += 1
+        self._account_packed_prefill(job, d)
+
     def dispatch_prefill_chunk(self, job: PrefillJob) -> None:
-        """Run the job's next chunk through ``T.prefill_chunk``."""
+        """Run the job's next chunk through ``T.prefill_chunk`` (or, for a
+        packed job, its next packed dispatch)."""
+        if isinstance(job, PackedPrefillJob):
+            return self._dispatch_packed_chunk(job)
         c, C = job.next_chunk, job.chunk
         job.next_chunk += 1
         vc = job.valid[:, c * C:(c + 1) * C]

@@ -14,7 +14,8 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_segmented)
 from repro_torch.kernels.layernorm import layernorm
 from repro_torch.kernels.pim_matvec import pim_matvec
 from repro_torch.serve import ServeEngine
@@ -103,11 +104,15 @@ def test_ops_refuse_a_device_without_a_path():
 @pytest.mark.parametrize("call", [
     lambda t: flash_attention(t(1, 2, 3, 16), t(1, 2, 3, 16),
                               t(1, 2, 3, 16)),
+    lambda t: flash_attention_segmented(
+        t(1, 2, 3, 16), t(1, 2, 3, 16), t(1, 2, 3, 16),
+        [torch.zeros(1, 3, dtype=torch.int32)] * 4),
     lambda t: decode_attention(t(1, 2, 16), t(1, 2, 3, 16), t(1, 2, 3, 16),
                                torch.ones(1, dtype=torch.int32)),
     lambda t: pim_matvec(t(1, 16), t(16, 8)),
     lambda t: layernorm(t(2, 16), t(16), mode="rmsnorm"),
-], ids=["flash_attention", "decode_attention", "pim_matvec", "layernorm"])
+], ids=["flash_attention", "flash_attention_segmented", "decode_attention",
+        "pim_matvec", "layernorm"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises: given CPU tensors it
     raises before any build, and counts nothing."""

@@ -17,7 +17,8 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_segmented)
 from repro_torch.kernels.layernorm import layernorm
 from repro_torch.kernels.pim_matvec import pim_matvec
 from repro_torch.models import transformer as T
@@ -67,6 +68,55 @@ def test_flash_kernel_matches_plain(card, B, H, KH, S, L, offset, D, dtype):
     got = flash_attention(q, k, v, causal=True, q_offset=offset)
     want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=offset)
     _close(got, want, dtype)
+
+
+def _segment_layout(R, C, prefix_lens, seed):
+    """Packed lanes as the planner lays them out: a lane with a prefix
+    starts with its continuation segment (id 0), then whole prompts (ids
+    1..) and padding columns; keys are [prefix span ; chunk]."""
+    rng = np.random.default_rng(seed)
+    span = -(-max(prefix_lens) // C) * C
+    q_pos = np.zeros((R, C), np.int32)
+    q_seg = np.full((R, C), -2, np.int32)
+    for r, p in enumerate(prefix_lens):
+        col, sid = 0, 1
+        if p:
+            n = int(rng.integers(1, C + 1))
+            q_pos[r, :n], q_seg[r, :n], col = p + np.arange(n), 0, n
+        while col < C:
+            n = int(rng.integers(1, C // 2 + 2))
+            if col + n > C:
+                break
+            q_pos[r, col:col + n], q_seg[r, col:col + n] = np.arange(n), sid
+            col, sid = col + n, sid + 1
+    pref_pos = np.tile(np.arange(span, dtype=np.int32), (R, 1))
+    pref_seg = np.where(pref_pos < np.array(prefix_lens)[:, None], 0, -1)
+    kv_pos = np.concatenate([pref_pos, q_pos], axis=1)
+    kv_seg = np.concatenate([pref_seg, np.where(q_seg < 0, -1, q_seg)],
+                            axis=1).astype(np.int32)
+    return [torch.from_numpy(a).cuda() for a in (q_pos, q_seg, kv_pos,
+                                                  kv_seg)]
+
+
+@pytest.mark.parametrize("R,H,KH,C,prefix_lens,D", [
+    (3, 8, 2, 37, (0, 50, 13), 64),         # ragged chunk and span
+    (2, 8, 2, 128, (300, 0), 128),
+    (4, 16, 4, 20, (0, 0, 0, 0), 64),       # no prefix: keys are the chunk
+    (1, 4, 1, 70, (33,), 32),
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_segmented_kernel_matches_plain(card, R, H, KH, C, prefix_lens, D,
+                                        dtype):
+    info = _segment_layout(R, C, prefix_lens, 7)
+    Skv = info[2].shape[1]
+    q = _rand((R, H, C, D), 1, dtype)
+    k, v = _rand((R, KH, Skv, D), 2, dtype), _rand((R, KH, Skv, D), 3, dtype)
+    got = flash_attention_segmented(q, k, v, info)
+    want = ref.segment_attention_ref(q, k, v, *info)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())        # padding rows included
+    rows = (info[1] >= 0)[:, None, :, None].expand_as(got)
+    _close(got[rows], want[rows], dtype)
 
 
 @pytest.mark.parametrize("B,H,KH,L,D,lens", [
@@ -120,18 +170,28 @@ def test_each_launch_counts_once(card):
     x, w = _rand((10, 64), 1, torch.float32), _rand((64, 32), 2, torch.float32)
     ops.fused_matvec(x, w)                      # 10 rows: two launches
     ops.layernorm(x, x[0], mode="rmsnorm")
+    q, k = _rand((2, 4, 8, 32), 3, torch.float32), \
+        _rand((2, 2, 24, 32), 4, torch.float32)
+    info = _segment_layout(2, 8, (16, 0), 5)
+    ops.flash_attention(q, k, k, segment_info=info)
+    ops.flash_attention(q, k, k, segment_info=info)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"flash_attention": 0,
+                                   "flash_attention_segmented": 2,
                                    "decode_attention": 0, "pim_matvec": 2,
                                    "layernorm": 1}
 
 
 @pytest.mark.parametrize("kv_update", ["onehot", "scatter"])
-def test_engine_on_the_card_matches_the_cpu(card, kv_update):
+@pytest.mark.parametrize("pack,kv_dtype", [(False, "bf16"), (True, "bf16"),
+                                           (False, "int8"), (True, "int8")])
+def test_engine_on_the_card_matches_the_cpu(card, kv_update, pack, kv_dtype):
     """The reduced llama in float32 through the kernels gives the plain
-    path's greedy tokens and counters."""
+    path's greedy tokens and counters, packed or not, bf16 or int8
+    cache."""
     cfg = dataclasses.replace(get_arch("llama3.2-1b").reduced(),
-                              dtype="float32", kv_update=kv_update)
+                              dtype="float32", kv_update=kv_update,
+                              kv_dtype=kv_dtype)
     params = init_params(T.param_defs(cfg), device="cpu", seed=4)
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab_size, p) for p in (3, 20, 1, 41)]
@@ -139,7 +199,8 @@ def test_engine_on_the_card_matches_the_cpu(card, kv_update):
     for dev in ("cuda", "cpu"):
         p = _tree(lambda a: a.float().to(dev), params)
         eng = ServeEngine(cfg, p, ServeConfig(max_slots=3, max_len=48,
-                                              prefill_chunk=16), device=dev)
+                                              prefill_chunk=16, pack=pack),
+                          device=dev)
         for pr in prompts:
             eng.add_request(pr, max_new_tokens=6)
         runs.append((eng.run_until_done(), eng.dispatch_counts,

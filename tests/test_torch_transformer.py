@@ -173,4 +173,4 @@ def test_non_dense_families_raise():
             T.param_defs(cfg)
     with pytest.raises(NotImplementedError):
         T.cache_defs(dataclasses.replace(get_arch("llama3.2-1b"),
-                                         kv_dtype="int8"), 1, 8)
+                                         family="ssm"), 1, 8)
