@@ -10,10 +10,15 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
      in parallel);
   2. hold each kernel against its plain PyTorch version on the card, at
-     the full-width llama3.2-1b shapes of the serving path plus ragged
+     the full-width shapes of the serving paths (llama3.2-1b's, and
+     rwkv6-7b's full-sequence prefill for ``rwkv_chunk``) plus ragged
      cases, in float32 and bfloat16 (tolerances of the reference's kernel
-     tests: 1e-4 and 5e-2), and time the kernel, the plain version and one
-     PyTorch library call computing the same function;
+     tests: 1e-4, 2e-3 for the chunked wkv, and 5e-2), and time the kernel,
+     the plain version and one PyTorch library call computing the same
+     function where there is one;
+  2b. call ``ops.masked_softmax`` on a llama prefill chunk's scores with
+     the launch counts set to 0 just before: the kernel must launch, give
+     exact zeros where masked and rows that sum to 1;
   3. serve 8 requests through ``ServeEngine`` at full llama3.2-1b width
      (bf16, random weights from a seed) with the launch counts set to 0
      just before and read just after; every kernel of the unpacked path
@@ -27,7 +32,17 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      unpacked, packed and with the int8 cache: greedy tokens, dispatch
      counts and host syncs must be identical, and on the card the packed
      serve must give the unpacked one's tokens, decode dispatches and
-     host syncs.
+     host syncs;
+  5. serve 8 requests (prompts of 8-64 tokens, 16 new tokens each)
+     through rwkv6-7b at full width (bf16, random weights from a seed):
+     sequential prefill and decode through ``pim_matvec`` and the norm
+     kernel, one host sync per decode step and no hidden one;
+  5b. run rwkv6-7b's full-sequence prefill step (B 2, S 2048,
+     ``last_only=True``): ``rwkv_chunk`` must launch once per layer;
+  6. rwkv6-7b at full width and depth 2 in float32, the kernels on the
+     card against the plain versions on the CPU: the serve gives identical
+     greedy tokens, dispatch counts and host syncs, the prefill step at
+     S 256 logits within 1e-4.
 
 The last two lines of standard output are the kernel table as one JSON
 object, then ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -49,6 +64,10 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 tensor / f32 CUDA cores
+# exps on the special function units: 132 SMs x 16 results per clock per SM
+# (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0) x the 1.98 GHz boost clock of the H100 SXM data sheet
+SFU_PER_S = 132 * 16 * 1.98e9
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
@@ -90,11 +109,12 @@ def kernel_cases(torch, dtype):
     """(kernel, label, kernel call, plain call, library call, bytes, flops)
     at the serving path's full-width shapes and ragged ones."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_segmented)
     from repro_torch.kernels.layernorm import layernorm
+    from repro_torch.kernels.masked_softmax import masked_softmax
     from repro_torch.kernels.pim_matvec import pim_matvec
 
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -186,6 +206,49 @@ def kernel_cases(torch, dtype):
             library=lambda x=x, w=w, a=lib_act: a(torch.matmul(x, w)),
             bytes=(x.numel() + w.numel() + n * dout) * es,
             flops=2.0 * n * din * dout))
+    # rwkv_chunk: the full-sequence prefill step's call as rwkv_time_mix
+    # makes it (B 2 x H 64 heads of 64, T 2048; u (H, K) broadcast over the
+    # batch; y in f32), and a ragged T with u per row and y in r's dtype;
+    # r, k, v in the case's dtype, the model's decays (exp(-exp(w0)),
+    # w0 = log U(1e-3, 1)) in f32
+    for BH, T_, K, U, y_dtype in ((128, 2048, 64, 64, torch.float32),
+                                  (4, 200, 64, 4, None)):
+        r, k, v = (rn(BH, T_, K, scale=0.5) for _ in range(3))
+        w0 = torch.log(torch.rand((BH, T_, K), generator=g, device="cuda")
+                       * (1 - 1e-3) + 1e-3)
+        w = torch.exp(-torch.exp(w0))
+        u = torch.randn((U, K), generator=g, device="cuda") * 0.1
+        u_rows = u.repeat(BH // U, 1)       # u per row for the plain version
+        flops, exps = rwkv_operations(BH, T_, K)
+        ys = 4 if y_dtype == torch.float32 else es
+        cases.append(dict(
+            kernel="rwkv_chunk", label=f"BH{BH} T{T_} K{K}",
+            tol={"float32": 2e-3, "bfloat16": 5e-2},
+            run=lambda r=r, k=k, v=v, w=w, u=u, o=y_dtype: ops.rwkv_chunk(
+                r, k, v, w, u, out_dtype=o),
+            plain=lambda r=r, k=k, v=v, w=w, u=u_rows, o=y_dtype:
+                ref.rwkv_chunk_ref(r, k, v, w, u, out_dtype=o),
+            library=None, exps=exps, math="float32",
+            bytes=BH * T_ * K * (3 * es + 4 + ys) + 4 * U * K
+            + 4 * BH * K * K,
+            flops=flops))
+    # masked_softmax: the scores of a llama prefill chunk (8 slots x 32
+    # heads x 128 queries against 640 keys at offset 512: the causal
+    # bitmap with random holes), and rows of 4096 with fully masked ones
+    for rows, n, dead in ((8 * 32 * 128, 640, 0), (999, 4096, 3)):
+        x = rn(rows, n, scale=3.0)
+        keep = softmax_mask(torch, g, rows, n, dead)
+        xm = x.masked_fill(~keep, float("-inf"))
+        cases.append(dict(
+            kernel="masked_softmax",
+            label=f"rows{rows} n{n}" + (f" ({dead} fully masked)"
+                                        if dead else ""),
+            run=lambda x=x, m=keep: masked_softmax(x, m),
+            plain=lambda x=x, m=keep: ref.masked_softmax_ref(x, m),
+            library=lambda xm=xm: torch.softmax(xm, dim=-1),
+            check=lambda got, m=keep: softmax_invariants(torch, got, m),
+            math="float32",
+            bytes=rows * n * (2 * es + 1), flops=5.0 * rows * n))
     # norm: prefill rows (8 slots x 128-token chunk) and decode rows
     for rows in (1024, 8):
         x, s = rn(rows, d, scale=3.0), rn(d)
@@ -196,6 +259,53 @@ def kernel_cases(torch, dtype):
             library=lambda x=x, s=s: F.rms_norm(x, (d,), s, 1e-6),
             bytes=(2 * x.numel() + d) * es, flops=4.0 * rows * d))
     return cases
+
+
+RWKV_CHUNK = 64     # the CUDA kernel's chunk (csrc/rwkv_chunk.cu)
+
+
+def rwkv_operations(BH: int, T: int, K: int):
+    """(FLOPs, exps) the chunked wkv needs for these shapes: per chunk of
+    n valid steps, the lower-triangle attention (3 per (i, j<i, c)), the
+    bonus, the inter-chunk product (r Q) S0, the triangle of att . v and
+    the state advance (2 per multiply-add); one exp per decay ratio of the
+    triangle and two per (step, channel)."""
+    flops = exps = 0
+    for t0 in range(0, T, RWKV_CHUNK):
+        n = min(RWKV_CHUNK, T - t0)
+        tri = n * (n - 1) // 2
+        flops += 3 * tri * K + 3 * n * K + 2 * n * K * K \
+            + 2 * K * n * (n + 1) // 2 + 2 * K * K * n
+        exps += tri * K + 2 * n * K
+    return float(BH * flops), float(BH * exps)
+
+
+def softmax_mask(torch, g, rows: int, n: int, dead: int):
+    """A causal bitmap over rows of queries (query i sees keys up to
+    offset + i, offset n - 128) with 10 % random holes; ``dead`` rows
+    fully masked."""
+    q = torch.arange(rows, device="cuda")[:, None] % 128 + (n - 128)
+    keep = (torch.arange(n, device="cuda")[None, :] <= q) \
+        & (torch.rand((rows, n), generator=g, device="cuda") > 0.1)
+    keep[:, 0] = True
+    if dead:
+        keep[torch.arange(dead, device="cuda") * (rows // dead)] = False
+    return keep
+
+
+def softmax_invariants(torch, got, keep):
+    """Masked entries exactly 0, fully masked rows all 0, others summing
+    to 1 (1e-3 in bf16, 1e-5 in f32); None when they hold."""
+    if bool((got[~keep] != 0).any()):
+        return "a masked entry is not exactly 0"
+    sums = got.float().sum(-1)
+    live = keep.any(-1)
+    if bool((sums[~live] != 0).any()):
+        return "a fully masked row is not all 0"
+    tol = 1e-5 if got.dtype == torch.float32 else 1e-2
+    if bool(((sums[live] - 1).abs() > tol).any()):
+        return f"rows do not sum to 1 within {tol}"
+    return None
 
 
 def serve_prompts(vocab: int):
@@ -238,24 +348,40 @@ SOURCES = {
                    "src/repro/kernels/pim_matvec.py:52"),
     "layernorm": ("triton", "src/repro_torch/kernels/layernorm.py",
                   "src/repro/kernels/layernorm.py:29"),
+    "rwkv_chunk": ("cuda", "src/repro_torch/kernels/csrc/rwkv_chunk.cu",
+                   "src/repro/kernels/rwkv_chunk.py:75"),
+    "masked_softmax": ("triton", "src/repro_torch/kernels/masked_softmax.py",
+                       "src/repro/kernels/masked_softmax.py:27"),
 }
 # the case of each kernel that the JSON line reports (a main-path shape)
 REPORTED = {"flash_attention": "B8 S128 span640 off512",
             "flash_attention_segmented": "R8 C128 span512",
             "decode_attention": "B8 L1024",
             "pim_matvec": "n8 2048->8192 silu",
-            "layernorm": "rmsnorm rows1024 d2048"}
+            "layernorm": "rmsnorm rows1024 d2048",
+            "rwkv_chunk": "BH128 T2048 K64",
+            "masked_softmax": "rows32768 n640"}
+
+
+def flat(torch, out):
+    """A kernel's output as one tensor (rwkv_chunk returns y and S_T)."""
+    if isinstance(out, tuple):
+        return torch.cat([t.float().flatten() for t in out])
+    return out
 
 
 def check_kernels(torch) -> dict:
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        tol = TOL[dname]
         for c in kernel_cases(torch, dtype):
-            got = c["run"]()
-            want = c["plain"]()
+            tol = c.get("tol", TOL)[dname]
+            got = flat(torch, c["run"]())
+            want = flat(torch, c["plain"]())
             torch.cuda.synchronize()
+            broken = c["check"](got) if "check" in c else None
+            if broken:
+                fail(f"{c['kernel']} [{dname} {c['label']}]: {broken}")
             finite = bool(torch.isfinite(got).all())
             if "rows" in c:       # padded query rows: finite garbage
                 got, want = got[c["rows"]], want[c["rows"]]
@@ -270,12 +396,19 @@ def check_kernels(torch) -> dict:
             if dtype == torch.bfloat16:
                 row["ms"] = time_ms(torch, c["run"])
                 row["plain_ms"] = time_ms(torch, c["plain"])
-                row["library_ms"] = time_ms(torch, c["library"])
-                row["bound_ms"] = 1e3 * max(c["bytes"] / HBM_BYTES_PER_S,
-                                            c["flops"] / PEAK_FLOPS[dname])
-                row["bound_by"] = ("bytes" if c["bytes"] / HBM_BYTES_PER_S
-                                   >= c["flops"] / PEAK_FLOPS[dname]
+                row["library_ms"] = (None if c["library"] is None
+                                     else time_ms(torch, c["library"]))
+                # a kernel that computes in f32 whatever its inputs (the
+                # wkv, the softmax) is bounded by the f32 rate, and one
+                # that counts its exps also by the SFU rate: the slower
+                peak = PEAK_FLOPS[c.get("math", dname)]
+                bytes_s = c["bytes"] / HBM_BYTES_PER_S
+                ops_s = max(c["flops"] / peak, c.get("exps", 0) / SFU_PER_S)
+                row["bound_ms"] = 1e3 * max(bytes_s, ops_s)
+                row["bound_by"] = ("bytes" if bytes_s >= ops_s
                                    else "operations")
+                if "exps" in c:
+                    row["exps"] = c["exps"]
                 if c["label"] == REPORTED[c["kernel"]]:
                     report[c["kernel"]] = row
             log("kernel " + json.dumps(row))
@@ -321,21 +454,23 @@ class PhaseClock:
         pass
 
 
-def serve_engine(cfg, params, recorder=None, **scfg_kw):
-    """An engine at the full-width serves' settings (``ServeConfig(
-    max_slots=8, max_len=1024, prefill_chunk=128, **scfg_kw)``) holding
-    their 8 prompts, 32 new tokens each."""
+def serve_engine(cfg, params, recorder=None, prompts=None, max_new=32,
+                 **scfg_kw):
+    """An engine holding ``prompts`` (the llama serves' 8 by default),
+    ``max_new`` new tokens each, at ``ServeConfig(**scfg_kw)`` over the
+    llama serves' settings (``max_slots=8, max_len=1024,
+    prefill_chunk=128``)."""
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    scfg = ServeConfig(max_slots=8, max_len=1024, prefill_chunk=128,
-                       **scfg_kw)
+    scfg = ServeConfig(**{**dict(max_slots=8, max_len=1024,
+                                 prefill_chunk=128), **scfg_kw})
     eng = ServeEngine(cfg, params, scfg, recorder=recorder, device="cuda")
-    for p in serve_prompts(cfg.vocab_size):
-        eng.add_request(p, max_new_tokens=32)
+    for p in (serve_prompts(cfg.vocab_size) if prompts is None else prompts):
+        eng.add_request(p, max_new_tokens=max_new)
     return eng
 
 
-def full_width_serve(torch, cfg, params, name: str, required, **scfg_kw
+def full_width_serve(torch, cfg, params, name: str, required, **engine_kw
                      ) -> dict:
     """One measured serve of ``serve_engine``'s requests. The kernels in
     ``required`` must launch. Launch counts are set to 0 just before the
@@ -347,8 +482,9 @@ def full_width_serve(torch, cfg, params, name: str, required, **scfg_kw
     from repro_torch.kernels import ops
 
     clock = PhaseClock(torch, ops)
-    eng = serve_engine(cfg, params, recorder=clock, **scfg_kw)
+    eng = serve_engine(cfg, params, recorder=clock, **engine_kw)
     plens = [len(r.prompt) for r in eng.queue]
+    n_req, n_new = len(plens), eng.queue[0].max_new_tokens
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -366,14 +502,14 @@ def full_width_serve(torch, cfg, params, name: str, required, **scfg_kw
     hidden = [str(w.message) for w in caught
               if "called a synchronizing CUDA operation" in str(w.message)]
 
-    if sorted(results) != list(range(8)) or any(
-            len(v) != 32 or not all(0 <= t < cfg.vocab_size for t in v)
+    if sorted(results) != list(range(n_req)) or any(
+            len(v) != n_new or not all(0 <= t < cfg.vocab_size for t in v)
             for v in results.values()):
         fail(f"{name}: serve returned "
              f"{({k: len(v) for k, v in results.items()})}")
     for leaf in eng.cache["pos0"].values():
         if leaf.is_floating_point() and not bool(torch.isfinite(leaf).all()):
-            fail(f"{name}: non-finite values in the KV cache")
+            fail(f"{name}: non-finite values in the cache")
     if any(counts[k] == 0 for k in required):
         fail(f"{name}: a kernel of its path never launched: {counts}")
     n_chunks = eng.dispatch_counts["prefill"]
@@ -400,7 +536,7 @@ def full_width_serve(torch, cfg, params, name: str, required, **scfg_kw
     prefill_tokens = sum(p - 1 for p in plens)
     out = dict(phase=name, prompt_lens=plens, wall_s=wall,
                prefill_s=prefill_s, prefill_tok_s=prefill_tokens / prefill_s,
-               decode_s=decode_s, decode_tok_s=8 * 32 / decode_s,
+               decode_s=decode_s, decode_tok_s=n_req * n_new / decode_s,
                ms_per_decode_step=1e3 * decode_s / n_steps,
                dispatch_counts=eng.dispatch_counts, host_syncs=eng.host_syncs,
                host_syncs_per_decode_step=eng.host_syncs / n_steps,
@@ -424,7 +560,6 @@ TIMED = ("wall_s", "prefill_s", "prefill_tok_s", "decode_s", "decode_tok_s",
 def full_width_serves(torch) -> dict:
     """Phases 3, 3b and 3c on one set of full-width bf16 weights."""
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
 
@@ -432,8 +567,9 @@ def full_width_serves(torch) -> dict:
     params = init_params(T.param_defs(cfg),
                          torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
-    unpacked = [k for k in ops.KERNELS if k != "flash_attention_segmented"]
-    packed = [k for k in ops.KERNELS if k != "flash_attention"]
+    decode = ["decode_attention", "pim_matvec", "layernorm"]
+    unpacked, packed = ["flash_attention"] + decode, \
+        ["flash_attention_segmented"] + decode
     variants = (("3 unpacked", cfg, unpacked, {}),
                 ("3b packed", cfg, packed, dict(pack=True)),
                 ("3c int8", dataclasses.replace(cfg, kv_dtype="int8"),
@@ -537,6 +673,192 @@ def parity_serve(torch) -> None:
         f"dispatches {disp_p['prefill']} against {disp_u['prefill']})")
 
 
+# --------------------------------------------------------------------------- #
+# phase 2b: the masked_softmax entry at a llama prefill chunk's scores
+# --------------------------------------------------------------------------- #
+def softmax_path(torch) -> dict:
+    """``ops.masked_softmax``, the entry a caller uses (no model reaches
+    the kernel, as in the reference), on (B 8, H 32, S 128, keys 640) bf16
+    scores under the causal bitmap with holes. Launch counts are set to 0
+    just before and read just after; the kernel must launch once."""
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    shape = (8, 32, 128, 640)
+    x = (torch.randn(shape, generator=g, device="cuda") * 3).to(
+        torch.bfloat16)
+    keep = softmax_mask(torch, g, 8 * 32 * 128, 640, 0).reshape(shape)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = ops.masked_softmax(x, keep)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if counts["masked_softmax"] != 1 or got.shape != x.shape:
+        fail(f"ops.masked_softmax: launches {counts}, shape {got.shape}")
+    err = (got.float() - ref.masked_softmax_ref(x, keep).float()).abs()
+    broken = softmax_invariants(torch, got.reshape(-1, 640),
+                                keep.reshape(-1, 640))
+    if broken or float(err.max()) > TOL["bfloat16"]:
+        fail(f"ops.masked_softmax: {broken}, max |err| {float(err.max())}")
+    out = dict(phase="2b masked_softmax path", shape=list(shape),
+               launches=counts, max_abs_err=float(err.max()))
+    log("path " + json.dumps(out))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phases 5 and 5b: rwkv6-7b at full width
+# --------------------------------------------------------------------------- #
+def rwkv_prompts(vocab: int):
+    """The 8 prompts of the rwkv6-7b serve, lengths from a seed in 8-64."""
+    import numpy as np
+    rng = np.random.default_rng(4)
+    plens = [int(p) for p in rng.integers(8, 65, 8)]
+    return [rng.integers(0, vocab, p) for p in plens]
+
+
+def rwkv_prefill_step(torch, cfg, params, B: int, S: int, runs: int = 2
+                      ) -> dict:
+    """The full-sequence prefill step (``step_fn_for(cfg, "prefill")``,
+    ``forward_full(last_only=True)``) on (B, S) tokens: one unmeasured
+    call, then ``runs`` measured ones by CUDA events. rwkv_chunk must
+    launch once per layer in each."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import step_fn_for
+
+    step = step_fn_for(cfg, "prefill")
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (B, S))).to("cuda")}
+    step(params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(runs):
+        ops.reset_launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        logits = step(params, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        if counts["rwkv_chunk"] != cfg.num_layers:
+            fail(f"prefill step: rwkv_chunk launched {counts['rwkv_chunk']}"
+                 f" times for {cfg.num_layers} layers")
+    if tuple(logits.shape) != (B, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"prefill step: logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    mean = sum(ms) / len(ms)
+    return dict(phase="5b rwkv prefill step", B=B, S=S, ms=mean, ms_runs=ms,
+                prefill_tok_s=B * S / (mean / 1e3),
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                launches=counts)
+
+
+def rwkv_full_width(torch) -> dict:
+    """Phases 5 (serve) and 5b (prefill step) on one set of full-width
+    rwkv6-7b bf16 weights from a seed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    cfg = get_arch("rwkv6-7b")
+    t0 = time.perf_counter()
+    params = init_params(T.param_defs(cfg),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    log(f"rwkv6-7b weights: {n_bytes} bytes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = rwkv_prompts(cfg.vocab_size)
+    kw = dict(max_slots=8, max_len=256)
+    # one short unmeasured serve first (module loads, cuBLAS's choices)
+    serve_engine(cfg, params, prompts=[prompts[0][:3]], max_new=2,
+                 **kw).run_until_done()
+    t0 = time.perf_counter()
+    serve = full_width_serve(torch, cfg, params, "5 rwkv serve",
+                             ["pim_matvec", "layernorm"], prompts=prompts,
+                             max_new=16, **kw)
+    log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
+    log("serve 5 rwkv " + json.dumps(
+        {k: v for k, v in serve.items() if k != "tokens"}))
+    t0 = time.perf_counter()
+    step = rwkv_prefill_step(torch, cfg, params, B=2, S=2048)
+    log(f"phase 5b took {time.perf_counter() - t0:.1f} s")
+    log("step " + json.dumps(step))
+    del params
+    torch.cuda.empty_cache()
+    return {"serve": serve, "step": step}
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+# --------------------------------------------------------------------------- #
+# phase 6: rwkv kernel path == plain path, float32
+# --------------------------------------------------------------------------- #
+def rwkv_parity(torch) -> None:
+    """rwkv6-7b at full width and depth 2 in float32, through the kernels
+    on the card and the plain versions on the CPU: the serve of phase 5
+    with 4 slots and short prompts gives identical greedy tokens, dispatch
+    counts and host syncs; the prefill step at S 256 gives logits within
+    1e-4 (the plain wkv is the sequential oracle)."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import step_fn_for
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("rwkv6-7b"), num_layers=2,
+                              dtype="float32")
+    params = init_params(T.param_defs(cfg),
+                         torch.Generator(device="cuda").manual_seed(2),
+                         device="cuda")
+
+    def tree(fn, t):
+        return {k: tree(fn, v) for k, v in t.items()} \
+            if isinstance(t, dict) else fn(t)
+    params = {"cuda": tree(lambda a: a.float(), params)}
+    params["cpu"] = tree(lambda a: a.cpu(), params["cuda"])
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, p) for p in (3, 9, 17, 6)]
+    tokens = rng.integers(0, cfg.vocab_size, (2, 256))
+    runs, logits = {}, {}
+    for dev in ("cuda", "cpu"):
+        eng = ServeEngine(cfg, params[dev], ServeConfig(max_slots=4,
+                                                        max_len=64),
+                          device=dev)
+        for pr in prompts:
+            eng.add_request(pr, max_new_tokens=6)
+        runs[dev] = (eng.run_until_done(), dict(eng.dispatch_counts),
+                     eng.host_syncs)
+        logits[dev] = step_fn_for(cfg, "prefill", device=dev)(
+            params[dev], {"tokens": tokens}).cpu()
+    if runs["cuda"] != runs["cpu"]:
+        fail(f"rwkv serve: kernel path != plain path: {runs['cuda']} != "
+             f"{runs['cpu']}")
+    err = (logits["cuda"] - logits["cpu"]).abs()
+    worst = float((err / (1 + logits["cpu"].abs())).max())
+    if worst > 1e-4:
+        fail(f"rwkv prefill step: kernel path != plain path, max |err| / "
+             f"(1 + |plain|) {worst:.3g} > 1e-4")
+    log(f"parity float32 depth 2, rwkv: tokens, dispatches "
+        f"{runs['cuda'][1]} and {runs['cuda'][2]} host syncs identical on "
+        f"cuda and cpu; prefill step S 256 logits max |err| "
+        f"{float(err.max()):.3g} (relative {worst:.3g})")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -565,11 +887,16 @@ def main() -> None:
 
         t0 = time.perf_counter()
         report = check_kernels(torch)
+        path = softmax_path(torch)
         log(f"phase 2 took {time.perf_counter() - t0:.1f} s")
         serves = full_width_serves(torch)
         t0 = time.perf_counter()
         parity_serve(torch)
         log(f"phase 4 took {time.perf_counter() - t0:.1f} s")
+        rwkv = rwkv_full_width(torch)
+        t0 = time.perf_counter()
+        rwkv_parity(torch)
+        log(f"phase 6 took {time.perf_counter() - t0:.1f} s")
     except SystemExit:
         raise
     except Exception:  # any failed phase fails the run, with its traceback
@@ -579,12 +906,13 @@ def main() -> None:
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
         r = report[name]
-        # each kernel's launches come from the serve of its own path
-        serve = serves["3b packed" if name == "flash_attention_segmented"
-                       else "3 unpacked"]
+        # each kernel's launches come from the run of its own path
+        run = {"flash_attention_segmented": serves["3b packed"],
+               "rwkv_chunk": rwkv["step"],
+               "masked_softmax": path}.get(name, serves["3 unpacked"])
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=serve["launches"][name], max_abs_err=r["max_abs_err"],
+            launches=run["launches"][name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["label"], dtype=r["dtype"]))

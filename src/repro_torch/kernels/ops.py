@@ -23,11 +23,14 @@ from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.flash_attention import \
     flash_attention_segmented as _flash_seg
 from repro_torch.kernels.layernorm import layernorm as _norm
+from repro_torch.kernels.masked_softmax import masked_softmax as _msoftmax
 from repro_torch.kernels.pim_matvec import pim_matvec as _matvec
+from repro_torch.kernels.rwkv_chunk import rwkv_chunk as _rwkv_chunk
 
 KERNELS = {"flash_attention": _flash, "flash_attention_segmented": _flash_seg,
            "decode_attention": _decode, "pim_matvec": _matvec,
-           "layernorm": _norm}
+           "layernorm": _norm, "rwkv_chunk": _rwkv_chunk,
+           "masked_softmax": _msoftmax}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -107,3 +110,32 @@ def layernorm(x, scale=None, bias=None, *, mode: str = "layernorm",
     if not _use_kernel(x):
         return ref.norm_ref(x, scale, bias, mode=mode, eps=eps)
     return _norm(x.contiguous(), scale, bias, mode=mode, eps=eps)
+
+
+def masked_softmax(x, mask_bitmap):
+    """x: (..., n) scores; mask_bitmap: (..., n), nonzero = keep (bool or
+    int8) -> softmax over the last axis in x.dtype, masked entries exactly
+    0; see ``ref.masked_softmax_ref``."""
+    if not _use_kernel(x):
+        return ref.masked_softmax_ref(x, mask_bitmap)
+    if mask_bitmap.dtype not in (torch.bool, torch.int8):
+        mask_bitmap = mask_bitmap != 0
+    n = x.shape[-1]
+    o = _msoftmax(x.reshape(-1, n).contiguous(),
+                  mask_bitmap.reshape(-1, n).contiguous())
+    return o.reshape(x.shape)
+
+
+def rwkv_chunk(r, k, v, w, u, *, out_dtype=None):
+    """The RWKV6 wkv from a zero state. r, k, v, w: (BH, T, K); u: (BH, K)
+    as in the reference's ops, or (H, K) broadcast over the batch (row bh
+    takes u[bh % H]). r, k, v compute in f32 whatever their dtype; w and u
+    are taken in f32. Returns (y (BH, T, K) in ``out_dtype``, r.dtype by
+    default; S_T (BH, K, K) f32, k-major)."""
+    r, k, v = _common(r, k, v)
+    w, u = w.float(), u.float()
+    if not _use_kernel(r):
+        u = u.repeat(r.shape[0] // u.shape[0], 1)
+        return ref.rwkv_chunk_ref(r, k, v, w, u, out_dtype=out_dtype)
+    return _rwkv_chunk(r.contiguous(), k.contiguous(), v.contiguous(),
+                       w.contiguous(), u.contiguous(), out_dtype=out_dtype)

@@ -122,3 +122,36 @@ def norm_ref(x, scale=None, bias=None, *, mode: str = "layernorm",
         if mode == "layernorm":
             y = y * scale.float() + bias.float()
     return y.to(x.dtype)
+
+
+def masked_softmax_ref(x, mask_bitmap) -> torch.Tensor:
+    """x: (..., n); mask_bitmap: (..., n), nonzero = keep. Softmax over the
+    last axis with the max subtracted, in f32: masked entries are exactly 0,
+    and a fully masked row is all zeros (its sum is clamped at 1e-30). Out
+    in x.dtype."""
+    keep = mask_bitmap != 0
+    xf = torch.where(keep, x.float(), torch.full_like(x, NEG_INF,
+                                                      dtype=torch.float32))
+    m = xf.amax(dim=-1, keepdim=True)
+    e = torch.exp(xf - m) * keep.float()
+    return (e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+            ).to(x.dtype)
+
+
+def rwkv_chunk_ref(r, k, v, w, u, out_dtype=None):
+    """The sequential oracle of the RWKV6 wkv from a zero state, batched
+    over BH. r, k, v, w: (BH, T, K); u: (BH, K). Per step, in f32,
+    y_t = r_t . (S + diag(u) k_t v_t^T) and S <- diag(w_t) S + k_t v_t^T.
+    Returns (y (BH, T, K) in ``out_dtype``, r.dtype by default; S_T
+    (BH, K, K) f32, k-major)."""
+    BH, T, K = r.shape
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uf = u.float()
+    s = torch.zeros((BH, K, K), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(T):
+        kv = kf[:, t, :, None] * vf[:, t, None, :]                # (BH, K, K)
+        ys.append(torch.einsum("bk,bkv->bv", rf[:, t], s + uf[:, :, None] * kv))
+        s = wf[:, t, :, None] * s + kv
+    y = torch.stack(ys, dim=1) if ys else rf.new_zeros((BH, 0, K))
+    return y.to(r.dtype if out_dtype is None else out_dtype), s

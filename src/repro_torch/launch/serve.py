@@ -2,6 +2,10 @@
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --requests 8
   python -m repro_torch.launch.serve --smoke --device cpu [--pack]
+  python -m repro_torch.launch.serve --arch rwkv6-7b [--smoke --device cpu]
+
+An ``ssm`` architecture (rwkv6-7b) prefills sequentially whatever
+``--prefill-mode`` says, as the engine does.
 
 Runs on the card unless ``--device cpu`` is given (then through the
 kernels' plain PyTorch versions). Weights are random, from ``--seed``.

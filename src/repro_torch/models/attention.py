@@ -128,6 +128,15 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(blocks, dim=3).reshape(B, H, Sq, hd)
 
 
+def attention_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal attention (``forward_full``): x (B, S, d) at
+    ``positions`` (B, S) -> (B, S, d), through the flash kernel's static
+    mode (the reference's ``flash_attention_xla`` on this path)."""
+    q, k, v = qkv_project(cfg, p, x, positions)
+    return out_project(p, ops.flash_attention(q, k, v, causal=True))
+
+
 # --------------------------------------------------------------------------- #
 # Batched serving prefill: a whole prompt chunk against the slot cache
 # --------------------------------------------------------------------------- #

@@ -29,7 +29,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 class ParamDef:
     shape: Tuple[int, ...]
     logical_axes: Tuple[Optional[str], ...]
-    init: str = "normal"          # "normal" | "zeros" | "ones" | "small_normal"
+    init: str = "normal"   # "normal" | "zeros" | "ones" | "small_normal" | "decay"
     scale: float = 1.0            # multiplies the distribution's natural scale
     dtype: str = "bfloat16"
 
@@ -66,6 +66,11 @@ def _materialize(pd: ParamDef, gen: torch.Generator,
         return torch.zeros(pd.shape, dtype=dt, device=device)
     if pd.init == "ones":
         return torch.ones(pd.shape, dtype=dt, device=device)
+    if pd.init == "decay":
+        # rwkv/mamba decay-style init: negative, spread log-uniformly
+        u = torch.rand(pd.shape, generator=gen, device=device,
+                       dtype=torch.float32) * (1.0 - 1e-3) + 1e-3
+        return (torch.log(u) * pd.scale).to(dt)
     std = pd.scale * 0.02 if pd.init == "small_normal" \
         else pd.scale * pd.fan_in() ** -0.5
     return (torch.randn(pd.shape, generator=gen, device=device,

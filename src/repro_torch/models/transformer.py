@@ -1,63 +1,122 @@
-"""The dense decoder of the port: parameter and cache trees, batched
-chunked prefill, and the one-call decode + sample + terminate step.
+"""The model of the port: parameter and cache trees, the one-token decode
+step, the full-sequence forward, batched chunked prefill, and the one-call
+decode + sample + terminate step.
 
-Counterpart of ``repro/models/transformer.py`` for the ``dense`` family.
-The trees keep the reference's nesting: parameters stacked with a leading
-layer axis under ``blocks/pos0`` (a dense stack's superblock period is 1),
-the cache ``pos0/{k, v}`` of shape (n_layers, B, KH, L, hd), plus
-``pos0/{k_scale, v_scale}`` (n_layers, B, KH, L) for the int8 cache. The
+Counterpart of ``repro/models/transformer.py`` for the ``dense`` and
+``ssm`` (RWKV6) families; ``vlm``, ``encdec``, ``hybrid`` and ``moe`` raise
+``NotImplementedError``. The trees keep the reference's superblock nesting:
+parameters of position j of the superblock stacked with a leading layer
+axis under ``blocks/pos{j}`` (both families have period 1, so ``pos0``);
+the dense cache ``pos0/{k, v}`` of shape (n_layers, B, KH, L, hd), plus
+``pos0/{k_scale, v_scale}`` (n_layers, B, KH, L) for the int8 cache; the
+RWKV state ``pos0/wkv`` (n_layers, B, H, hd, hd) f32 and
+``pos0/{shift_tm, shift_cm}`` (n_layers, B, d) in ``cfg.dtype``. The
 reference's ``lax.scan`` over layers is a Python loop over the layer index
 of the stacked tensors; cache updates land in place in the stacked cache.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.params import ParamDef
 
+_UNPORTED = {"hybrid": "the Mamba half of ROADMAP queue 1 item 10",
+             "moe": "ROADMAP queue 1 item 11",
+             "encdec": "ROADMAP queue 1 item 12",
+             "vlm": "ROADMAP queue 1 item 12"}
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"the port serves the dense family; {cfg.family!r} stacks are "
-            f"ROADMAP queue 1 items 10-12")
+            f"the port serves the dense and ssm families; {cfg.family!r} "
+            f"stacks are {_UNPORTED.get(cfg.family, 'not ported')}")
+
+
+# --------------------------------------------------------------------------- #
+# superblock structure
+# --------------------------------------------------------------------------- #
+def superblock_period(cfg: ModelConfig) -> int:
+    kinds = list(zip(cfg.layer_kinds(), cfg.ffn_kinds()))
+    n = len(kinds)
+    for p in range(1, n + 1):
+        if n % p == 0 and kinds == kinds[:p] * (n // p):
+            return p
+    return n
+
+
+def _position_kinds(cfg: ModelConfig):
+    p = superblock_period(cfg)
+    return list(zip(cfg.layer_kinds()[:p], cfg.ffn_kinds()[:p]))
+
+
+# --------------------------------------------------------------------------- #
+# parameter and cache defs
+# --------------------------------------------------------------------------- #
+def _block_defs(cfg: ModelConfig, mixer: str, n_super: int) -> dict:
+    d = {"norm1": L.norm_defs(cfg, stacked=n_super)}
+    if mixer == "attn":
+        d["attn"] = A.attn_defs(cfg, stacked=n_super)
+        d["norm2"] = L.norm_defs(cfg, stacked=n_super)
+        d["ffn"] = L.mlp_defs(cfg, stacked=n_super)
+    else:
+        # rwkv: time mix (mixer) + channel mix (its own FFN); norm2
+        # separates them
+        d["rwkv"] = S.rwkv_defs(cfg, stacked=n_super)
+        d["norm2"] = L.norm_defs(cfg, stacked=n_super)
+    return d
 
 
 def param_defs(cfg: ModelConfig) -> dict:
-    _require_dense(cfg)
-    n = cfg.num_layers
+    _require_ported(cfg)
+    n_super = cfg.num_layers // superblock_period(cfg)
     return {
         "embed": L.embed_defs(cfg),
-        "blocks": {"pos0": {
-            "norm1": L.norm_defs(cfg, stacked=n),
-            "attn": A.attn_defs(cfg, stacked=n),
-            "norm2": L.norm_defs(cfg, stacked=n),
-            "ffn": L.mlp_defs(cfg, stacked=n),
-        }},
+        "blocks": {f"pos{j}": _block_defs(cfg, mixer, n_super)
+                   for j, (mixer, _ffn) in enumerate(_position_kinds(cfg))},
         "final_norm": L.norm_defs(cfg),
     }
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """Decode-time state: one K and V slot cache per layer, stacked, in
-    ``cfg.dtype``; with ``kv_dtype="int8"`` the K/V are int8 and each
-    (slot, head, position) carries a float32 scale."""
-    _require_dense(cfg)
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-    axes = ("layers", "batch", "kv_heads", "kv_seq", "head_dim")
-    kv_dt = "int8" if cfg.kv_dtype == "int8" else cfg.dtype
-    c = {"k": ParamDef(shape, axes, "zeros", dtype=kv_dt),
-         "v": ParamDef(shape, axes, "zeros", dtype=kv_dt)}
-    if cfg.kv_dtype == "int8":
-        s_shape, s_axes = shape[:-1], axes[:-1]
-        c["k_scale"] = ParamDef(s_shape, s_axes, "zeros", dtype="float32")
-        c["v_scale"] = ParamDef(s_shape, s_axes, "zeros", dtype="float32")
-    return {"pos0": c}
+    """Decode-time state. Attention: one K and V slot cache per layer,
+    stacked, in ``cfg.dtype``; with ``kv_dtype="int8"`` the K/V are int8
+    and each (slot, head, position) carries a float32 scale. RWKV: the wkv
+    state in float32 and the two token-shift carries in ``cfg.dtype``."""
+    _require_ported(cfg)
+    n_super = cfg.num_layers // superblock_period(cfg)
+    out = {}
+    for j, (mixer, _ffn) in enumerate(_position_kinds(cfg)):
+        if mixer == "attn":
+            shape = (n_super, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+            axes = ("layers", "batch", "kv_heads", "kv_seq", "head_dim")
+            kv_dt = "int8" if cfg.kv_dtype == "int8" else cfg.dtype
+            c = {"k": ParamDef(shape, axes, "zeros", dtype=kv_dt),
+                 "v": ParamDef(shape, axes, "zeros", dtype=kv_dt)}
+            if cfg.kv_dtype == "int8":
+                s_shape, s_axes = shape[:-1], axes[:-1]
+                c["k_scale"] = ParamDef(s_shape, s_axes, "zeros",
+                                        dtype="float32")
+                c["v_scale"] = ParamDef(s_shape, s_axes, "zeros",
+                                        dtype="float32")
+        else:
+            hd = cfg.rwkv_head_dim
+            shift = ParamDef((n_super, batch, cfg.d_model),
+                             ("layers", "batch", "d_model"), "zeros",
+                             dtype=cfg.dtype)
+            c = {"wkv": ParamDef((n_super, batch, cfg.num_heads, hd, hd),
+                                 ("layers", "batch", "rwkv_heads",
+                                  "head_dim", None), "zeros",
+                                 dtype="float32"),
+                 "shift_tm": shift, "shift_cm": shift}
+        out[f"pos{j}"] = c
+    return out
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -66,19 +125,84 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
-_KV_KEYS = ("k", "v", "k_scale", "v_scale")
-
-
-def _kv_layer(kv: dict, i: int) -> dict:
-    """Layer i's attention cache leaves (K/V, and the int8 cache's scales),
-    as views into the stacked cache."""
-    return {k: kv[k][i] for k in _KV_KEYS if k in kv}
-
-
 def supports_batched_prefill(cfg: ModelConfig) -> bool:
-    """Attention-mixer stacks only (all the port serves)."""
+    """Attention-mixer stacks only: an RWKV prompt needs its state threaded
+    token by token, so the engine prefills it sequentially."""
     return (cfg.family != "encdec"
             and all(k == "attn" for k in cfg.layer_kinds()))
+
+
+# --------------------------------------------------------------------------- #
+# layer application
+# --------------------------------------------------------------------------- #
+def _apply_block_full(cfg: ModelConfig, kind: Tuple[str, str], p: dict,
+                      x: torch.Tensor, positions: torch.Tensor
+                      ) -> torch.Tensor:
+    """Full-sequence (prefill) block from a zero state. x: (B, S, d)."""
+    h = L.apply_norm(cfg, p["norm1"], x)
+    if kind[0] == "attn":
+        x = x + A.attention_prefill(cfg, p["attn"], h, positions)
+        h = L.apply_norm(cfg, p["norm2"], x)
+        return x + L.apply_mlp(cfg, p["ffn"], h)
+    y, _ = S.rwkv_time_mix(cfg, p["rwkv"], h)
+    x = x + y
+    h = L.apply_norm(cfg, p["norm2"], x)
+    y, _ = S.rwkv_channel_mix(cfg, p["rwkv"], h)
+    return x + y
+
+
+def _apply_block_decode(cfg: ModelConfig, kind: Tuple[str, str], p: dict,
+                        x: torch.Tensor, cache: dict,
+                        cur_len: torch.Tensor) -> torch.Tensor:
+    """One-token block. x: (B, 1, d); ``cache`` holds this layer's leaves
+    as views into the stacked cache, which are updated in place."""
+    B, _, d = x.shape
+    h = L.apply_norm(cfg, p["norm1"], x)
+    if kind[0] == "attn":
+        y, _ = A.attention_decode(cfg, p["attn"], h, cache, cur_len)
+        x = x + y
+        h = L.apply_norm(cfg, p["norm2"], x)
+        return x + L.apply_mlp_gemv(cfg, p["ffn"], h.reshape(B, d)
+                                    ).reshape(B, 1, -1)
+    y, st = S.rwkv_time_mix(cfg, p["rwkv"], h, state={
+        "shift_tm": cache["shift_tm"], "wkv": cache["wkv"]})
+    cache["shift_tm"].copy_(st["shift_tm"])
+    cache["wkv"].copy_(st["wkv"])
+    x = x + y
+    h = L.apply_norm(cfg, p["norm2"], x)
+    y, st = S.rwkv_channel_mix(cfg, p["rwkv"], h,
+                               state={"shift_cm": cache["shift_cm"]})
+    cache["shift_cm"].copy_(st["shift_cm"])
+    return x + y
+
+
+# --------------------------------------------------------------------------- #
+# full-sequence forward (the serving prefill step)
+# --------------------------------------------------------------------------- #
+def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+                 last_only: bool = False):
+    """tokens (B, S) -> (logits (B, S, V), aux loss), every layer from a
+    zero state; ``last_only=True`` emits only the final position's logits
+    (B, 1, V) (the serving prefill: a (B, S, V) tensor at a long S and a
+    large vocab does not fit). Attention runs through the flash kernel and
+    the RWKV time mix through the ``rwkv_chunk`` kernel. The aux loss (the
+    MoE balance term) is 0 for both ported families."""
+    _require_ported(cfg)
+    x = L.embed_tokens(params["embed"], tokens)
+    B, Stot = x.shape[0], x.shape[1]
+    positions = torch.arange(Stot, device=x.device)[None].expand(B, Stot)
+    kinds = _position_kinds(cfg)
+    n_super = cfg.num_layers // len(kinds)
+    for i in range(n_super):
+        for j, kind in enumerate(kinds):
+            x = _apply_block_full(cfg, kind,
+                                  _layer(params["blocks"][f"pos{j}"], i), x,
+                                  positions)
+    if last_only:
+        x = x[:, -1:, :]
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = L.lm_logits(params["embed"], x, cfg.tie_embeddings)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # --------------------------------------------------------------------------- #
@@ -87,19 +211,16 @@ def supports_batched_prefill(cfg: ModelConfig) -> bool:
 def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                 cache: dict, cur_len: torch.Tensor):
     """tokens: (B, 1) int; cur_len: (B,) int32 current context lengths.
-    Returns (logits (B, V), cache) with this token's K/V written."""
+    Returns (logits (B, V), cache) with this token's K/V (or recurrent
+    state) written for every row."""
     x = L.embed_tokens(params["embed"], tokens)                # (B, 1, d)
-    B, _, d = x.shape
-    blocks, kv = params["blocks"]["pos0"], cache["pos0"]
-    for i in range(cfg.num_layers):
-        p = _layer(blocks, i)
-        h = L.apply_norm(cfg, p["norm1"], x)
-        y, _ = A.attention_decode(cfg, p["attn"], h, _kv_layer(kv, i),
-                                  cur_len)
-        x = x + y
-        h = L.apply_norm(cfg, p["norm2"], x)
-        x = x + L.apply_mlp_gemv(cfg, p["ffn"], h.reshape(B, d)
-                                 ).reshape(B, 1, -1)
+    kinds = _position_kinds(cfg)
+    n_super = cfg.num_layers // len(kinds)
+    for i in range(n_super):
+        for j, kind in enumerate(kinds):
+            x = _apply_block_decode(cfg, kind,
+                                    _layer(params["blocks"][f"pos{j}"], i),
+                                    x, _layer(cache[f"pos{j}"], i), cur_len)
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.lm_logits(params["embed"], x, cfg.tie_embeddings)
     return logits[:, 0, :], cache
@@ -150,12 +271,15 @@ def _prefill_stack(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     attention is ``attend(p_attn, h, layer_cache)``, which writes the
     chunk's K/V into the layer's cache. Emits no logits. Returns the
     cache."""
+    if not supports_batched_prefill(cfg):
+        raise NotImplementedError(
+            "batched prefill covers attention mixers only")
     x = L.embed_tokens(params["embed"], tokens)
     blocks, kv = params["blocks"]["pos0"], cache["pos0"]
     for i in range(cfg.num_layers):
         p = _layer(blocks, i)
         h = L.apply_norm(cfg, p["norm1"], x)
-        y, _ = attend(p["attn"], h, _kv_layer(kv, i))
+        y, _ = attend(p["attn"], h, _layer(kv, i))
         x = x + y
         h = L.apply_norm(cfg, p["norm2"], x)
         x = x + L.apply_mlp(cfg, p["ffn"], h)

@@ -17,6 +17,10 @@ Counterpart of ``repro/serve/engine.py`` under the ``serial`` policy:
     with ``non_blocking`` copies, so they never wait for the card;
   * every dispatch's phase and FC route lands in ``pas_log``.
 
+An ``ssm`` (RWKV6) stack cannot prefill in chunks (its state is threaded
+token by token), so it takes the sequential path whatever
+``prefill_mode`` says, as in the reference.
+
 Packed prefill (``ServeConfig.pack``): a wave's prompts are first-fit-
 decreasing packed into chunk lanes (several short prompts, or a long
 prompt's tail plus shorts, per row; ``sched/packing.py``), and each packed
@@ -32,8 +36,8 @@ its hooks) can be attached; the port never imports one.
 
 Knobs of later slices raise ``NotImplementedError`` at construction:
 ``fuse``, ``superstep > 1``, the interleaving policies (with or without
-``pack``) and non-dense families; KV-snapshot restores raise in
-``add_request``.
+``pack``) and the families other than ``dense`` and ``ssm``; KV-snapshot
+restores raise in ``add_request``.
 """
 from __future__ import annotations
 
@@ -102,7 +106,7 @@ class PendingDecode:
 
 
 def _unsupported(scfg: ServeConfig) -> Optional[str]:
-    # non-dense families raise in T.cache_defs, the interleaving policies
+    # unported families raise in T.cache_defs, the interleaving policies
     # (with or without pack) in make_scheduler
     if scfg.fuse or scfg.superstep > 1:
         return "fused steps and supersteps (ROADMAP queue 1, item 8)"
@@ -386,7 +390,14 @@ class ServeEngine:
 
     def _prefill_sequential(self, wave) -> None:
         """Reference path: teacher-forced decode steps, one dispatch per
-        prompt token."""
+        prompt token, each over all ``max_slots`` rows (the other rows
+        feed token 0). For attention that is harmless: another slot's row
+        is written at its own ``lens`` and overwritten later. A recurrent
+        (RWKV) state is cumulative, though, so each prompt token of a
+        wave-mate also advances every other slot's ``wkv`` and shift
+        state, and a prompt served beside others gives other tokens than
+        served alone. The reference does exactly this, and the port keeps
+        it so that both give the same tokens."""
         B = self.scfg.max_slots
         for slot, req in wave:
             for pos, tok in enumerate(req.prompt[:-1]):

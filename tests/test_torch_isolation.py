@@ -17,7 +17,10 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_segmented)
 from repro_torch.kernels.layernorm import layernorm
+from repro_torch.kernels.masked_softmax import masked_softmax
 from repro_torch.kernels.pim_matvec import pim_matvec
+from repro_torch.kernels.rwkv_chunk import rwkv_chunk
+from repro_torch.launch.steps import step_fn_for
 from repro_torch.serve import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -71,6 +74,21 @@ def test_engine_without_a_device_refuses_the_cpu():
         ServeEngine(get_arch("llama3.2-1b").reduced(), params={})
 
 
+@pytest.mark.parametrize("kind,error,match", [
+    pytest.param("prefill", RuntimeError, "no CUDA device", id="prefill"),
+    pytest.param("decode", ValueError, "unknown step kind", id="decode"),
+    pytest.param("train", NotImplementedError, "item 13", id="train"),
+])
+def test_step_functions_without_a_device_refuse_the_cpu(kind, error, match):
+    """The prefill step refuses the CPU unless asked for it; the kinds the
+    port has no step for raise whatever the device (the engine runs its
+    own decode step)."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(error, match=match):
+        step_fn_for(get_arch("rwkv6-7b").reduced(), kind)
+
+
 def test_ops_send_cpu_tensors_to_the_plain_versions():
     g = torch.Generator().manual_seed(0)
     ops.reset_launch_counts()
@@ -90,6 +108,16 @@ def test_ops_send_cpu_tensors_to_the_plain_versions():
     s = torch.randn(16, generator=g)
     torch.testing.assert_close(ops.layernorm(x, s, mode="rmsnorm"),
                                ref.norm_ref(x, s, mode="rmsnorm"),
+                               rtol=0, atol=0)
+    keep = torch.rand(3, 16, generator=g) < 0.5
+    torch.testing.assert_close(ops.masked_softmax(x, keep),
+                               ref.masked_softmax_ref(x, keep),
+                               rtol=0, atol=0)
+    r, wd = torch.randn(4, 5, 16, generator=g), torch.rand(4, 5, 16,
+                                                             generator=g)
+    torch.testing.assert_close(ops.rwkv_chunk(r, r, r, wd, s[None]),
+                               ref.rwkv_chunk_ref(r, r, r, wd,
+                                                  s[None].expand(4, 16)),
                                rtol=0, atol=0)
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
     assert _build._libs == {}
@@ -111,8 +139,11 @@ def test_ops_refuse_a_device_without_a_path():
                                torch.ones(1, dtype=torch.int32)),
     lambda t: pim_matvec(t(1, 16), t(16, 8)),
     lambda t: layernorm(t(2, 16), t(16), mode="rmsnorm"),
+    lambda t: rwkv_chunk(t(2, 5, 16), t(2, 5, 16), t(2, 5, 16), t(2, 5, 16),
+                         t(1, 16)),
+    lambda t: masked_softmax(t(2, 16), torch.ones(2, 16, dtype=torch.bool)),
 ], ids=["flash_attention", "flash_attention_segmented", "decode_attention",
-        "pim_matvec", "layernorm"])
+        "pim_matvec", "layernorm", "rwkv_chunk", "masked_softmax"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises: given CPU tensors it
     raises before any build, and counts nothing."""

@@ -5,7 +5,8 @@ machine with an H100, nvcc and triton:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Shapes are small and ragged (no tile divides them), so every masked edge
-is exercised. Tolerances are those of ``tests/test_kernels.py::_tol``:
+is exercised, plus the main-path shape of ``rwkv_chunk`` and of the masked
+softmax. Tolerances are those of ``tests/test_kernels.py::_tol``:
 f32 1e-4 (sums taken in another order), bf16 5e-2 (the kernel and the
 plain version round to bf16 at other places)."""
 import dataclasses
@@ -20,7 +21,9 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_segmented)
 from repro_torch.kernels.layernorm import layernorm
+from repro_torch.kernels.masked_softmax import masked_softmax
 from repro_torch.kernels.pim_matvec import pim_matvec
+from repro_torch.kernels.rwkv_chunk import rwkv_chunk
 from repro_torch.models import transformer as T
 from repro_torch.models.params import init_params
 from repro_torch.serve import ServeConfig, ServeEngine
@@ -176,10 +179,114 @@ def test_each_launch_counts_once(card):
     ops.flash_attention(q, k, k, segment_info=info)
     ops.flash_attention(q, k, k, segment_info=info)
     torch.cuda.synchronize()
+    r = _rand((6, 70, 16), 6, torch.float32)
+    ops.rwkv_chunk(r, r, r, torch.sigmoid(r), r[:3, 0])
+    ops.masked_softmax(q, q > 0)
+    torch.cuda.synchronize()
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "flash_attention_segmented": 2,
                                    "decode_attention": 0, "pim_matvec": 2,
-                                   "layernorm": 1}
+                                   "layernorm": 1, "rwkv_chunk": 1,
+                                   "masked_softmax": 1}
+
+
+def _rwkv_inputs(BH, T_, K, dtype, seed):
+    """r, k, v in ``dtype``; the model's decays in f32 (exp(-exp(w0)) with
+    w0 = log U(1e-3, 1), so many lie near 1); u in f32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v = (torch.randn((BH, T_, K), generator=g, device="cuda") * 0.5
+               for _ in range(3))
+    w0 = torch.log(torch.rand((BH, T_, K), generator=g, device="cuda")
+                   * (1 - 1e-3) + 1e-3)
+    u = torch.randn((BH, K), generator=g, device="cuda") * 0.1
+    return r.to(dtype), k.to(dtype), v.to(dtype), torch.exp(-torch.exp(w0)), u
+
+
+@pytest.mark.parametrize("BH,T_,K", [
+    (128, 2048, 64),       # the full-sequence prefill of rwkv6-7b, B 2
+    (4, 200, 64),          # ragged last chunk
+    (6, 37, 16),           # one ragged chunk, a narrow head
+    (2, 1, 64),            # one step
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rwkv_chunk_kernel_matches_plain(card, BH, T_, K, dtype):
+    """y in r's dtype and the final state in f32; f32 within the
+    reference's 2e-3 for the chunked form (test_kernels.py), bf16 5e-2."""
+    r, k, v, w, u = _rwkv_inputs(BH, T_, K, dtype, 7)
+    y, s = rwkv_chunk(r, k, v, w, u)
+    want_y, want_s = ref.rwkv_chunk_ref(r, k, v, w, u)
+    torch.cuda.synchronize()
+    tol = dict(rtol=2e-3, atol=2e-3) if dtype == torch.float32 \
+        else _tol(dtype)
+    assert y.dtype == dtype and s.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(), **tol)
+    torch.testing.assert_close(s, want_s, **tol)
+
+
+def test_rwkv_chunk_kernel_writes_y_in_the_dtype_asked(card):
+    """bf16 inputs, y in f32 (the model path), u broadcast over the batch
+    from (H, K)."""
+    r, k, v, w, u = _rwkv_inputs(8, 130, 64, torch.bfloat16, 8)
+    y, s = ops.rwkv_chunk(r, k, v, w, u[:4], out_dtype=torch.float32)
+    want_y, want_s = ref.rwkv_chunk_ref(r, k, v, w, u[:4].repeat(2, 1),
+                                        out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y, want_y, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(s, want_s, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("rows,n", [(8 * 32 * 128, 640), (7, 100),
+                                    (33, 4096), (5, 5000)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_masked_softmax_kernel_matches_plain(card, rows, n, dtype):
+    """A causal bitmap with random holes and three fully masked rows:
+    masked entries exactly 0, fully masked rows all 0, other rows summing
+    to 1."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = (torch.randn((rows, n), generator=g, device="cuda") * 3).to(dtype)
+    keep = (torch.arange(n, device="cuda")[None, :]
+            <= (torch.arange(rows, device="cuda")[:, None] % n)) \
+        & (torch.rand((rows, n), generator=g, device="cuda") > 0.1)
+    keep[:, 0] = True
+    keep[1::max(rows // 3, 2)][:3] = False
+    for mask in (keep, keep.to(torch.int8)):
+        got = masked_softmax(x, mask.contiguous())
+        want = ref.masked_softmax_ref(x, keep)
+        _close(got, want, dtype)
+        assert bool((got[~keep] == 0).all())
+        sums = got.float().sum(-1)
+        live = keep.any(-1)
+        assert bool((sums[~live] == 0).all())
+        torch.testing.assert_close(sums[live], torch.ones_like(sums[live]),
+                                   **_tol(dtype))
+
+
+def test_rwkv_forward_full_and_engine_on_the_card_match_the_cpu(card):
+    """The reduced rwkv6-7b in float32: the full-sequence prefill step's
+    logits through rwkv_chunk (once per layer) agree with the plain path,
+    and the engine gives its greedy tokens and counters."""
+    cfg = dataclasses.replace(get_arch("rwkv6-7b").reduced(),
+                              dtype="float32")
+    params = init_params(T.param_defs(cfg), device="cpu", seed=6)
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 40)))
+    logits, runs = [], []
+    for dev in ("cuda", "cpu"):
+        p = _tree(lambda a: a.float().to(dev), params)
+        ops.reset_launch_counts()
+        logits.append(T.forward_full(cfg, p, tokens.to(dev),
+                                     last_only=True)[0].cpu())
+        if dev == "cuda":
+            assert ops.launch_counts()["rwkv_chunk"] == cfg.num_layers
+        eng = ServeEngine(cfg, p, ServeConfig(max_slots=3, max_len=48),
+                          device=dev)
+        for n in (3, 12, 1, 7):
+            eng.add_request(tokens[0, :n].numpy(), max_new_tokens=5)
+        runs.append((eng.run_until_done(), eng.dispatch_counts,
+                     eng.host_syncs))
+    torch.testing.assert_close(logits[0], logits[1], rtol=1e-4, atol=1e-4)
+    assert runs[0] == runs[1]
 
 
 @pytest.mark.parametrize("kv_update", ["onehot", "scatter"])

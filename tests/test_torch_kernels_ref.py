@@ -18,9 +18,11 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.layernorm import layernorm as pallas_layernorm
+from repro.kernels.masked_softmax import masked_softmax as pallas_msoftmax
 from repro.kernels.pim_matvec import pim_matvec as pallas_matvec
+from repro.kernels.rwkv_chunk import rwkv_chunk as pallas_rwkv_chunk
 from repro.models import layers as JL
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.models.params import from_jax_tree
 
 
@@ -177,3 +179,95 @@ def test_norm_plain_other_modes(mode, dtype):
     want = JL.apply_norm(cfg, p, x)
     np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
                                **_tol(dtype))
+
+
+@pytest.mark.parametrize("rows,n", [(32, 64), (64, 128), (16, 1000)])
+def test_masked_softmax_plain(rows, n):
+    """The plain masked softmax against the reference's oracle and its
+    Pallas kernel in interpret mode, at test_kernels.py's shapes: masked
+    entries exactly 0, rows summing to 1."""
+    x = _rand((rows, n), 11)
+    m = np.random.default_rng(12).random((rows, n)) < 0.6
+    m[:, 0] = True                                  # no fully masked row
+    got = ref.masked_softmax_ref(_t(x), torch.from_numpy(m))
+    pallas = pallas_msoftmax(x, jnp.asarray(m), block_rows=16,
+                             interpret=True)
+    for want in (jref.masked_softmax_ref(x, jnp.asarray(m)), pallas):
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                                   atol=1e-6)
+    assert float(np.abs(np.where(m, 0.0, _np(got))).max()) == 0.0
+    np.testing.assert_allclose(_np(got).sum(-1), 1.0, rtol=1e-5)
+
+
+def test_masked_softmax_fully_masked_rows_and_int8_mask():
+    """A fully masked row gives all zeros (the 1e-30 clamp), and an int8
+    bitmap means what a bool one does, through the port's ops entry."""
+    x = _rand((4, 70), 13)
+    m = (np.random.default_rng(14).random((4, 70)) < 0.5).astype(np.int8)
+    m[1] = 0
+    got = ops.masked_softmax(_t(x), torch.from_numpy(m))
+    pallas = pallas_msoftmax(x, jnp.asarray(m), block_rows=4, interpret=True)
+    np.testing.assert_allclose(_np(got), np.asarray(pallas), rtol=1e-5,
+                               atol=1e-6)
+    assert float(np.abs(_np(got)[1]).max()) == 0.0
+    np.testing.assert_array_equal(
+        _np(got), _np(ops.masked_softmax(_t(x), torch.from_numpy(m != 0))))
+
+
+def _rwkv_inputs(BH, T, K, seed):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((BH, T, K)).astype(np.float32) * 0.5
+               for _ in range(3))
+    w = (1 / (1 + np.exp(-rng.standard_normal((BH, T, K)))) * 0.5 + 0.45
+         ).astype(np.float32)
+    u = rng.standard_normal((BH, K)).astype(np.float32) * 0.1
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("BH,T,K,chunk", [
+    (2, 64, 32, 16), (1, 128, 64, 64), (4, 32, 16, 32),
+])
+def test_rwkv_chunk_plain(BH, T, K, chunk):
+    """The plain (sequential, batched) wkv against the Pallas kernel in
+    interpret mode and the reference's per-row oracle, at test_kernels.py's
+    shapes and tolerance (2e-3: the chunked form factors the decays)."""
+    r, k, v, w, u = _rwkv_inputs(BH, T, K, 21)
+    got_y, got_s = ref.rwkv_chunk_ref(*(torch.from_numpy(a)
+                                        for a in (r, k, v, w, u)))
+    pal_y, pal_s = pallas_rwkv_chunk(*(jnp.asarray(a) for a in (r, k, v, w,
+                                                                 u)),
+                                     chunk=chunk, interpret=True)
+    np.testing.assert_allclose(_np(got_y), np.asarray(pal_y), rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_allclose(_np(got_s), np.asarray(pal_s), rtol=2e-3,
+                               atol=2e-3)
+    for b in range(BH):
+        want_y, want_s = jref.rwkv_chunk_ref(
+            *(jnp.asarray(a[b]) for a in (r, k, v, w, u)),
+            jnp.zeros((K, K), jnp.float32))
+        np.testing.assert_allclose(_np(got_y[b]), np.asarray(want_y),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(_np(got_s[b]), np.asarray(want_s),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("T", [1, 37])
+def test_rwkv_chunk_ops_ragged_and_broadcast_u(T):
+    """The port's ops entry at a ragged T (no multiple of any chunk) with u
+    of shape (H, K) broadcast over the batch, against the reference's
+    per-row oracle; y comes out in the dtype asked for."""
+    B, H, K = 2, 3, 16
+    r, k, v, w, _ = _rwkv_inputs(B * H, T, K, 22)
+    u = np.random.default_rng(23).standard_normal((H, K)).astype(
+        np.float32) * 0.1
+    y, s = ops.rwkv_chunk(*(torch.from_numpy(a) for a in (r, k, v, w, u)),
+                          out_dtype=torch.bfloat16)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    for bh in range(B * H):
+        want_y, want_s = jref.rwkv_chunk_ref(
+            *(jnp.asarray(a[bh]) for a in (r, k, v, w)),
+            jnp.asarray(u[bh % H]), jnp.zeros((K, K), jnp.float32))
+        np.testing.assert_allclose(_np(y[bh]), np.asarray(want_y),
+                                   rtol=5e-2, atol=5e-2)
+        np.testing.assert_allclose(_np(s[bh]), np.asarray(want_s),
+                                   rtol=1e-4, atol=1e-4)

@@ -156,7 +156,8 @@ def test_later_slice_knobs_raise(params, knob):
         _engine(cfg, tp, **knob)
 
 
-@pytest.mark.parametrize("change", [dict(family="ssm")])
+@pytest.mark.parametrize("change", [dict(family="hybrid"), dict(family="moe"),
+                                    dict(family="encdec"), dict(family="vlm")])
 def test_unported_model_configs_raise(params, change):
     _, cfg = _cfgs(**change)
     _, tp = params
