@@ -10,12 +10,13 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
      in parallel);
   2. hold each kernel against its plain PyTorch version on the card, at
-     the full-width shapes of the serving paths (llama3.2-1b's, and
-     rwkv6-7b's full-sequence prefill for ``rwkv_chunk``) plus ragged
-     cases, in float32 and bfloat16 (tolerances of the reference's kernel
-     tests: 1e-4, 2e-3 for the chunked wkv, and 5e-2), and time the kernel,
-     the plain version and one PyTorch library call computing the same
-     function where there is one;
+     the full-width shapes of the serving paths (llama3.2-1b's, rwkv6-7b's
+     full-sequence prefill for ``rwkv_chunk`` and jamba-v0.1-52b's for
+     ``mamba_chunk``) plus ragged cases, in float32 and bfloat16
+     (tolerances of the reference's kernel tests: 1e-4, 2e-3 for the
+     chunked wkv, and 5e-2), and time the kernel, the plain version and one
+     PyTorch library call computing the same function where there is one
+     (in bfloat16; ``mamba_chunk`` in float32, the type its path gives it);
   2b. call ``ops.masked_softmax`` on a llama prefill chunk's scores with
      the launch counts set to 0 just before: the kernel must launch, give
      exact zeros where masked and rows that sum to 1;
@@ -38,11 +39,28 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      sequential prefill and decode through ``pim_matvec`` and the norm
      kernel, one host sync per decode step and no hidden one;
   5b. run rwkv6-7b's full-sequence prefill step (B 2, S 2048,
-     ``last_only=True``): ``rwkv_chunk`` must launch once per layer;
+     ``last_only=True``): ``rwkv_chunk`` must launch once per layer; then
+     profile one step and a short serve with ``torch.profiler`` (the
+     device's busy share and the ops that take its time);
   6. rwkv6-7b at full width and depth 2 in float32, the kernels on the
      card against the plain versions on the CPU: the serve gives identical
      greedy tokens, dispatch counts and host syncs, the prefill step at
-     S 256 logits within 1e-4.
+     S 256 logits within 1e-4;
+  7. serve 8 requests (prompts of 8-64 tokens, 16 new tokens each)
+     through jamba-v0.1-52b at full width cut to depth 8 (one whole Jamba
+     period: 7 Mamba layers, attention at layer 4, MoE on layers 1, 3, 5,
+     7; bf16, random weights from a seed; its 32 layers do not fit one
+     card): sequential prefill and decode through ``pim_matvec``, the norm
+     kernel and ``decode_attention``, one host sync per decode step and no
+     hidden one;
+  7b. run its full-sequence prefill step (B 2, S 2048, ``last_only=True``):
+     ``mamba_chunk`` must launch once per Mamba layer (7) and
+     ``flash_attention`` once; then profile as in 5b;
+  8. jamba-v0.1-52b at full width and depth 2 in float32 (one mamba/dense
+     and one attn/moe layer), the kernels on the card against the plain
+     versions on the CPU: the serve gives identical greedy tokens,
+     dispatch counts and host syncs, the prefill step at S 256 logits and
+     the MoE aux loss within 1e-4.
 
 The last two lines of standard output are the kernel table as one JSON
 object, then ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -232,6 +250,23 @@ def kernel_cases(torch, dtype):
             bytes=BH * T_ * K * (3 * es + 4 + ys) + 4 * U * K
             + 4 * BH * K * K,
             flops=flops))
+    # mamba_chunk: the full-sequence prefill step's call as mamba_mix makes
+    # it (B 2, T 2048, d_inner 8192, d_state 16; a, u and C in f32 whatever
+    # the model's dtype), a ragged T, and the reduced config's widths; the
+    # model's discretization (a = exp(dt A), u = dt x B). Timed in f32.
+    for B, T_, di, n in ((2, 2048, 8192, 16), (1, 200, 8192, 16),
+                         (2, 37, 128, 4)):
+        if dtype == torch.bfloat16 and T_ == 2048:
+            continue              # the bf16 instantiation: the small cases
+        a, u, C = mamba_inputs(torch, g, B, T_, di, n, dtype)
+        cases.append(dict(
+            kernel="mamba_chunk", label=f"B{B} T{T_} d{di} n{n}",
+            run=lambda a=a, u=u, C=C: ops.mamba_chunk(a, u, C),
+            plain=lambda a=a, u=u, C=C: ref.mamba_chunk_ref(a, u, C),
+            library=None, math="float32", timed="float32",
+            bytes=es * (2 * B * T_ * di * n + B * T_ * n + B * T_ * di)
+            + 4 * B * di * n,
+            flops=4.0 * B * T_ * di * n))
     # masked_softmax: the scores of a llama prefill chunk (8 slots x 32
     # heads x 128 queries against 640 keys at offset 512: the causal
     # bitmap with random holes), and rows of 4096 with fully masked ones
@@ -259,6 +294,21 @@ def kernel_cases(torch, dtype):
             library=lambda x=x, s=s: F.rms_norm(x, (d,), s, 1e-6),
             bytes=(2 * x.numel() + d) * es, flops=4.0 * rows * d))
     return cases
+
+
+def mamba_inputs(torch, g, B, T, d, n, dtype):
+    """a, u, C as ``mamba_mix`` makes them from random activations: dt =
+    softplus(.), A = -exp(a_log) with the model's ``"decay"`` init (so a =
+    exp(dt A) lies in (0, 1), much of it near 1), u = dt x B."""
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T, d), generator=g, device="cuda") - 2)
+    A = 1.0 / (torch.rand((d, n), generator=g, device="cuda") * (1 - 1e-3)
+               + 1e-3)
+    a = (dt[..., None] * -A).exp_()
+    u = (dt * torch.randn((B, T, d), generator=g, device="cuda"))[..., None] \
+        * (torch.randn((B, T, 1, n), generator=g, device="cuda") * 0.1)
+    C = torch.randn((B, T, n), generator=g, device="cuda")
+    return a.to(dtype), u.to(dtype), C.to(dtype)
 
 
 RWKV_CHUNK = 64     # the CUDA kernel's chunk (csrc/rwkv_chunk.cu)
@@ -352,6 +402,8 @@ SOURCES = {
                    "src/repro/kernels/rwkv_chunk.py:75"),
     "masked_softmax": ("triton", "src/repro_torch/kernels/masked_softmax.py",
                        "src/repro/kernels/masked_softmax.py:27"),
+    "mamba_chunk": ("cuda", "src/repro_torch/kernels/csrc/mamba_chunk.cu",
+                    "src/repro/kernels/mamba_chunk.py:51"),
 }
 # the case of each kernel that the JSON line reports (a main-path shape)
 REPORTED = {"flash_attention": "B8 S128 span640 off512",
@@ -360,7 +412,8 @@ REPORTED = {"flash_attention": "B8 S128 span640 off512",
             "pim_matvec": "n8 2048->8192 silu",
             "layernorm": "rmsnorm rows1024 d2048",
             "rwkv_chunk": "BH128 T2048 K64",
-            "masked_softmax": "rows32768 n640"}
+            "masked_softmax": "rows32768 n640",
+            "mamba_chunk": "B2 T2048 d8192 n16"}
 
 
 def flat(torch, out):
@@ -393,7 +446,7 @@ def check_kernels(torch) -> dict:
                      f"its plain version: max |err| {max_err:.3g}, tol {tol}")
             row = dict(kernel=c["kernel"], dtype=dname, label=c["label"],
                        max_abs_err=max_err)
-            if dtype == torch.bfloat16:
+            if dname == c.get("timed", "bfloat16"):
                 row["ms"] = time_ms(torch, c["run"])
                 row["plain_ms"] = time_ms(torch, c["plain"])
                 row["library_ms"] = (None if c["library"] is None
@@ -507,7 +560,7 @@ def full_width_serve(torch, cfg, params, name: str, required, **engine_kw
             for v in results.values()):
         fail(f"{name}: serve returned "
              f"{({k: len(v) for k, v in results.items()})}")
-    for leaf in eng.cache["pos0"].values():
+    for leaf in leaves(eng.cache):
         if leaf.is_floating_point() and not bool(torch.isfinite(leaf).all()):
             fail(f"{name}: non-finite values in the cache")
     if any(counts[k] == 0 for k in required):
@@ -707,22 +760,23 @@ def softmax_path(torch) -> dict:
 
 
 # --------------------------------------------------------------------------- #
-# phases 5 and 5b: rwkv6-7b at full width
+# phases 5 and 5b, 7 and 7b: rwkv6-7b and jamba-v0.1-52b at full width
 # --------------------------------------------------------------------------- #
-def rwkv_prompts(vocab: int):
-    """The 8 prompts of the rwkv6-7b serve, lengths from a seed in 8-64."""
+def recurrent_prompts(vocab: int):
+    """The 8 prompts of the rwkv6-7b and jamba-v0.1-52b serves, lengths
+    from a seed in 8-64."""
     import numpy as np
     rng = np.random.default_rng(4)
     plens = [int(p) for p in rng.integers(8, 65, 8)]
     return [rng.integers(0, vocab, p) for p in plens]
 
 
-def rwkv_prefill_step(torch, cfg, params, B: int, S: int, runs: int = 2
-                      ) -> dict:
+def prefill_step_run(torch, cfg, params, phase: str, expect: dict, B: int,
+                     S: int, runs: int = 2) -> dict:
     """The full-sequence prefill step (``step_fn_for(cfg, "prefill")``,
     ``forward_full(last_only=True)``) on (B, S) tokens: one unmeasured
-    call, then ``runs`` measured ones by CUDA events. rwkv_chunk must
-    launch once per layer in each."""
+    call, then ``runs`` measured ones by CUDA events. Each kernel of
+    ``expect`` must launch exactly that many times in each."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import step_fn_for
@@ -743,55 +797,94 @@ def rwkv_prefill_step(torch, cfg, params, B: int, S: int, runs: int = 2
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         ms.append(ev[0].elapsed_time(ev[1]))
-        if counts["rwkv_chunk"] != cfg.num_layers:
-            fail(f"prefill step: rwkv_chunk launched {counts['rwkv_chunk']}"
-                 f" times for {cfg.num_layers} layers")
+        if any(counts[k] != n for k, n in expect.items()):
+            fail(f"{phase}: launches {counts}, expected {expect}")
     if tuple(logits.shape) != (B, cfg.vocab_size) \
             or not bool(torch.isfinite(logits).all()):
-        fail(f"prefill step: logits {tuple(logits.shape)}, finite "
+        fail(f"{phase}: logits {tuple(logits.shape)}, finite "
              f"{bool(torch.isfinite(logits).all())}")
     mean = sum(ms) / len(ms)
-    return dict(phase="5b rwkv prefill step", B=B, S=S, ms=mean, ms_runs=ms,
+    return dict(phase=phase, B=B, S=S, ms=mean, ms_runs=ms,
                 prefill_tok_s=B * S / (mean / 1e3),
                 max_memory_allocated=torch.cuda.max_memory_allocated(),
                 launches=counts)
 
 
-def rwkv_full_width(torch) -> dict:
-    """Phases 5 (serve) and 5b (prefill step) on one set of full-width
-    rwkv6-7b bf16 weights from a seed."""
-    from repro_torch.configs import get_arch
+def device_profile(torch, fn, top: int = 8) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time, the
+    device's busy seconds and the ``top`` device ops by time. The profiler
+    adds host time to every op, so the busy share is a lower bound."""
+    from repro_torch.launch.serve import device_time
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, ranked = device_time(prof, top)
+    return dict(wall_s=wall, busy_s=busy, busy_share=busy / wall,
+                top=[dict(op=op[:80], count=n, ms=1e3 * s)
+                     for op, n, s in ranked])
+
+
+def recurrent_full_width(torch, cfg, name: str, phases, required,
+                         expect) -> dict:
+    """A serve (phase ``phases[0]``: 8 requests, 16 new tokens each,
+    ``ServeConfig(max_slots=8, max_len=256)``; the kernels in ``required``
+    must launch) and the prefill step at B 2 x S 2048 (``phases[1]``;
+    launches as in ``expect``) on one set of bf16 weights from a seed,
+    then a profile of each."""
+    from repro_torch.launch.steps import step_fn_for
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
 
-    cfg = get_arch("rwkv6-7b")
     t0 = time.perf_counter()
     params = init_params(T.param_defs(cfg),
                          torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
     torch.cuda.synchronize()
     n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
-    log(f"rwkv6-7b weights: {n_bytes} bytes in "
+    log(f"{name} weights: {n_bytes} bytes in "
         f"{time.perf_counter() - t0:.1f} s")
-    prompts = rwkv_prompts(cfg.vocab_size)
+    prompts = recurrent_prompts(cfg.vocab_size)
     kw = dict(max_slots=8, max_len=256)
     # one short unmeasured serve first (module loads, cuBLAS's choices)
     serve_engine(cfg, params, prompts=[prompts[0][:3]], max_new=2,
                  **kw).run_until_done()
     t0 = time.perf_counter()
-    serve = full_width_serve(torch, cfg, params, "5 rwkv serve",
-                             ["pim_matvec", "layernorm"], prompts=prompts,
-                             max_new=16, **kw)
-    log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
-    log("serve 5 rwkv " + json.dumps(
+    serve = full_width_serve(torch, cfg, params, f"{phases[0]} {name} serve",
+                             required, prompts=prompts, max_new=16, **kw)
+    log(f"phase {phases[0]} took {time.perf_counter() - t0:.1f} s")
+    log(f"serve {phases[0]} {name} " + json.dumps(
         {k: v for k, v in serve.items() if k != "tokens"}))
     t0 = time.perf_counter()
-    step = rwkv_prefill_step(torch, cfg, params, B=2, S=2048)
-    log(f"phase 5b took {time.perf_counter() - t0:.1f} s")
+    step = prefill_step_run(torch, cfg, params,
+                            f"{phases[1]} {name} prefill step", expect,
+                            B=2, S=2048)
+    log(f"phase {phases[1]} took {time.perf_counter() - t0:.1f} s")
     log("step " + json.dumps(step))
+    # where the device time goes: one prefill step, and a short serve (8
+    # prompts of 4 tokens, 4 new tokens each: 24 sequential prefill and 4
+    # decode dispatches, each one decode step over the 8 slots)
+    t0 = time.perf_counter()
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2048), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(7))
+    prof = {"step": device_profile(torch, lambda: step_fn_for(
+        cfg, "prefill")(params, {"tokens": tokens}))}
+    eng = serve_engine(cfg, params, prompts=[p[:4] for p in prompts],
+                       max_new=4, **kw)
+    prof["serve"] = device_profile(torch, eng.run_until_done)
+    prof["serve"]["dispatches"] = dict(eng.dispatch_counts)
+    log(f"profile {phases[0]} {name} (took {time.perf_counter() - t0:.1f} "
+        f"s) " + json.dumps(prof))
     del params
     torch.cuda.empty_cache()
-    return {"serve": serve, "step": step}
+    return {"serve": serve, "step": step, "profile": prof,
+            "weight_bytes": n_bytes}
 
 
 def leaves(tree):
@@ -803,16 +896,16 @@ def leaves(tree):
 
 
 # --------------------------------------------------------------------------- #
-# phase 6: rwkv kernel path == plain path, float32
+# phases 6 and 8: kernel path == plain path, float32, depth 2
 # --------------------------------------------------------------------------- #
-def rwkv_parity(torch) -> None:
-    """rwkv6-7b at full width and depth 2 in float32, through the kernels
-    on the card and the plain versions on the CPU: the serve of phase 5
-    with 4 slots and short prompts gives identical greedy tokens, dispatch
-    counts and host syncs; the prefill step at S 256 gives logits within
-    1e-4 (the plain wkv is the sequential oracle)."""
+def recurrent_parity(torch, cfg, name: str) -> None:
+    """``cfg`` (full width, depth 2) in float32, through the kernels on the
+    card and the plain versions on the CPU: the serve with 4 slots and
+    short prompts gives identical greedy tokens, dispatch counts and host
+    syncs; the prefill step at S 256 gives logits within 1e-4 (the plain
+    scans are the sequential oracles), and, with MoE, the full-sequence
+    forward's aux loss within 1e-4."""
     import numpy as np
-    from repro_torch.configs import get_arch
     from repro_torch.launch.steps import step_fn_for
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
@@ -820,8 +913,6 @@ def rwkv_parity(torch) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_arch("rwkv6-7b"), num_layers=2,
-                              dtype="float32")
     params = init_params(T.param_defs(cfg),
                          torch.Generator(device="cuda").manual_seed(2),
                          device="cuda")
@@ -834,7 +925,7 @@ def rwkv_parity(torch) -> None:
     rng = np.random.default_rng(6)
     prompts = [rng.integers(0, cfg.vocab_size, p) for p in (3, 9, 17, 6)]
     tokens = rng.integers(0, cfg.vocab_size, (2, 256))
-    runs, logits = {}, {}
+    runs, logits, aux = {}, {}, {}
     for dev in ("cuda", "cpu"):
         eng = ServeEngine(cfg, params[dev], ServeConfig(max_slots=4,
                                                         max_len=64),
@@ -845,18 +936,30 @@ def rwkv_parity(torch) -> None:
                      eng.host_syncs)
         logits[dev] = step_fn_for(cfg, "prefill", device=dev)(
             params[dev], {"tokens": tokens}).cpu()
+        if cfg.is_moe:
+            aux[dev] = float(T.forward_full(
+                cfg, params[dev], torch.from_numpy(tokens).to(dev),
+                last_only=True)[1])
     if runs["cuda"] != runs["cpu"]:
-        fail(f"rwkv serve: kernel path != plain path: {runs['cuda']} != "
+        fail(f"{name} serve: kernel path != plain path: {runs['cuda']} != "
              f"{runs['cpu']}")
     err = (logits["cuda"] - logits["cpu"]).abs()
     worst = float((err / (1 + logits["cpu"].abs())).max())
     if worst > 1e-4:
-        fail(f"rwkv prefill step: kernel path != plain path, max |err| / "
+        fail(f"{name} prefill step: kernel path != plain path, max |err| / "
              f"(1 + |plain|) {worst:.3g} > 1e-4")
-    log(f"parity float32 depth 2, rwkv: tokens, dispatches "
+    aux_err = abs(aux["cuda"] - aux["cpu"]) if aux else 0.0
+    if aux_err > 1e-4:
+        fail(f"{name} prefill step: aux loss {aux['cuda']} on the card, "
+             f"{aux['cpu']} on the CPU")
+    log(f"parity float32 depth 2, {name}: tokens, dispatches "
         f"{runs['cuda'][1]} and {runs['cuda'][2]} host syncs identical on "
         f"cuda and cpu; prefill step S 256 logits max |err| "
-        f"{float(err.max()):.3g} (relative {worst:.3g})")
+        f"{float(err.max()):.3g} (relative {worst:.3g})"
+        + (f"; aux loss {aux['cuda']!r} against {aux['cpu']!r}" if aux
+           else ""))
+    del params
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -866,6 +969,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     sys.path.insert(0, SRC)
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
 
     try:
@@ -893,10 +997,28 @@ def main() -> None:
         t0 = time.perf_counter()
         parity_serve(torch)
         log(f"phase 4 took {time.perf_counter() - t0:.1f} s")
-        rwkv = rwkv_full_width(torch)
+        rwkv_cfg = get_arch("rwkv6-7b")
+        rwkv = recurrent_full_width(
+            torch, rwkv_cfg, "rwkv", ("5", "5b"), ["pim_matvec", "layernorm"],
+            {"rwkv_chunk": rwkv_cfg.num_layers})
         t0 = time.perf_counter()
-        rwkv_parity(torch)
+        recurrent_parity(torch, dataclasses.replace(
+            rwkv_cfg, num_layers=2, dtype="float32"), "rwkv")
         log(f"phase 6 took {time.perf_counter() - t0:.1f} s")
+        # jamba's 32 layers are 103 GB in bf16: one whole period of 8 fits
+        jamba_cfg = dataclasses.replace(get_arch("jamba-v0.1-52b"),
+                                        num_layers=8)
+        kinds = jamba_cfg.layer_kinds()
+        jamba = recurrent_full_width(
+            torch, jamba_cfg, "jamba", ("7", "7b"),
+            ["pim_matvec", "layernorm", "decode_attention"],
+            {"mamba_chunk": kinds.count("mamba"),
+             "flash_attention": kinds.count("attn")})
+        t0 = time.perf_counter()
+        recurrent_parity(torch, dataclasses.replace(
+            jamba_cfg, num_layers=2, attn_period=2, attn_offset=1,
+            dtype="float32"), "jamba")
+        log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
     except SystemExit:
         raise
     except Exception:  # any failed phase fails the run, with its traceback
@@ -908,7 +1030,7 @@ def main() -> None:
         r = report[name]
         # each kernel's launches come from the run of its own path
         run = {"flash_attention_segmented": serves["3b packed"],
-               "rwkv_chunk": rwkv["step"],
+               "rwkv_chunk": rwkv["step"], "mamba_chunk": jamba["step"],
                "masked_softmax": path}.get(name, serves["3 unpacked"])
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,

@@ -21,7 +21,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention", "decode_attention", "pim_matvec", "rwkv_chunk")
+SOURCES = ("flash_attention", "decode_attention", "pim_matvec", "rwkv_chunk",
+           "mamba_chunk")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +35,7 @@ ARGTYPES = {
     "pim_matvec_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "rwkv_chunk_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P],
+    "mamba_chunk_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -23,6 +23,7 @@ from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.flash_attention import \
     flash_attention_segmented as _flash_seg
 from repro_torch.kernels.layernorm import layernorm as _norm
+from repro_torch.kernels.mamba_chunk import mamba_chunk as _mamba_chunk
 from repro_torch.kernels.masked_softmax import masked_softmax as _msoftmax
 from repro_torch.kernels.pim_matvec import pim_matvec as _matvec
 from repro_torch.kernels.rwkv_chunk import rwkv_chunk as _rwkv_chunk
@@ -30,7 +31,7 @@ from repro_torch.kernels.rwkv_chunk import rwkv_chunk as _rwkv_chunk
 KERNELS = {"flash_attention": _flash, "flash_attention_segmented": _flash_seg,
            "decode_attention": _decode, "pim_matvec": _matvec,
            "layernorm": _norm, "rwkv_chunk": _rwkv_chunk,
-           "masked_softmax": _msoftmax}
+           "masked_softmax": _msoftmax, "mamba_chunk": _mamba_chunk}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -87,6 +88,14 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
         o = _flash_seg(q.contiguous(), k.contiguous(), v.contiguous(),
                        [t.contiguous() for t in segment_info])
     else:
+        # the kernel reads a cache's prefix in place (contiguous (Skv, D)
+        # rows of each head, heads at one stride, k and v alike); any other
+        # layout is copied
+        KH, D = k.shape[1], k.shape[3]
+        rows = k.stride(3) == 1 and k.stride(2) == D \
+            and k.stride(0) == KH * k.stride(1)
+        if not rows or v.stride() != k.stride():
+            k, v = k.contiguous(), v.contiguous()
         o = _flash(q.contiguous(), k, v, causal=causal, q_offset=q_offset)
     return o.to(out_dtype)
 
@@ -139,3 +148,13 @@ def rwkv_chunk(r, k, v, w, u, *, out_dtype=None):
         return ref.rwkv_chunk_ref(r, k, v, w, u, out_dtype=out_dtype)
     return _rwkv_chunk(r.contiguous(), k.contiguous(), v.contiguous(),
                        w.contiguous(), u.contiguous(), out_dtype=out_dtype)
+
+
+def mamba_chunk(a, u, C):
+    """The Mamba selective scan from a zero state. a, u: (B, T, d, n);
+    C: (B, T, n), promoted to one dtype. Returns (y (B, T, d) in that
+    dtype, h_T (B, d, n) f32)."""
+    a, u, C = _common(a, u, C)
+    if not _use_kernel(a):
+        return ref.mamba_chunk_ref(a, u, C)
+    return _mamba_chunk(a.contiguous(), u.contiguous(), C.contiguous())

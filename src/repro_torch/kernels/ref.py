@@ -155,3 +155,17 @@ def rwkv_chunk_ref(r, k, v, w, u, out_dtype=None):
         s = wf[:, t, :, None] * s + kv
     y = torch.stack(ys, dim=1) if ys else rf.new_zeros((BH, 0, K))
     return y.to(r.dtype if out_dtype is None else out_dtype), s
+
+
+def mamba_chunk_ref(a, u, C):
+    """The sequential oracle of the Mamba selective scan from a zero state,
+    batched over B. a, u: (B, T, d, n); C: (B, T, n). Per step, in f32,
+    h_t = a_t * h_{t-1} + u_t and y_t = sum_n h_t C_t. Returns (y (B, T, d)
+    in a.dtype, h_T (B, d, n) f32); T >= 1."""
+    B, T, d, n = a.shape
+    h = torch.zeros((B, d, n), dtype=torch.float32, device=a.device)
+    ys = []
+    for t in range(T):
+        h = a[:, t].float() * h + u[:, t].float()
+        ys.append((h * C[:, t, None, :].float()).sum(-1))
+    return torch.stack(ys, dim=1).to(a.dtype), h

@@ -3,9 +3,13 @@
   python -m repro_torch.launch.serve --arch llama3.2-1b --requests 8
   python -m repro_torch.launch.serve --smoke --device cpu [--pack]
   python -m repro_torch.launch.serve --arch rwkv6-7b [--smoke --device cpu]
+  python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke --device cpu
 
-An ``ssm`` architecture (rwkv6-7b) prefills sequentially whatever
-``--prefill-mode`` says, as the engine does.
+An ``ssm`` or ``hybrid`` architecture (rwkv6-7b, jamba-v0.1-52b) prefills
+sequentially whatever ``--prefill-mode`` says, as the engine does. The
+launcher serves an architecture at its full depth, as the reference's
+does: jamba-v0.1-52b's 103 GB of bf16 weights do not fit one 80 GB card
+(``chip_smoke.py`` serves it at depth 8).
 
 Runs on the card unless ``--device cpu`` is given (then through the
 kernels' plain PyTorch versions). Weights are random, from ``--seed``.
@@ -123,21 +127,28 @@ def main(argv=None):
     return results
 
 
-def print_device_time(prof, wall_s: float, top: int = 15) -> None:
-    """The device's busy share of the wall time (the sum of kernel and
-    copy times on the card; the run uses one stream) and the device ops
-    that took the most time, by name."""
+def device_time(prof, top: int = 15):
+    """The device's busy seconds (the sum of kernel and copy times on the
+    card; the runs use one stream) and the ``top`` device ops that took
+    the most time: [(name, count, seconds)], slowest first."""
     by_name = defaultdict(lambda: [0, 0.0])
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name][0] += 1
-            by_name[e.name][1] += e.time_range.elapsed_us()
-    busy_s = sum(us for _, us in by_name.values()) / 1e6
+            by_name[e.name][1] += e.time_range.elapsed_us() / 1e6
+    busy_s = sum(s for _, s in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return busy_s, [(name, n, s) for name, (n, s) in ranked]
+
+
+def print_device_time(prof, wall_s: float) -> None:
+    """The device's busy share of the wall time and the device ops that
+    took the most time, by name."""
+    busy_s, ranked = device_time(prof)
     print(f"[serve] profile: device busy {busy_s:.4f}s of {wall_s:.4f}s "
           f"wall ({100 * busy_s / wall_s:.1f}%)")
-    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]
-                                )[:top]:
-        print(f"[serve] profile: {us / 1e3:10.3f} ms {n:7d}x  {name[:90]}")
+    for name, n, s in ranked:
+        print(f"[serve] profile: {s * 1e3:10.3f} ms {n:7d}x  {name[:90]}")
 
 
 if __name__ == "__main__":

@@ -1,24 +1,29 @@
-"""Recurrent mixers of the port: RWKV6 (Finch) time mix and channel mix.
+"""Recurrent mixers of the port: RWKV6 (Finch) time mix and channel mix,
+and the Mamba selective SSM (as interleaved in Jamba).
 
-Counterpart of the RWKV half of ``repro/models/ssm.py`` (the Mamba half
-waits for the hybrid stack, ROADMAP queue 1 item 10). Layouts, dtypes and
-float32 handling follow the reference: r, k, v and the decay w enter the
-wkv in f32, and w = exp(-exp(clip(log w, -10, 4))) is computed in f32
-(in bf16 a decay within 4.5e-5 of 1 rounds to exactly 1).
+Counterpart of ``repro/models/ssm.py``. Layouts, dtypes and float32
+handling follow the reference: r, k, v and the decay w enter the wkv in
+f32, and w = exp(-exp(clip(log w, -10, 4))) is computed in f32 (in bf16 a
+decay within 4.5e-5 of 1 rounds to exactly 1); Mamba's dt, B, C, the
+discretized a = exp(dt A) and u = dt x B are f32 too.
 
-The wkv has two paths, as the reference's module docstring splits them:
+Both recurrences have two paths, as the reference's module docstring
+splits them:
 
   * from a zero state over a whole sequence (``state=None``, the
-    full-sequence prefill): the ``rwkv_chunk`` kernel, through
-    ``ops.rwkv_chunk``, writing y in f32;
+    full-sequence prefill): the ``rwkv_chunk`` kernel through
+    ``ops.rwkv_chunk`` (y in f32), and the ``mamba_chunk`` kernel through
+    ``ops.mamba_chunk``;
   * from a carried state (the engine's decode and sequential prefill,
-    T = 1): ``_wkv_scan`` over ``chunked_linear_scan`` in plain PyTorch.
+    T = 1): ``_wkv_scan`` and Mamba's scan over ``chunked_linear_scan`` in
+    plain PyTorch (both kernels start from zero, as the TPU kernels do).
 
 At T = 1 with a state (the decode step) the FC products go through the GEMV
-kernel (``ops.fused_matvec``): r, k, v, g, the output projection and the
-channel mix's three, eight launches a layer; the rank-r decay LoRA stays a
-matmul. Elsewhere the products are plain matmuls, as the reference leaves
-them to XLA.
+kernel (``ops.fused_matvec``): RWKV's r, k, v, g, output projection and the
+channel mix's three, eight launches a layer; Mamba's ``in_proj_x``,
+``in_proj_z`` and ``out_proj``, three. The low-rank products (RWKV's decay
+LoRA, Mamba's dt, B and C projections) stay matmuls. Elsewhere the
+products are plain matmuls, as the reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -206,3 +211,91 @@ def rwkv_channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
     v = _fc(k, p["wcv"], gemv)
     r = torch.sigmoid(_fc(xr, p["wcr"], gemv))
     return r * v, {"shift_cm": x[:, -1, :]}
+
+
+# --------------------------------------------------------------------------- #
+# Mamba (selective SSM, as interleaved in Jamba)
+# --------------------------------------------------------------------------- #
+def mamba_defs(cfg: ModelConfig, stacked: Optional[int] = None) -> dict:
+    """The reference's Mamba parameters. As there, no dtype is passed, so
+    every leaf takes ``ParamDef``'s default, bfloat16."""
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_d_state
+    r = max(16, d // 16)  # dt rank
+    cw = cfg.ssm_conv
+    lead = () if stacked is None else (stacked,)
+    la = () if stacked is None else ("layers",)
+
+    def pd(shape, axes, init="normal", scale=1.0):
+        return ParamDef(lead + shape, la + axes, init, scale)
+
+    return {
+        "in_proj_x": pd((d, di), ("d_model", "d_inner")),
+        "in_proj_z": pd((d, di), ("d_model", "d_inner")),
+        "conv_w": pd((cw, di), ("conv", "d_inner"), "normal", scale=2.0),
+        "conv_b": pd((di,), ("d_inner",), "zeros"),
+        "w_b": pd((di, n), ("d_inner", "d_state"), "small_normal"),
+        "w_c": pd((di, n), ("d_inner", "d_state"), "small_normal"),
+        "w_dt_in": pd((di, r), ("d_inner", None), "small_normal"),
+        "w_dt_out": pd((r, di), (None, "d_inner"), "small_normal"),
+        "dt_bias": pd((di,), ("d_inner",), "decay", scale=0.5),
+        "a_log": pd((di, n), ("d_inner", "d_state"), "decay", scale=-1.0),
+        "d_skip": pd((di,), ("d_inner",), "ones"),
+        "out_proj": pd((di, d), ("d_inner", "d_model")),
+    }
+
+
+def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                           state: Optional[torch.Tensor]):
+    """x: (B, T, di); w: (cw, di). Causal width-cw depthwise conv as a sum
+    of shifted slices. state (decode): (B, cw-1, di) history. Returns
+    (out (B, T, di), new history)."""
+    cw = w.shape[0]
+    B, T, di = x.shape
+    hist = x.new_zeros((B, cw - 1, di)) if state is None else state
+    dt = torch.promote_types(hist.dtype, x.dtype)
+    xp = torch.cat([hist.to(dt), x.to(dt)], dim=1)        # (B, T+cw-1, di)
+    out = sum(xp[:, j:j + T, :] * w[j][None, None] for j in range(cw))
+    new_state = xp[:, T:, :] if cw > 1 else hist
+    return out + b[None, None], new_state
+
+
+def mamba_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
+              state: Optional[dict] = None):
+    """x: (B, T, d). state (decode): {"conv": (B, cw-1, di),
+    "ssm": (B, di, n)}. Returns (out (B, T, d), new_state)."""
+    B, T, d = x.shape
+    c = min(cfg.ssm_chunk, T)
+    if T % c:
+        raise ValueError(f"sequence length {T} is not a multiple of "
+                         f"ssm_chunk {c}")
+    gemv = state is not None and T == 1
+    xz = _fc(x, p["in_proj_x"], gemv)
+    z = _fc(x, p["in_proj_z"], gemv)
+
+    conv_state = None if state is None else state["conv"]
+    xc, new_conv = _causal_depthwise_conv(xz, p["conv_w"], p["conv_b"],
+                                          conv_state)
+    xc = F.silu(xc)
+
+    # selective parameters, in f32
+    dt = mm(mm(xc, p["w_dt_in"]), p["w_dt_out"])
+    dt = F.softplus(dt.float() + p["dt_bias"].float())    # (B, T, di)
+    Bt = mm(xc, p["w_b"]).float()
+    Ct = mm(xc, p["w_c"]).float()
+    A = -torch.exp(p["a_log"].float())                    # (di, n) < 0
+
+    # (B, T, di, n) each: 2.15 GB in f32 at jamba's B 2 x S 2048, so the
+    # exp is taken in place
+    a = (dt[..., None] * A).exp_()
+    u = (dt * xc.float())[..., None] * Bt[:, :, None, :]
+    if state is None:
+        y, h_fin = ops.mamba_chunk(a, u, Ct)              # (B, T, di) f32
+    else:
+        h_all, h_fin = chunked_linear_scan(a.transpose(0, 1),
+                                           u.transpose(0, 1),
+                                           state["ssm"].float())
+        y = torch.einsum("tbdn,tbn->btd", h_all, Ct.transpose(0, 1))
+    y = y + p["d_skip"].float() * xc.float()
+    y = y.to(x.dtype) * F.silu(z)
+    out = _fc(y, p["out_proj"], gemv)
+    return out, {"conv": new_conv, "ssm": h_fin}

@@ -2,17 +2,21 @@
 step, the full-sequence forward, batched chunked prefill, and the one-call
 decode + sample + terminate step.
 
-Counterpart of ``repro/models/transformer.py`` for the ``dense`` and
-``ssm`` (RWKV6) families; ``vlm``, ``encdec``, ``hybrid`` and ``moe`` raise
+Counterpart of ``repro/models/transformer.py`` for the ``dense``, ``ssm``
+(RWKV6) and ``hybrid`` (Jamba: Mamba and attention mixers, dense and MoE
+FFNs) families; ``vlm``, ``encdec`` and ``moe`` raise
 ``NotImplementedError``. The trees keep the reference's superblock nesting:
-parameters of position j of the superblock stacked with a leading layer
-axis under ``blocks/pos{j}`` (both families have period 1, so ``pos0``);
-the dense cache ``pos0/{k, v}`` of shape (n_layers, B, KH, L, hd), plus
-``pos0/{k_scale, v_scale}`` (n_layers, B, KH, L) for the int8 cache; the
-RWKV state ``pos0/wkv`` (n_layers, B, H, hd, hd) f32 and
-``pos0/{shift_tm, shift_cm}`` (n_layers, B, d) in ``cfg.dtype``. The
-reference's ``lax.scan`` over layers is a Python loop over the layer index
-of the stacked tensors; cache updates land in place in the stacked cache.
+parameters of position j of the superblock stacked with a leading axis of
+n_super = n_layers / period under ``blocks/pos{j}`` (dense and ssm stacks
+have period 1, so ``pos0``; jamba's is 8, its ``.reduced()`` 2). The cache
+of an attention position is ``{k, v}`` of shape (n_super, B, KH, L, hd),
+plus ``{k_scale, v_scale}`` (n_super, B, KH, L) for the int8 cache; of an
+RWKV position ``wkv`` (n_super, B, H, hd, hd) f32 and ``{shift_tm,
+shift_cm}`` (n_super, B, d) in ``cfg.dtype``; of a Mamba position ``conv``
+(n_super, B, cw - 1, d_inner) in ``cfg.dtype`` and ``ssm`` (n_super, B,
+d_inner, d_state) f32. The reference's ``lax.scan`` over superblocks is a
+Python loop over the leading index of the stacked tensors; cache updates
+land in place in the stacked cache.
 """
 from __future__ import annotations
 
@@ -23,20 +27,22 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.params import ParamDef
 
-_UNPORTED = {"hybrid": "the Mamba half of ROADMAP queue 1 item 10",
-             "moe": "ROADMAP queue 1 item 11",
+_UNPORTED = {"moe": "the moe family's serving (its batched and packed "
+                    "prefill through MoE), ROADMAP queue 1 item 11",
              "encdec": "ROADMAP queue 1 item 12",
              "vlm": "ROADMAP queue 1 item 12"}
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"the port serves the dense and ssm families; {cfg.family!r} "
-            f"stacks are {_UNPORTED.get(cfg.family, 'not ported')}")
+            f"the port serves the dense, ssm and hybrid families; "
+            f"{cfg.family!r} stacks are "
+            f"{_UNPORTED.get(cfg.family, 'not ported')}")
 
 
 # --------------------------------------------------------------------------- #
@@ -59,17 +65,18 @@ def _position_kinds(cfg: ModelConfig):
 # --------------------------------------------------------------------------- #
 # parameter and cache defs
 # --------------------------------------------------------------------------- #
-def _block_defs(cfg: ModelConfig, mixer: str, n_super: int) -> dict:
-    d = {"norm1": L.norm_defs(cfg, stacked=n_super)}
-    if mixer == "attn":
-        d["attn"] = A.attn_defs(cfg, stacked=n_super)
-        d["norm2"] = L.norm_defs(cfg, stacked=n_super)
-        d["ffn"] = L.mlp_defs(cfg, stacked=n_super)
-    else:
-        # rwkv: time mix (mixer) + channel mix (its own FFN); norm2
-        # separates them
+def _block_defs(cfg: ModelConfig, mixer: str, ffn: str, n_super: int
+                ) -> dict:
+    d = {"norm1": L.norm_defs(cfg, stacked=n_super),
+         "norm2": L.norm_defs(cfg, stacked=n_super)}
+    if mixer == "rwkv":
+        # time mix (mixer) + channel mix (its own FFN); norm2 separates them
         d["rwkv"] = S.rwkv_defs(cfg, stacked=n_super)
-        d["norm2"] = L.norm_defs(cfg, stacked=n_super)
+        return d
+    d[mixer] = (A.attn_defs(cfg, stacked=n_super) if mixer == "attn"
+                else S.mamba_defs(cfg, stacked=n_super))
+    d["ffn"] = (M.moe_defs(cfg, stacked=n_super) if ffn == "moe"
+                else L.mlp_defs(cfg, stacked=n_super))
     return d
 
 
@@ -78,8 +85,8 @@ def param_defs(cfg: ModelConfig) -> dict:
     n_super = cfg.num_layers // superblock_period(cfg)
     return {
         "embed": L.embed_defs(cfg),
-        "blocks": {f"pos{j}": _block_defs(cfg, mixer, n_super)
-                   for j, (mixer, _ffn) in enumerate(_position_kinds(cfg))},
+        "blocks": {f"pos{j}": _block_defs(cfg, mixer, ffn, n_super)
+                   for j, (mixer, ffn) in enumerate(_position_kinds(cfg))},
         "final_norm": L.norm_defs(cfg),
     }
 
@@ -88,7 +95,9 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """Decode-time state. Attention: one K and V slot cache per layer,
     stacked, in ``cfg.dtype``; with ``kv_dtype="int8"`` the K/V are int8
     and each (slot, head, position) carries a float32 scale. RWKV: the wkv
-    state in float32 and the two token-shift carries in ``cfg.dtype``."""
+    state in float32 and the two token-shift carries in ``cfg.dtype``.
+    Mamba: the conv history in ``cfg.dtype`` and the ssm state in
+    float32."""
     _require_ported(cfg)
     n_super = cfg.num_layers // superblock_period(cfg)
     out = {}
@@ -105,6 +114,15 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
                                         dtype="float32")
                 c["v_scale"] = ParamDef(s_shape, s_axes, "zeros",
                                         dtype="float32")
+        elif mixer == "mamba":
+            c = {"conv": ParamDef((n_super, batch, cfg.ssm_conv - 1,
+                                   cfg.d_inner),
+                                  ("layers", "batch", None, "d_inner"),
+                                  "zeros", dtype=cfg.dtype),
+                 "ssm": ParamDef((n_super, batch, cfg.d_inner,
+                                  cfg.ssm_d_state),
+                                 ("layers", "batch", "d_inner", "d_state"),
+                                 "zeros", dtype="float32")}
         else:
             hd = cfg.rwkv_head_dim
             shift = ParamDef((n_super, batch, cfg.d_model),
@@ -126,8 +144,8 @@ def _layer(tree: dict, i: int) -> dict:
 
 
 def supports_batched_prefill(cfg: ModelConfig) -> bool:
-    """Attention-mixer stacks only: an RWKV prompt needs its state threaded
-    token by token, so the engine prefills it sequentially."""
+    """Attention-mixer stacks only: an RWKV or Mamba prompt needs its state
+    threaded token by token, so the engine prefills it sequentially."""
     return (cfg.family != "encdec"
             and all(k == "attn" for k in cfg.layer_kinds()))
 
@@ -135,20 +153,37 @@ def supports_batched_prefill(cfg: ModelConfig) -> bool:
 # --------------------------------------------------------------------------- #
 # layer application
 # --------------------------------------------------------------------------- #
+def _apply_ffn(cfg: ModelConfig, ffn: str, p: dict, h: torch.Tensor,
+               gemv: bool):
+    """The block's FFN on h (B, S, d): MoE, or the dense MLP (through the
+    GEMV kernel for decode rows). Returns (y, aux loss)."""
+    if ffn == "moe":
+        return M.apply_moe(cfg, p, h)
+    if not gemv:
+        return L.apply_mlp(cfg, p, h), None
+    B, _, d = h.shape
+    return L.apply_mlp_gemv(cfg, p, h.reshape(B, d)).reshape(B, 1, -1), None
+
+
 def _apply_block_full(cfg: ModelConfig, kind: Tuple[str, str], p: dict,
-                      x: torch.Tensor, positions: torch.Tensor
-                      ) -> torch.Tensor:
-    """Full-sequence (prefill) block from a zero state. x: (B, S, d)."""
+                      x: torch.Tensor, positions: torch.Tensor):
+    """Full-sequence (prefill) block from a zero state. x: (B, S, d).
+    Returns (x, aux loss or None)."""
+    mixer, ffn = kind
     h = L.apply_norm(cfg, p["norm1"], x)
-    if kind[0] == "attn":
-        x = x + A.attention_prefill(cfg, p["attn"], h, positions)
+    if mixer == "rwkv":
+        y, _ = S.rwkv_time_mix(cfg, p["rwkv"], h)
+        x = x + y
         h = L.apply_norm(cfg, p["norm2"], x)
-        return x + L.apply_mlp(cfg, p["ffn"], h)
-    y, _ = S.rwkv_time_mix(cfg, p["rwkv"], h)
-    x = x + y
+        y, _ = S.rwkv_channel_mix(cfg, p["rwkv"], h)
+        return x + y, None
+    if mixer == "attn":
+        x = x + A.attention_prefill(cfg, p["attn"], h, positions)
+    else:
+        x = x + S.mamba_mix(cfg, p["mamba"], h)[0]
     h = L.apply_norm(cfg, p["norm2"], x)
-    y, _ = S.rwkv_channel_mix(cfg, p["rwkv"], h)
-    return x + y
+    y, aux = _apply_ffn(cfg, ffn, p["ffn"], h, gemv=False)
+    return x + y, aux
 
 
 def _apply_block_decode(cfg: ModelConfig, kind: Tuple[str, str], p: dict,
@@ -156,23 +191,29 @@ def _apply_block_decode(cfg: ModelConfig, kind: Tuple[str, str], p: dict,
                         cur_len: torch.Tensor) -> torch.Tensor:
     """One-token block. x: (B, 1, d); ``cache`` holds this layer's leaves
     as views into the stacked cache, which are updated in place."""
-    B, _, d = x.shape
+    mixer, ffn = kind
     h = L.apply_norm(cfg, p["norm1"], x)
-    if kind[0] == "attn":
-        y, _ = A.attention_decode(cfg, p["attn"], h, cache, cur_len)
+    if mixer == "rwkv":
+        y, st = S.rwkv_time_mix(cfg, p["rwkv"], h, state={
+            "shift_tm": cache["shift_tm"], "wkv": cache["wkv"]})
+        cache["shift_tm"].copy_(st["shift_tm"])
+        cache["wkv"].copy_(st["wkv"])
         x = x + y
         h = L.apply_norm(cfg, p["norm2"], x)
-        return x + L.apply_mlp_gemv(cfg, p["ffn"], h.reshape(B, d)
-                                    ).reshape(B, 1, -1)
-    y, st = S.rwkv_time_mix(cfg, p["rwkv"], h, state={
-        "shift_tm": cache["shift_tm"], "wkv": cache["wkv"]})
-    cache["shift_tm"].copy_(st["shift_tm"])
-    cache["wkv"].copy_(st["wkv"])
+        y, st = S.rwkv_channel_mix(cfg, p["rwkv"], h,
+                                   state={"shift_cm": cache["shift_cm"]})
+        cache["shift_cm"].copy_(st["shift_cm"])
+        return x + y
+    if mixer == "attn":
+        y, _ = A.attention_decode(cfg, p["attn"], h, cache, cur_len)
+    else:
+        y, st = S.mamba_mix(cfg, p["mamba"], h, state={
+            "conv": cache["conv"], "ssm": cache["ssm"]})
+        cache["conv"].copy_(st["conv"])
+        cache["ssm"].copy_(st["ssm"])
     x = x + y
     h = L.apply_norm(cfg, p["norm2"], x)
-    y, st = S.rwkv_channel_mix(cfg, p["rwkv"], h,
-                               state={"shift_cm": cache["shift_cm"]})
-    cache["shift_cm"].copy_(st["shift_cm"])
+    y, _ = _apply_ffn(cfg, ffn, p["ffn"], h, gemv=True)
     return x + y
 
 
@@ -184,25 +225,29 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     """tokens (B, S) -> (logits (B, S, V), aux loss), every layer from a
     zero state; ``last_only=True`` emits only the final position's logits
     (B, 1, V) (the serving prefill: a (B, S, V) tensor at a long S and a
-    large vocab does not fit). Attention runs through the flash kernel and
-    the RWKV time mix through the ``rwkv_chunk`` kernel. The aux loss (the
-    MoE balance term) is 0 for both ported families."""
+    large vocab does not fit). Attention runs through the flash kernel, the
+    RWKV time mix through the ``rwkv_chunk`` kernel and the Mamba scan
+    through the ``mamba_chunk`` kernel. The aux loss is the sum of the MoE
+    layers' balance terms (0 without MoE)."""
     _require_ported(cfg)
     x = L.embed_tokens(params["embed"], tokens)
     B, Stot = x.shape[0], x.shape[1]
     positions = torch.arange(Stot, device=x.device)[None].expand(B, Stot)
     kinds = _position_kinds(cfg)
     n_super = cfg.num_layers // len(kinds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_super):
         for j, kind in enumerate(kinds):
-            x = _apply_block_full(cfg, kind,
-                                  _layer(params["blocks"][f"pos{j}"], i), x,
-                                  positions)
+            x, a = _apply_block_full(cfg, kind,
+                                     _layer(params["blocks"][f"pos{j}"], i),
+                                     x, positions)
+            if a is not None:
+                aux = aux + a
     if last_only:
         x = x[:, -1:, :]
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.lm_logits(params["embed"], x, cfg.tie_embeddings)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 # --------------------------------------------------------------------------- #
@@ -271,9 +316,10 @@ def _prefill_stack(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     attention is ``attend(p_attn, h, layer_cache)``, which writes the
     chunk's K/V into the layer's cache. Emits no logits. Returns the
     cache."""
-    if not supports_batched_prefill(cfg):
+    if not supports_batched_prefill(cfg) or cfg.is_moe:
         raise NotImplementedError(
-            "batched prefill covers attention mixers only")
+            "batched prefill covers attention mixers with dense FFNs only "
+            "(through MoE: ROADMAP queue 1 item 11)")
     x = L.embed_tokens(params["embed"], tokens)
     blocks, kv = params["blocks"]["pos0"], cache["pos0"]
     for i in range(cfg.num_layers):

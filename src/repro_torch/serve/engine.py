@@ -17,9 +17,10 @@ Counterpart of ``repro/serve/engine.py`` under the ``serial`` policy:
     with ``non_blocking`` copies, so they never wait for the card;
   * every dispatch's phase and FC route lands in ``pas_log``.
 
-An ``ssm`` (RWKV6) stack cannot prefill in chunks (its state is threaded
-token by token), so it takes the sequential path whatever
-``prefill_mode`` says, as in the reference.
+An ``ssm`` (RWKV6) or ``hybrid`` (Jamba: Mamba, attention and MoE) stack
+cannot prefill in chunks (its recurrent state is threaded token by token),
+so it takes the sequential path whatever ``prefill_mode`` says, as in the
+reference.
 
 Packed prefill (``ServeConfig.pack``): a wave's prompts are first-fit-
 decreasing packed into chunk lanes (several short prompts, or a long
@@ -36,8 +37,8 @@ its hooks) can be attached; the port never imports one.
 
 Knobs of later slices raise ``NotImplementedError`` at construction:
 ``fuse``, ``superstep > 1``, the interleaving policies (with or without
-``pack``) and the families other than ``dense`` and ``ssm``; KV-snapshot
-restores raise in ``add_request``.
+``pack``) and the families other than ``dense``, ``ssm`` and ``hybrid``;
+KV-snapshot restores raise in ``add_request``.
 """
 from __future__ import annotations
 
@@ -393,11 +394,16 @@ class ServeEngine:
         prompt token, each over all ``max_slots`` rows (the other rows
         feed token 0). For attention that is harmless: another slot's row
         is written at its own ``lens`` and overwritten later. A recurrent
-        (RWKV) state is cumulative, though, so each prompt token of a
-        wave-mate also advances every other slot's ``wkv`` and shift
-        state, and a prompt served beside others gives other tokens than
-        served alone. The reference does exactly this, and the port keeps
-        it so that both give the same tokens."""
+        state is cumulative, though, so each prompt token of a wave-mate
+        also advances every other slot's RWKV ``wkv`` and shift state, or
+        Mamba ``conv`` and ``ssm`` state, and a prompt served beside others
+        gives other tokens than served alone. MoE couples rows too: in
+        every dispatch (and every decode step) all ``max_slots`` rows,
+        idle ones included, compete for each expert's capacity of
+        ``ceil(B * k * capacity_factor / E)`` tokens, so a row's token can
+        be dropped from an expert because of what another row routed
+        there. The reference does exactly this, and the port keeps it so
+        that both give the same tokens."""
         B = self.scfg.max_slots
         for slot, req in wave:
             for pos, tok in enumerate(req.prompt[:-1]):

@@ -17,6 +17,7 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_segmented)
 from repro_torch.kernels.layernorm import layernorm
+from repro_torch.kernels.mamba_chunk import mamba_chunk
 from repro_torch.kernels.masked_softmax import masked_softmax
 from repro_torch.kernels.pim_matvec import pim_matvec
 from repro_torch.kernels.rwkv_chunk import rwkv_chunk
@@ -119,6 +120,10 @@ def test_ops_send_cpu_tensors_to_the_plain_versions():
                                ref.rwkv_chunk_ref(r, r, r, wd,
                                                   s[None].expand(4, 16)),
                                rtol=0, atol=0)
+    a = torch.rand(2, 5, 16, 3, generator=g)
+    torch.testing.assert_close(ops.mamba_chunk(a, a, r[:2, :, :3]),
+                               ref.mamba_chunk_ref(a, a, r[:2, :, :3]),
+                               rtol=0, atol=0)
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
     assert _build._libs == {}
 
@@ -142,8 +147,10 @@ def test_ops_refuse_a_device_without_a_path():
     lambda t: rwkv_chunk(t(2, 5, 16), t(2, 5, 16), t(2, 5, 16), t(2, 5, 16),
                          t(1, 16)),
     lambda t: masked_softmax(t(2, 16), torch.ones(2, 16, dtype=torch.bool)),
+    lambda t: mamba_chunk(t(2, 5, 16, 4), t(2, 5, 16, 4), t(2, 5, 4)),
 ], ids=["flash_attention", "flash_attention_segmented", "decode_attention",
-        "pim_matvec", "layernorm", "rwkv_chunk", "masked_softmax"])
+        "pim_matvec", "layernorm", "rwkv_chunk", "masked_softmax",
+        "mamba_chunk"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises: given CPU tensors it
     raises before any build, and counts nothing."""

@@ -5,8 +5,8 @@ machine with an H100, nvcc and triton:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Shapes are small and ragged (no tile divides them), so every masked edge
-is exercised, plus the main-path shape of ``rwkv_chunk`` and of the masked
-softmax. Tolerances are those of ``tests/test_kernels.py::_tol``:
+is exercised, plus the main-path shape of ``rwkv_chunk``, ``mamba_chunk``
+and the masked softmax. Tolerances are those of ``tests/test_kernels.py::_tol``:
 f32 1e-4 (sums taken in another order), bf16 5e-2 (the kernel and the
 plain version round to bf16 at other places)."""
 import dataclasses
@@ -21,6 +21,7 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_segmented)
 from repro_torch.kernels.layernorm import layernorm
+from repro_torch.kernels.mamba_chunk import mamba_chunk
 from repro_torch.kernels.masked_softmax import masked_softmax
 from repro_torch.kernels.pim_matvec import pim_matvec
 from repro_torch.kernels.rwkv_chunk import rwkv_chunk
@@ -182,12 +183,14 @@ def test_each_launch_counts_once(card):
     r = _rand((6, 70, 16), 6, torch.float32)
     ops.rwkv_chunk(r, r, r, torch.sigmoid(r), r[:3, 0])
     ops.masked_softmax(q, q > 0)
+    a = torch.sigmoid(_rand((2, 9, 40, 16), 7, torch.float32))
+    ops.mamba_chunk(a, a, a[:, :, 0])
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "flash_attention_segmented": 2,
                                    "decode_attention": 0, "pim_matvec": 2,
                                    "layernorm": 1, "rwkv_chunk": 1,
-                                   "masked_softmax": 1}
+                                   "masked_softmax": 1, "mamba_chunk": 1}
 
 
 def _rwkv_inputs(BH, T_, K, dtype, seed):
@@ -312,6 +315,113 @@ def test_engine_on_the_card_matches_the_cpu(card, kv_update, pack, kv_dtype):
             eng.add_request(pr, max_new_tokens=6)
         runs.append((eng.run_until_done(), eng.dispatch_counts,
                      eng.host_syncs))
+    assert runs[0] == runs[1]
+
+
+def _mamba_inputs(B, T_, d, n, dtype, seed):
+    """The model's discretization: a = exp(dt A) with dt = softplus(.) and
+    A = -exp(log U), so decays lie in (0, 1), many near 1; u = dt x B."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T_, d), generator=g, device="cuda") - 2)
+    A = -torch.exp(-torch.log(torch.rand((d, n), generator=g, device="cuda")
+                              * (1 - 1e-3) + 1e-3))
+    a = torch.exp(dt[..., None] * A)
+    u = (dt * torch.randn((B, T_, d), generator=g, device="cuda"))[..., None] \
+        * torch.randn((B, T_, 1, n), generator=g, device="cuda") * 0.1
+    C = torch.randn((B, T_, n), generator=g, device="cuda")
+    return a.to(dtype), u.to(dtype), C.to(dtype)
+
+
+@pytest.mark.parametrize("B,T_,d,n", [
+    (2, 2048, 8192, 16),   # jamba-v0.1-52b's full-sequence prefill step
+    (1, 200, 8192, 16),    # ragged T
+    (2, 37, 128, 4),       # the reduced config's widths
+    (3, 5, 100, 5),        # a d_state that is no power of two
+    (1, 1, 7, 32),         # one step, the widest d_state
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mamba_chunk_kernel_matches_plain(card, B, T_, d, n, dtype):
+    """y in a's dtype and h_T in f32, within f32's 1e-4 and bf16's 5e-2."""
+    a, u, C = _mamba_inputs(B, T_, d, n, dtype, 11)
+    y, h = mamba_chunk(a, u, C)
+    want_y, want_h = ref.mamba_chunk_ref(a, u, C)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(), **_tol(dtype))
+    torch.testing.assert_close(h, want_h, **_tol(dtype))
+
+
+@pytest.mark.parametrize("case", [
+    "d_state 33", "u shape", "C shape", "mixed dtypes", "float16",
+    "not contiguous", "rank 3",
+])
+def test_mamba_chunk_kernel_refuses_what_it_cannot_compute(card, case):
+    """Bad shapes and dtypes raise before a launch, and count nothing."""
+    a, u, C = _mamba_inputs(2, 6, 8, 4, torch.float32, 12)
+    args = {"d_state 33": lambda: (
+                *_mamba_inputs(1, 2, 8, 33, torch.float32, 13),),
+            "u shape": lambda: (a, u[:, :5], C),
+            "C shape": lambda: (a, u, C[..., :3]),
+            "mixed dtypes": lambda: (a, u.to(torch.bfloat16), C),
+            "float16": lambda: tuple(t.half() for t in (a, u, C)),
+            "not contiguous": lambda: (a.transpose(1, 2), u.transpose(1, 2),
+                                       C),
+            "rank 3": lambda: (a[:, :, 0], u[:, :, 0], C)}[case]()
+    ops.reset_launch_counts()
+    with pytest.raises((ValueError, TypeError)):
+        mamba_chunk(*args)
+    assert ops.launch_counts()["mamba_chunk"] == 0
+
+
+def test_dense_forward_full_on_the_card_matches_the_cpu(card):
+    """The reduced llama in float32: the full-sequence forward's attention
+    (K after RoPE, V a transposed view of the projection) through the
+    static flash kernel agrees with the plain path."""
+    cfg = dataclasses.replace(get_arch("llama3.2-1b").reduced(),
+                              dtype="float32")
+    params = init_params(T.param_defs(cfg), device="cpu", seed=8)
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (2, 40)))
+    out = []
+    for dev in ("cuda", "cpu"):
+        p = _tree(lambda a: a.float().to(dev), params)
+        ops.reset_launch_counts()
+        out.append(T.forward_full(cfg, p, tokens.to(dev))[0].cpu())
+        if dev == "cuda":
+            assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    torch.testing.assert_close(out[0], out[1], rtol=1e-4, atol=1e-4)
+
+
+def test_jamba_forward_full_and_engine_on_the_card_match_the_cpu(card):
+    """The reduced jamba-v0.1-52b in float32: the full-sequence prefill
+    step's logits and aux loss through mamba_chunk (once per Mamba layer)
+    and flash (once per attention layer) agree with the plain path, and the
+    engine gives its greedy tokens and counters."""
+    cfg = dataclasses.replace(get_arch("jamba-v0.1-52b").reduced(),
+                              dtype="float32")
+    params = init_params(T.param_defs(cfg), device="cpu", seed=6)
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 40)))
+    logits, aux, runs = [], [], []
+    for dev in ("cuda", "cpu"):
+        p = _tree(lambda a: a.float().to(dev), params)
+        ops.reset_launch_counts()
+        lg, ax = T.forward_full(cfg, p, tokens.to(dev), last_only=True)
+        logits.append(lg.cpu())
+        aux.append(float(ax))
+        if dev == "cuda":
+            counts = ops.launch_counts()
+            assert counts["mamba_chunk"] == 2
+            assert counts["flash_attention"] == 2
+        eng = ServeEngine(cfg, p, ServeConfig(max_slots=3, max_len=48),
+                          device=dev)
+        for n in (3, 12, 1, 7):
+            eng.add_request(tokens[0, :n].numpy(), max_new_tokens=5)
+        runs.append((eng.run_until_done(), eng.dispatch_counts,
+                     eng.host_syncs))
+    torch.testing.assert_close(logits[0], logits[1], rtol=1e-4, atol=1e-4)
+    assert abs(aux[0] - aux[1]) <= 1e-4
     assert runs[0] == runs[1]
 
 

@@ -271,3 +271,49 @@ def test_rwkv_chunk_ops_ragged_and_broadcast_u(T):
                                    rtol=5e-2, atol=5e-2)
         np.testing.assert_allclose(_np(s[bh]), np.asarray(want_s),
                                    rtol=1e-4, atol=1e-4)
+
+
+def _mamba_inputs(B, T, d, n, seed):
+    """test_kernels.py::test_mamba_chunk's distributions: decays in
+    (0.45, 0.95), inputs and C of scale 0.3 and 0.5."""
+    rng = np.random.default_rng(seed)
+    a = (1 / (1 + np.exp(-rng.standard_normal((B, T, d, n)))) * 0.5 + 0.45
+         ).astype(np.float32)
+    u = (rng.standard_normal((B, T, d, n)) * 0.3).astype(np.float32)
+    C = (rng.standard_normal((B, T, n)) * 0.5).astype(np.float32)
+    return a, u, C
+
+
+@pytest.mark.parametrize("B,T,d,n", [
+    (2, 32, 64, 8), (1, 64, 128, 16), (2, 16, 32, 4),   # test_kernels.py's
+    (2, 37, 24, 5),                                     # ragged T, d and n
+])
+def test_mamba_chunk_plain(B, T, d, n):
+    """The plain (sequential, batched) selective scan, through the port's
+    ops entry, against the reference's per-row oracle (its Pallas kernel
+    calls ``pl.load``, which the installed jax no longer has)."""
+    a, u, C = _mamba_inputs(B, T, d, n, 24)
+    y, h = ops.mamba_chunk(*(torch.from_numpy(x) for x in (a, u, C)))
+    assert y.shape == (B, T, d) and y.dtype == torch.float32
+    assert h.shape == (B, d, n) and h.dtype == torch.float32
+    for b in range(B):
+        want_y, want_h = jref.mamba_chunk_ref(
+            *(jnp.asarray(x[b]) for x in (a, u, C)))
+        np.testing.assert_allclose(_np(y[b]), np.asarray(want_y),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(_np(h[b]), np.asarray(want_h),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_mamba_chunk_plain_keeps_the_input_dtype():
+    """bf16 operands: y in bf16 (the reference oracle's ``a.dtype``), the
+    final state in f32, within bf16's 5e-2."""
+    a, u, C = _mamba_inputs(1, 9, 16, 4, 25)
+    ab, ub, Cb = (jnp.asarray(x).astype(jnp.bfloat16) for x in (a, u, C))
+    y, h = ref.mamba_chunk_ref(_t(ab), _t(ub), _t(Cb))
+    want_y, want_h = jref.mamba_chunk_ref(ab[0], ub[0], Cb[0])
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    np.testing.assert_allclose(_np(y[0]), np.asarray(want_y, np.float32),
+                               rtol=5e-2, atol=5e-2)
+    np.testing.assert_allclose(_np(h[0]), np.asarray(want_h), rtol=5e-2,
+                               atol=5e-2)
