@@ -9,16 +9,20 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
   1. print the card (``nvidia-smi``: name, power limit) and build every
      CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
      in parallel), logging what ``ptxas`` gave each kernel (registers,
-     shared memory, spills; a spill in the flash source fails the run);
+     shared memory, spills; a spill in the flash, decode or GEMV source
+     fails the run);
   2. hold each kernel against its plain PyTorch version on the card, at
-     the full-width shapes of the serving paths (llama3.2-1b's, rwkv6-7b's
-     full-sequence prefill for ``rwkv_chunk`` and jamba-v0.1-52b's for
-     ``mamba_chunk`` and for flash: S 2048, head dim 128, causal, beside
-     SDPA with ``is_causal``) plus ragged cases, in float32 and bfloat16
-     (tolerances of the reference's kernel tests: 1e-4, 2e-3 for the
-     chunked wkv, and 5e-2; flash in bf16 1e-2 + 2e-2 |want|, which a
-     kernel that drops one KV tile fails), and time the kernel, the
-     plain version and one PyTorch library call computing the same function where there is one
+     the full-width shapes of the serving paths (llama3.2-1b's; rwkv6-7b's
+     and jamba-v0.1-52b's decode FCs and jamba's decode attention;
+     rwkv6-7b's full-sequence prefill for ``rwkv_chunk`` and
+     jamba-v0.1-52b's for ``mamba_chunk`` and for flash: S 2048, head dim
+     128, causal, beside SDPA with ``is_causal``) plus ragged cases, in
+     float32 and bfloat16 (tolerances of the reference's kernel tests:
+     1e-4, 2e-3 for the chunked wkv, and 5e-2; flash, decode_attention and
+     pim_matvec in bf16 1e-2 + 2e-2 |want|, which a kernel that drops one
+     KV tile, split or K-slice fails; the last two must give the same bits
+     on a second call), and time the kernel, the plain version and one
+     PyTorch library call computing the same function where there is one
      (in bfloat16; ``mamba_chunk`` in float32, the type its path gives it);
   2b. call ``ops.masked_softmax`` on a llama prefill chunk's scores with
      the launch counts set to 0 just before: the kernel must launch, give
@@ -31,6 +35,14 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      segmented flash kernel must have launched, and the run must make
      exactly one host sync per decode step and no hidden one;
   3c. serve them again with the int8 KV cache (``kv_dtype="int8"``);
+  3d. on the same weights in bf16, the first decode step after the
+     prompts' prefill and the prefill step (B 2, S 1024), through the
+     kernels and through the plain versions on the card, each against the
+     same step's plain path in float32: the kernel path's max |error| at
+     most twice the bf16 plain path's own (the packed prefill's first step
+     too, and its difference from the unpacked one logged) -- the check
+     of the tensor-core routes (flash, the GEMV) at model level, which the
+     float32 parity phases never run;
   4. serve prompts through llama3.2-1b at full width and depth 2 in
      float32 on the card and, through the plain versions, on the CPU,
      unpacked, packed and with the int8 cache: greedy tokens, dispatch
@@ -59,6 +71,8 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
   7b. run its full-sequence prefill step (B 2, S 2048, ``last_only=True``):
      ``mamba_chunk`` must launch once per Mamba layer (7) and
      ``flash_attention`` once; then profile as in 5b;
+  7c. as 3d, at jamba's depth 8 (prompts cut to 16 tokens, sequential
+     prefill; no packing);
   8. jamba-v0.1-52b at full width and depth 2 in float32 (one mamba/dense
      and one attn/moe layer), the kernels on the card against the plain
      versions on the CPU: the serve gives identical greedy tokens,
@@ -72,6 +86,7 @@ or when any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -90,10 +105,12 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 tensor / f32 
 # capability 9.0) x the 1.98 GHz boost clock of the H100 SXM data sheet
 SFU_PER_S = 132 * 16 * 1.98e9
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
-# flash: bf16 as (atol, rtol). Its outputs are means over hundreds of keys,
-# about 0.05 in size, so 5e-2 would pass a kernel that drops a 64-key tile;
-# 1e-2 + 2e-2 |want| holds bf16 rounding (PERF.md has the readings)
-FLASH_TOL = {"float32": 1e-4, "bfloat16": (1e-2, 2e-2)}
+# flash, decode_attention and pim_matvec: bf16 as (atol, rtol). Attention
+# outputs are means over hundreds of keys, about 0.05 in size, so 5e-2
+# would pass a kernel that drops a 64-key tile or a split of the keys, and
+# a GEMV that drops a K-slice; 1e-2 + 2e-2 |want| holds bf16 rounding
+# (PERF.md has the readings of the sound kernels and of broken copies)
+TIGHT_TOL = {"float32": 1e-4, "bfloat16": (1e-2, 2e-2)}
 
 
 def fail(msg: str) -> None:
@@ -170,7 +187,7 @@ def kernel_cases(torch, dtype):
             (lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=m, enable_gqa=True)))
         cases.append(dict(
-            kernel="flash_attention", tol=FLASH_TOL,
+            kernel="flash_attention", tol=TIGHT_TOL,
             label=f"B{B} S{S} span{span} off{off}"
             + ("" if hd == D else f" D{hd}"),
             run=lambda q=q, k=k, v=v, off=off: flash_attention(
@@ -193,7 +210,7 @@ def kernel_cases(torch, dtype):
                 & (info[0][:, :, None] >= info[2][:, None, :]))
         rows = (info[1] >= 0)[:, None, :, None].expand(R, H, C, D)
         cases.append(dict(
-            kernel="flash_attention_segmented", tol=FLASH_TOL,
+            kernel="flash_attention_segmented", tol=TIGHT_TOL,
             label=f"R{R} C{C} span{span}", rows=rows,
             run=lambda q=q, k=k, v=v, i=info: flash_attention_segmented(
                 q, k, v, i),
@@ -205,34 +222,43 @@ def kernel_cases(torch, dtype):
             bytes=(2 * q.numel() + 2 * R * KH * Skv * D) * es
             + 4 * 2 * R * (C + Skv),
             flops=4.0 * H * D * float(mask.sum())))
-    # decode: lengths of 1 and off every tile
-    for B, L, lens in ((8, 1024, (1, 77, 700, 1023, 1024, 5, 333, 512)),
-                       (3, 300, (1, 299, 130))):
-        q, k, v = rn(B, H, D), rn(B, KH, L, D), rn(B, KH, L, D)
+    # decode: llama's cache (lengths of 1 and off every tile) and a ragged
+    # one; jamba's (head dim 128, max_len 256, lengths off every tile)
+    for B, L, lens, hd in ((8, 1024, (1, 77, 700, 1023, 1024, 5, 333, 512), D),
+                           (3, 300, (1, 299, 130), D),
+                           (8, 256, (3, 67, 130, 200, 255, 19, 101, 250), 128)):
+        q, k, v = rn(B, H, hd), rn(B, KH, L, hd), rn(B, KH, L, hd)
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         mask = (torch.arange(L, device="cuda")[None, :]
                 < lengths[:, None])[:, None, None, :]
         cases.append(dict(
-            kernel="decode_attention", label=f"B{B} L{L}",
+            kernel="decode_attention", tol=TIGHT_TOL, deterministic=True,
+            label=f"B{B} L{L}" + ("" if hd == D else f" D{hd}"),
             run=lambda q=q, k=k, v=v, n=lengths: decode_attention(q, k, v, n),
             plain=lambda q=q, k=k, v=v, n=lengths:
                 ref.decode_attention_ref(q, k, v, n),
             library=lambda q=q, k=k, v=v, m=mask:
                 F.scaled_dot_product_attention(
                     q[:, :, None], k, v, attn_mask=m, enable_gqa=True),
-            bytes=(2 * q.numel() + 2 * KH * D * sum(lens)) * es + 4 * B,
-            flops=4.0 * H * D * sum(lens)))
-    # matvec: the decode step's FCs -- wg/wi (d -> f), wo of the MLP
-    # (f -> d), wq/wo of attention (d -> d), wk/wv (d -> KH*D) -- at
-    # n in {1, 3, 8} slot rows
+            bytes=(2 * q.numel() + 2 * KH * hd * sum(lens)) * es + 4 * B,
+            flops=4.0 * H * hd * sum(lens)))
+    # matvec: llama's decode FCs -- wg/wi (d -> f), wo of the MLP (f -> d),
+    # wq/wo of attention (d -> d), wk/wv (d -> KH*D) -- at n in {1, 3, 8}
+    # slot rows; then rwkv6-7b's (4096 -> 4096, 4096 -> 14336, 14336 ->
+    # 4096) and jamba-v0.1-52b's (4096 -> 8192, 8192 -> 4096, 4096 -> 1024)
+    # at the 8 rows the engine decodes
     shapes = [(n, d, f, "silu") for n in (1, 3, 8)] \
         + [(n, f, d, "none") for n in (1, 3, 8)] \
-        + [(8, d, d, "none"), (8, d, KH * D, "none")]
+        + [(8, d, d, "none"), (8, d, KH * D, "none")] \
+        + [(8, 4096, 4096, "none"), (8, 4096, 14336, "silu"),
+           (8, 14336, 4096, "none"), (8, 4096, 8192, "none"),
+           (8, 8192, 4096, "none"), (8, 4096, 1024, "none")]
     for n, din, dout, act in shapes:
         x, w = rn(n, din), rn(din, dout, scale=din ** -0.5)
         lib_act = F.silu if act == "silu" else (lambda t: t)
         cases.append(dict(
             kernel="pim_matvec", label=f"n{n} {din}->{dout} {act}",
+            tol=TIGHT_TOL, deterministic=True,
             run=lambda x=x, w=w, a=act: pim_matvec(x, w, None, a),
             plain=lambda x=x, w=w, a=act: ref.matvec_ref(x, w, None, a),
             library=lambda x=x, w=w, a=lib_act: a(torch.matmul(x, w)),
@@ -419,6 +445,9 @@ SOURCES = {
     "mamba_chunk": ("cuda", "src/repro_torch/kernels/csrc/mamba_chunk.cu",
                     "src/repro/kernels/mamba_chunk.py:51"),
 }
+# the sources whose kernels may not spill (the tensor-core routes and the
+# redesigned decode kernels)
+SPILL_GATED = ("flash_attention", "decode_attention", "pim_matvec")
 # the case of each kernel that the JSON line reports (a main-path shape)
 REPORTED = {"flash_attention": "B8 S128 span640 off512",
             "flash_attention_segmented": "R8 C128 span512",
@@ -483,7 +512,14 @@ def check_kernels(torch) -> dict:
             atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
             got = flat(torch, c["run"]())
             want = flat(torch, c["plain"]())
+            # a kernel that merges splits in a fixed order: a second call
+            # gives the same bits
+            again = flat(torch, c["run"]()) if c.get("deterministic") \
+                else got
             torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"{c['kernel']} [{dname} {c['label']}]: two calls on "
+                     f"the same inputs differ")
             broken = c["check"](got) if "check" in c else None
             if broken:
                 fail(f"{c['kernel']} [{dname} {c['label']}]: {broken}")
@@ -501,7 +537,8 @@ def check_kernels(torch) -> dict:
             # the largest share of its bound that an element's error takes
             row = dict(kernel=c["kernel"], dtype=dname, label=c["label"],
                        max_abs_err=max_err,
-                       tol_share=float((err / limit).max()))
+                       tol_share=float((err / limit).max()),
+                       deterministic=bool(c.get("deterministic")))
             if dname == c.get("timed", "bfloat16"):
                 row["ms"] = time_ms(torch, c["run"])
                 row["plain_ms"] = time_ms(torch, c["plain"])
@@ -667,7 +704,9 @@ TIMED = ("wall_s", "prefill_s", "prefill_tok_s", "decode_s", "decode_tok_s",
 
 
 def full_width_serves(torch) -> dict:
-    """Phases 3, 3b and 3c on one set of full-width bf16 weights."""
+    """Phases 3, 3b and 3c on one set of full-width bf16 weights, then 3d
+    on the same weights (which it casts to float32)."""
+    import numpy as np
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
@@ -722,9 +761,118 @@ def full_width_serves(torch) -> dict:
                                       base["max_memory_allocated_prefill"]],
         saved_bytes=base["max_memory_allocated"]
         - i8["max_memory_allocated"])))
+    t0 = time.perf_counter()
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 1024))).to("cuda")
+    out["3d bf16 steps"] = bf16_steps(torch, cfg, params, "llama",
+                                      serve_prompts(cfg.vocab_size), tokens,
+                                      pack=True)
+    log(f"phase 3d took {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------- #
+# phases 3d and 7c: bf16 steps, kernel path against plain path on the card
+# --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def plain_path(ops):
+    """Within it, ``ops`` sends CUDA tensors to the plain versions. The port
+    has no such switch (a CUDA tensor goes to its kernel); this test puts
+    one in for the comparison and takes it out again."""
+    routed = ops._use_kernel
+    ops._use_kernel = lambda t: False
+    try:
+        yield
+    finally:
+        ops._use_kernel = routed
+
+
+def bf16_steps(torch, cfg, params, name: str, prompts, step_tokens,
+               pack: bool, **engine_kw) -> dict:
+    """A decode step and a prefill step of ``cfg`` in bf16, through the
+    kernels and through the plain versions, both on the card, each against
+    the same step's plain path in float32. The decode step is the first
+    one after a wave's prefill (``prompts``, through the engine's own
+    prefill: flash chunks, or sequential decode steps for the recurrent
+    stacks); the prefill step is ``step_fn_for(cfg, "prefill")`` on
+    ``step_tokens``. The kernel path's max |error| may be at most twice
+    the bf16 plain path's own. With ``pack``, the packed prefill's first
+    step is held to the same bound and set beside the unpacked one. The
+    float32 pass casts ``params`` in place, leaf by leaf (a float32 copy of
+    jamba's depth-8 weights beside the bf16 ones would not fit the card),
+    so the caller is done with them."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import step_fn_for
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = {"tokens": step_tokens}
+
+    def first_step(c, p, **kw):
+        eng = serve_engine(c, p, prompts=prompts, max_new=1,
+                           **{**engine_kw, **kw})
+        eng.prefill_wave(eng.admit_wave())
+        logits, _ = T.decode_step(c, p, eng.last_tok[:, None], eng.cache,
+                                  eng.lens)
+        return logits.float()
+
+    def both(c, p, plain: bool, **kw):
+        with plain_path(ops) if plain else contextlib.nullcontext():
+            out = {"decode": first_step(c, p, **kw),
+                   "prefill": step_fn_for(c, "prefill")(p, batch).float()}
+        torch.cuda.synchronize()
+        return out
+
+    runs = {"kernel": both(cfg, params, False),
+            "plain": both(cfg, params, True)}
+    if pack:
+        runs["kernel packed"] = {"decode": first_step(cfg, params,
+                                                      pack=True).float()}
+    leaves_to_f32(torch, params)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    runs["plain f32"] = both(f32, params, True)
+    out = {}
+    for step in ("decode", "prefill"):
+        ref32 = runs["plain f32"][step]
+        err = {k: float((r[step] - ref32).abs().max())
+               for k, r in runs.items() if step in r and k != "plain f32"}
+        if not all(bool(torch.isfinite(r[step]).all()) for r in runs.values()
+                   if step in r):
+            fail(f"{name} bf16 {step} step: non-finite logits")
+        bound = 2 * err["plain"]
+        for k, e in err.items():
+            if k != "plain" and e > bound:
+                fail(f"{name} bf16 {step} step: the {k} path's max |err| "
+                     f"{e:.4g} against float32 exceeds twice the plain "
+                     f"path's {err['plain']:.4g}")
+        out[step] = dict(max_abs_err=err, bound=bound,
+                         max_abs_f32=float(ref32.abs().max()),
+                         shape=list(ref32.shape))
+    if pack:
+        diff = float((runs["kernel packed"]["decode"]
+                      - runs["kernel"]["decode"]).abs().max())
+        errs = out["decode"]["max_abs_err"]
+        out["packed_vs_unpacked"] = dict(
+            max_abs_diff=diff,
+            within_route_error=diff <= max(errs["kernel"],
+                                           errs["kernel packed"]))
+    log(f"bf16 steps {name} " + json.dumps(out))
+    return out
+
+
+def leaves_to_f32(torch, tree) -> None:
+    """Cast a nested dict's tensors to float32 in place, one leaf at a
+    time, handing each bf16 leaf's memory back before the next cast."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            leaves_to_f32(torch, val)
+        else:
+            tree[key] = val.float()
+            del val
+            torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------- #
@@ -866,10 +1014,18 @@ def prefill_step_run(torch, cfg, params, phase: str, expect: dict, B: int,
                 launches=counts)
 
 
+# the device-side names of the port's kernels (CUDA and Triton)
+PORT_KERNELS = ("pim_matvec_kernel", "decode_attention_kernel",
+                "flash_attention_kernel", "wgmma_flash_kernel",
+                "rwkv_chunk_kernel", "mamba_chunk_kernel", "norm_kernel",
+                "softmax_kernel")
+
+
 def device_profile(torch, fn, top: int = 8) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its wall time, the
-    device's busy seconds and the ``top`` device ops by time. The profiler
-    adds host time to every op, so the busy share is a lower bound."""
+    device's busy seconds, the ``top`` device ops by time and the port's
+    kernels' count and time. The profiler adds host time to every op, so
+    the busy share is a lower bound."""
     from repro_torch.launch.serve import device_time
 
     torch.cuda.synchronize()
@@ -880,10 +1036,19 @@ def device_profile(torch, fn, top: int = 8) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, ranked = device_time(prof, top)
+    busy, ranked = device_time(prof, 10**6)
+    # the port's kernels summed over their template instances
+    mine = {}
+    for op, n, s in ranked:
+        fam = next((f for f in PORT_KERNELS if f in op), None)
+        if fam:
+            c, t = mine.get(fam, (0, 0.0))
+            mine[fam] = (c + n, t + s)
     return dict(wall_s=wall, busy_s=busy, busy_share=busy / wall,
                 top=[dict(op=op[:80], count=n, ms=1e3 * s)
-                     for op, n, s in ranked])
+                     for op, n, s in ranked[:top]],
+                port_kernels={f: dict(count=n, ms=1e3 * s)
+                              for f, (n, s) in mine.items()})
 
 
 def recurrent_full_width(torch, cfg, name: str, phases, required,
@@ -892,7 +1057,8 @@ def recurrent_full_width(torch, cfg, name: str, phases, required,
     ``ServeConfig(max_slots=8, max_len=256)``; the kernels in ``required``
     must launch) and the prefill step at B 2 x S 2048 (``phases[1]``;
     launches as in ``expect``) on one set of bf16 weights from a seed,
-    then a profile of each."""
+    then a profile of each; with a third phase name, ``bf16_steps`` last
+    (the prompts cut to 16 tokens, the prefill step at B 2 x S 1024)."""
     from repro_torch.launch.steps import step_fn_for
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
@@ -937,10 +1103,17 @@ def recurrent_full_width(torch, cfg, name: str, phases, required,
     prof["serve"]["dispatches"] = dict(eng.dispatch_counts)
     log(f"profile {phases[0]} {name} (took {time.perf_counter() - t0:.1f} "
         f"s) " + json.dumps(prof))
+    steps = None
+    if len(phases) > 2:
+        t0 = time.perf_counter()
+        steps = bf16_steps(torch, cfg, params, name,
+                           [p[:16] for p in prompts], tokens[:, :1024],
+                           pack=False, **kw)
+        log(f"phase {phases[2]} took {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
     return {"serve": serve, "step": step, "profile": prof,
-            "weight_bytes": n_bytes}
+            "weight_bytes": n_bytes, "bf16_steps": steps}
 
 
 def leaves(tree):
@@ -1043,7 +1216,7 @@ def main() -> None:
         for name, info in built.items():
             for entry in ptxas_entries(info["ptxas"]):
                 log(f"ptxas {name}: " + json.dumps(entry))
-                if name == "flash_attention" and entry["spill_stores"]:
+                if name in SPILL_GATED and entry["spill_stores"]:
                     fail(f"ptxas spills in {entry['kernel']}")
 
         t0 = time.perf_counter()
@@ -1067,7 +1240,7 @@ def main() -> None:
                                         num_layers=8)
         kinds = jamba_cfg.layer_kinds()
         jamba = recurrent_full_width(
-            torch, jamba_cfg, "jamba", ("7", "7b"),
+            torch, jamba_cfg, "jamba", ("7", "7b", "7c"),
             ["pim_matvec", "layernorm", "decode_attention"],
             {"mamba_chunk": kinds.count("mamba"),
              "flash_attention": kinds.count("attn")})

@@ -31,8 +31,9 @@ ARGTYPES = {
     "flash_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _LL, _I, _I, _F, _I, _P],
     "decode_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                _I, _P],
-    "pim_matvec_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                                _I, _I, _P],
+    "pim_matvec_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
     "rwkv_chunk_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P],
     "mamba_chunk_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -459,3 +459,29 @@ def test_port_packed_matches_port_unpacked(params, kv_dtype, lens, admission):
               for e in (pk, un))
     assert fp > fu
     assert pk.prefill_stats["valid_tokens"] == un.prefill_stats["valid_tokens"]
+
+
+@pytest.mark.parametrize("admission", ["fifo", "bucketed"])
+def test_port_bf16_packed_matches_port_unpacked(params, admission):
+    """Packing is sound in bf16 too: with the weights and the cache in
+    bf16, the port's packed serve gives its unpacked serve's greedy tokens
+    and decode counters (12 prompts of 2-39 tokens, 6 new each). A packed
+    and an unpacked serve on the card can still differ, from their flash
+    routes' rounding; chip_smoke.py phase 3d reads how far."""
+    port = dataclasses.replace(get_arch("llama3.2-1b").reduced(),
+                               dtype="bfloat16")
+    tp = _tree(lambda a: a.to(torch.bfloat16), params[1])
+    lens = (2, 39, 12, 26, 7, 33, 3, 17, 9, 21, 5, 30)
+    prompts = _prompts(port.vocab_size, lens, 5)
+    kw = dict(max_slots=4, max_len=64, prefill_chunk=8, admission=admission)
+    un, res_un = _serve(port, tp, prompts, 6, **kw)
+    pk, res_pk = _serve(port, tp, prompts, 6, pack=True, **kw)
+    assert res_pk == res_un
+    assert pk.dispatch_counts["decode"] == un.dispatch_counts["decode"]
+    assert pk.host_syncs == un.host_syncs
+    assert pk.dispatch_counts["prefill"] < un.dispatch_counts["prefill"]
+
+
+def _tree(fn, t):
+    return {k: _tree(fn, v) for k, v in t.items()} if isinstance(t, dict) \
+        else fn(t)
