@@ -9,21 +9,25 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
   1. print the card (``nvidia-smi``: name, power limit) and build every
      CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
      in parallel), logging what ``ptxas`` gave each kernel (registers,
-     shared memory, spills; a spill in the flash, decode or GEMV source
-     fails the run);
+     shared memory, spills; a spill in the flash, decode, GEMV or wkv
+     source fails the run);
   2. hold each kernel against its plain PyTorch version on the card, at
      the full-width shapes of the serving paths (llama3.2-1b's; rwkv6-7b's
-     and jamba-v0.1-52b's decode FCs and jamba's decode attention;
-     rwkv6-7b's full-sequence prefill for ``rwkv_chunk`` and
-     jamba-v0.1-52b's for ``mamba_chunk`` and for flash: S 2048, head dim
-     128, causal, beside SDPA with ``is_causal``) plus ragged cases, in
+     and jamba-v0.1-52b's decode FCs, norms and jamba's decode attention;
+     rwkv6-7b's full-sequence prefill for ``rwkv_chunk``, also at the
+     model's strong decays, and jamba-v0.1-52b's for ``mamba_chunk`` and
+     for flash: S 2048, head dim 128, causal, beside SDPA with
+     ``is_causal``; both prefill steps' norms) plus ragged cases, in
      float32 and bfloat16 (tolerances of the reference's kernel tests:
-     1e-4, 2e-3 for the chunked wkv, and 5e-2; flash, decode_attention and
-     pim_matvec in bf16 1e-2 + 2e-2 |want|, which a kernel that drops one
-     KV tile, split or K-slice fails; the last two must give the same bits
-     on a second call), and time the kernel, the plain version and one
-     PyTorch library call computing the same function where there is one
-     (in bfloat16; ``mamba_chunk`` in float32, the type its path gives it);
+     1e-4, 2e-3 for the chunked wkv (in bf16 too where y is f32), and
+     5e-2; flash, decode_attention, pim_matvec and rwkv_chunk's bf16 y in
+     bf16 1e-2 + 2e-2 |want|, which a kernel that drops one KV tile,
+     split, K-slice or block of the wkv fails; the last three must give
+     the same bits on a second call), and time the
+     kernel, the plain version and one PyTorch library call computing the
+     same function where there is one (in bfloat16; ``mamba_chunk`` in
+     float32, the type its path gives it), and what the timing gives for
+     an empty kernel and for a device copy (the floor under the norm);
   2b. call ``ops.masked_softmax`` on a llama prefill chunk's scores with
      the launch counts set to 0 just before: the kernel must launch, give
      exact zeros where masked and rows that sum to 1;
@@ -99,7 +103,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 tensor / f32 CUDA cores
+# dense bf16 and TF32 tensor cores, f32 CUDA cores
+PEAK_FLOPS = {"bfloat16": 989e12, "tfloat32": 495e12, "float32": 67e12}
 # exps on the special function units: 132 SMs x 16 results per clock per SM
 # (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
 # capability 9.0) x the 1.98 GHz boost clock of the H100 SXM data sheet
@@ -147,6 +152,15 @@ def time_ms(torch, fn, iters: int = 21, warmup: int = 3) -> float:
 # --------------------------------------------------------------------------- #
 # phase 2: every kernel against its plain version
 # --------------------------------------------------------------------------- #
+# the norm's (mode, rows, d) on the paths: llama's prefill rows (8 slots x
+# 128-token chunk) and decode rows (rmsnorm, d 2048); rwkv6-7b's
+# (layernorm) and jamba's (rmsnorm) decode rows and prefill-step rows
+# (B 2 x S 2048) at d 4096
+NORM_SHAPES = (("rmsnorm", 1024, 2048), ("rmsnorm", 8, 2048),
+               ("layernorm", 8, 4096), ("rmsnorm", 8, 4096),
+               ("layernorm", 4096, 4096), ("rmsnorm", 4096, 4096))
+
+
 def kernel_cases(torch, dtype):
     """(kernel, label, kernel call, plain call, library call, bytes, flops)
     at the serving path's full-width shapes and ragged ones."""
@@ -266,27 +280,39 @@ def kernel_cases(torch, dtype):
             flops=2.0 * n * din * dout))
     # rwkv_chunk: the full-sequence prefill step's call as rwkv_time_mix
     # makes it (B 2 x H 64 heads of 64, T 2048; u (H, K) broadcast over the
-    # batch; y in f32), and a ragged T with u per row and y in r's dtype;
-    # r, k, v in the case's dtype, the model's decays (exp(-exp(w0)),
-    # w0 = log U(1e-3, 1)) in f32
-    for BH, T_, K, U, y_dtype in ((128, 2048, 64, 64, torch.float32),
-                                  (4, 200, 64, 4, None)):
+    # batch; y in f32), a ragged T with u per row and y in r's dtype, a
+    # narrow head, and the model's strong decays; r, k, v in the case's
+    # dtype, decays in f32: exp(-exp(w0)) with w0 = log U(1e-3, 1) (many
+    # near 1), or ("strong") w0 over ssm.py's clamp [-10, 4], down to about
+    # 2e-24 a step. f32 takes the CUDA cores, bf16 the tensor-core route:
+    # both held to the reference's 2e-3 for the chunked form where y is in
+    # f32 (the model's call), bf16 y to the bound of the other tensor-core
+    # kernels
+    for BH, T_, K, U, y_dtype, strong in (
+            (128, 2048, 64, 64, torch.float32, False),
+            (4, 200, 64, 4, None, False), (6, 37, 16, 6, None, False),
+            (16, 512, 64, 16, torch.float32, True)):
         r, k, v = (rn(BH, T_, K, scale=0.5) for _ in range(3))
-        w0 = torch.log(torch.rand((BH, T_, K), generator=g, device="cuda")
-                       * (1 - 1e-3) + 1e-3)
+        w0 = (torch.rand((BH, T_, K), generator=g, device="cuda") * 14 - 10
+              if strong else
+              torch.log(torch.rand((BH, T_, K), generator=g, device="cuda")
+                        * (1 - 1e-3) + 1e-3))
         w = torch.exp(-torch.exp(w0))
         u = torch.randn((U, K), generator=g, device="cuda") * 0.1
         u_rows = u.repeat(BH // U, 1)       # u per row for the plain version
         flops, exps = rwkv_operations(BH, T_, K)
         ys = 4 if y_dtype == torch.float32 else es
         cases.append(dict(
-            kernel="rwkv_chunk", label=f"BH{BH} T{T_} K{K}",
-            tol={"float32": 2e-3, "bfloat16": 5e-2},
+            kernel="rwkv_chunk", deterministic=True,
+            label=f"BH{BH} T{T_} K{K}" + (" strong" if strong else ""),
+            tol={"float32": 2e-3, "bfloat16": (2e-3, 2e-3)
+                 if y_dtype == torch.float32 else TIGHT_TOL["bfloat16"]},
             run=lambda r=r, k=k, v=v, w=w, u=u, o=y_dtype: ops.rwkv_chunk(
                 r, k, v, w, u, out_dtype=o),
             plain=lambda r=r, k=k, v=v, w=w, u=u_rows, o=y_dtype:
                 ref.rwkv_chunk_ref(r, k, v, w, u, out_dtype=o),
-            library=None, exps=exps, math="float32",
+            library=None, exps=exps,
+            math="tfloat32" if dtype == torch.bfloat16 else "float32",
             bytes=BH * T_ * K * (3 * es + 4 + ys) + 4 * U * K
             + 4 * BH * K * K,
             flops=flops))
@@ -324,16 +350,42 @@ def kernel_cases(torch, dtype):
             check=lambda got, m=keep: softmax_invariants(torch, got, m),
             math="float32",
             bytes=rows * n * (2 * es + 1), flops=5.0 * rows * n))
-    # norm: prefill rows (8 slots x 128-token chunk) and decode rows
-    for rows in (1024, 8):
-        x, s = rn(rows, d, scale=3.0), rn(d)
+    # norm: every shape the paths launch (NORM_SHAPES), beside F.rms_norm
+    # or F.layer_norm
+    for mode, rows, dn in NORM_SHAPES:
+        x, s, b = rn(rows, dn, scale=3.0), rn(dn), rn(dn)
+        b = b if mode == "layernorm" else None
+        library = (
+            (lambda x=x, s=s, dn=dn: F.rms_norm(x, (dn,), s, 1e-6))
+            if mode == "rmsnorm" else
+            (lambda x=x, s=s, b=b, dn=dn: F.layer_norm(x, (dn,), s, b, 1e-5)))
         cases.append(dict(
-            kernel="layernorm", label=f"rmsnorm rows{rows} d{d}",
-            run=lambda x=x, s=s: layernorm(x, s, mode="rmsnorm"),
-            plain=lambda x=x, s=s: ref.norm_ref(x, s, mode="rmsnorm"),
-            library=lambda x=x, s=s: F.rms_norm(x, (d,), s, 1e-6),
-            bytes=(2 * x.numel() + d) * es, flops=4.0 * rows * d))
+            kernel="layernorm", label=f"{mode} rows{rows} d{dn}",
+            run=lambda x=x, s=s, b=b, m=mode: layernorm(x, s, b, mode=m),
+            plain=lambda x=x, s=s, b=b, m=mode: ref.norm_ref(x, s, b,
+                                                             mode=m),
+            library=library,
+            bytes=(2 * x.numel() + dn * (1 if b is None else 2)) * es,
+            flops=(4.0 if b is None else 7.0) * rows * dn))
     return cases
+
+
+def timing_floor(torch) -> dict:
+    """What ``time_ms`` gives for no work and for pure data movement: an
+    empty Triton kernel (launch alone, after the L2 flush), and a device
+    copy of llama's prefill-chunk rows (1024 x 2048 bf16, the norm's
+    bytes): the floor under the norm kernel at that shape."""
+    import triton
+
+    @triton.jit
+    def empty_kernel(x_ptr):
+        pass
+
+    x = torch.zeros((1024, 2048), dtype=torch.bfloat16, device="cuda")
+    out = torch.empty_like(x)
+    return dict(empty_triton_ms=time_ms(torch, lambda: empty_kernel[(1,)](x)),
+                copy_ms=time_ms(torch, lambda: out.copy_(x)),
+                shape="rows1024 d2048 bf16")
 
 
 def mamba_inputs(torch, g, B, T, d, n, dtype):
@@ -351,22 +403,31 @@ def mamba_inputs(torch, g, B, T, d, n, dtype):
     return a.to(dtype), u.to(dtype), C.to(dtype)
 
 
-RWKV_CHUNK = 64     # the CUDA kernel's chunk (csrc/rwkv_chunk.cu)
-
-
 def rwkv_operations(BH: int, T: int, K: int):
-    """(FLOPs, exps) the chunked wkv needs for these shapes: per chunk of
-    n valid steps, the lower-triangle attention (3 per (i, j<i, c)), the
-    bonus, the inter-chunk product (r Q) S0, the triangle of att . v and
-    the state advance (2 per multiply-add); one exp per decay ratio of the
-    triangle and two per (step, channel)."""
+    """(FLOPs, exps) of the chunked wkv for these shapes, for any
+    implementation: the sub-chunked form's work at the port's chunk and
+    sub-chunk (``kernels/rwkv_chunk.py``). Per chunk of n valid steps, in
+    sub-chunks of m_I: exps -- the pairwise decay ratios of the diagonal
+    triangles (m_I (m_I - 1) / 2 per channel), two decays per (step,
+    channel) (r to the chunk's start, k to its end), one log per (step,
+    channel), and the off-diagonal factors (k of each sub-chunk but the
+    last to its end, r of each later row to each earlier sub-chunk's
+    end); FLOPs (2 per multiply-add) -- the diagonal triangles (3 per
+    pair and channel), the off-diagonal blocks, the bonus, (r Q) S0, the
+    triangle of A v, the state advance and the decays' multiplies."""
+    from repro_torch.kernels.rwkv_chunk import CHUNK, SUB
     flops = exps = 0
-    for t0 in range(0, T, RWKV_CHUNK):
-        n = min(RWKV_CHUNK, T - t0)
-        tri = n * (n - 1) // 2
-        flops += 3 * tri * K + 3 * n * K + 2 * n * K * K \
-            + 2 * K * n * (n + 1) // 2 + 2 * K * K * n
-        exps += tri * K + 2 * n * K
+    for t0 in range(0, T, CHUNK):
+        n = min(CHUNK, T - t0)
+        subs = [min(SUB, n - s0) for s0 in range(0, n, SUB)]
+        tri = sum(m * (m - 1) // 2 for m in subs)
+        off = sum(subs[I] * subs[J] for I in range(len(subs))
+                  for J in range(I))
+        ends = [min(s0 + SUB, n) for s0 in range(0, n, SUB)]
+        exps += K * (tri + 3 * n + sum(subs[:-1])
+                     + sum(n - e for e in ends[:-1]))
+        flops += 3 * tri * K + 2 * off * K + 3 * n * K + 2 * n * K * K \
+            + 2 * K * n * (n + 1) // 2 + 2 * K * K * n + 4 * n * K
     return float(BH * flops), float(BH * exps)
 
 
@@ -447,7 +508,8 @@ SOURCES = {
 }
 # the sources whose kernels may not spill (the tensor-core routes and the
 # redesigned decode kernels)
-SPILL_GATED = ("flash_attention", "decode_attention", "pim_matvec")
+SPILL_GATED = ("flash_attention", "decode_attention", "pim_matvec",
+               "rwkv_chunk")
 # the case of each kernel that the JSON line reports (a main-path shape)
 REPORTED = {"flash_attention": "B8 S128 span640 off512",
             "flash_attention_segmented": "R8 C128 span512",
@@ -545,8 +607,10 @@ def check_kernels(torch) -> dict:
                 row["library_ms"] = (None if c["library"] is None
                                      else time_ms(torch, c["library"]))
                 # a kernel that computes in f32 whatever its inputs (the
-                # wkv, the softmax) is bounded by the f32 rate, and one
-                # that counts its exps also by the SFU rate: the slower
+                # softmax, the wkv's f32 route) is bounded by the f32 rate,
+                # the wkv's bf16 route by the TF32 one (products at f32
+                # precision on the tensor cores), and one that counts its
+                # exps also by the SFU rate: the slower
                 peak = PEAK_FLOPS[c.get("math", dname)]
                 bytes_s = c["bytes"] / HBM_BYTES_PER_S
                 ops_s = max(c["flops"] / peak, c.get("exps", 0) / SFU_PER_S)
@@ -1017,8 +1081,8 @@ def prefill_step_run(torch, cfg, params, phase: str, expect: dict, B: int,
 # the device-side names of the port's kernels (CUDA and Triton)
 PORT_KERNELS = ("pim_matvec_kernel", "decode_attention_kernel",
                 "flash_attention_kernel", "wgmma_flash_kernel",
-                "rwkv_chunk_kernel", "mamba_chunk_kernel", "norm_kernel",
-                "softmax_kernel")
+                "rwkv_chunk_kernel", "rwkv_chunk_tc_kernel",
+                "mamba_chunk_kernel", "norm_kernel", "softmax_kernel")
 
 
 def device_profile(torch, fn, top: int = 8) -> dict:
@@ -1221,6 +1285,7 @@ def main() -> None:
 
         t0 = time.perf_counter()
         report = check_kernels(torch)
+        log("timing floor " + json.dumps(timing_floor(torch)))
         path = softmax_path(torch)
         log(f"phase 2 took {time.perf_counter() - t0:.1f} s")
         serves = full_width_serves(torch)

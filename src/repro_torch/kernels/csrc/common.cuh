@@ -1,7 +1,9 @@
 // Shared helpers of the port's CUDA kernels: f32 <-> storage-type
-// conversion, warp reductions, and the plain C error interface that the
-// Python wrappers read through ctypes.
+// conversion, warp reductions, the PTX of the Hopper kernels, the
+// tensor-map encoder, and the plain C error interface that the Python
+// wrappers read through ctypes.
 #pragma once
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -163,6 +165,33 @@ __device__ __forceinline__ void rt_bulk_load(uint32_t dst, const void* src,
 __device__ __forceinline__ uint32_t rt_pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// (no -lcuda), for the sources that load by TMA tensor maps
+typedef CUresult (*RtEncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline RtEncodeTiled rt_encode_tiled() {
+  // looked up once, by a function-local static's thread-safe initializer
+  static const RtEncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    return found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<RtEncodeTiled>(p) : nullptr;
+  }();
+  return fn;
 }
 
 // The wrappers raise with this text when a launch returns an error code.

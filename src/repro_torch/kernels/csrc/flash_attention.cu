@@ -720,38 +720,12 @@ size_t wgmma_smem_bytes(int D, int NWG, int STAGES, bool seg, int Skv) {
   return 1024 + tiles + ids + bars + ranges;
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  // looked up once, by a function-local static's thread-safe initializer
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    return found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // (D, rows, heads) bf16 at `base`: rows D elements apart, heads
 // head_stride elements apart; boxes of min(D, 64) x 64 x 1, rows past
 // `rows` read as zeros
 bool encode_map(CUtensorMap* map, const void* base, int D, long long rows,
                 long long heads, long long head_stride) {
-  const EncodeTiled encode = encode_tiled();
+  const RtEncodeTiled encode = rt_encode_tiled();
   if (!encode) return false;
   const int box_cols = D < 64 ? D : 64;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,

@@ -308,32 +308,6 @@ pim_matvec_kernel(const __grid_constant__ CUtensorMap wmap,
   cluster.sync();  // no CTA leaves while another still reads its partial
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  // looked up once, by a function-local static's thread-safe initializer
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    return found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // W's tensor map for the bf16 route: (d_out columns, d_in rows), boxes of
 // min(BN, 64) x TK, swizzled by their row of min(BN, 64) * 2 bytes. A decode step calls each
 // weight with the same map, so maps are encoded once and kept, keyed by
@@ -364,7 +338,7 @@ bool w_map(CUtensorMap* map, const void* w, int d_in, int d_out, int bn,
     *map = it->second;
     return true;
   }
-  const EncodeTiled encode = encode_tiled();
+  const RtEncodeTiled encode = rt_encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)d_out, (cuuint64_t)d_in};
   const cuuint64_t strides[1] = {(cuuint64_t)d_out * 2};
