@@ -81,7 +81,26 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      and one attn/moe layer), the kernels on the card against the plain
      versions on the CPU: the serve gives identical greedy tokens,
      dispatch counts and host syncs, the prefill step at S 256 logits and
-     the MoE aux loss within 1e-4.
+     the MoE aux loss within 1e-4;
+  9. on phase 3's weights (before 3d casts them), an open-loop workload
+     (``repro_torch.trace.poisson_arrivals``: rate 0.25 over 48 steps,
+     prompts of 64-700 tokens, 16-32 new; about 12 requests) driven by
+     ``repro_torch.trace.drive`` three times: ``serial`` + pack,
+     ``interleaved`` + pack + fuse + superstep 4, and ``pim_aware`` with the
+     same knobs, each twice in turns after an unmeasured serve, under
+     CUDA's sync debug mode. Each serve: the launches are exactly phase
+     3's per decode round and phase 3b's per packed prefill (a fused step
+     is one of each), so every path kernel launched; host syncs equal the
+     decode + fused dispatches; no hidden sync; the interleaving policies
+     ran fused steps and supersteps. Logged against ``serial``: decode
+     tok/s and ms per round of the pure-decode steps, decode rounds per
+     host sync, prefill tok/s, TTFT in steps, and (one profiled serve
+     each) the device's busy share;
+  9b. the same workload at full width, depth 2, float32: ``interleaved``
+     and ``pim_aware`` through the kernels on the card and the plain
+     versions on the CPU give identical greedy tokens, dispatch counts,
+     host syncs, step kinds and (``pim_aware``) decision logs, and on the
+     card the tokens of the ``serial`` serve.
 
 The last two lines of standard output are the kernel table as one JSON
 object, then ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -826,6 +845,9 @@ def full_width_serves(torch) -> dict:
         saved_bytes=base["max_memory_allocated"]
         - i8["max_memory_allocated"])))
     t0 = time.perf_counter()
+    out["9 policies"] = policy_serves(torch, cfg, params, base, pk)
+    log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     tokens = torch.from_numpy(np.random.default_rng(8).integers(
         0, cfg.vocab_size, (2, 1024))).to("cuda")
     out["3d bf16 steps"] = bf16_steps(torch, cfg, params, "llama",
@@ -835,6 +857,298 @@ def full_width_serves(torch) -> dict:
     del params
     torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------- #
+# phases 9 and 9b: the interleaving policies, fused steps and supersteps
+# --------------------------------------------------------------------------- #
+POLICY_SERVES = (
+    ("serial", dict(policy="serial", pack=True)),
+    ("interleaved", dict(policy="interleaved", pack=True, fuse=True,
+                         superstep=4)),
+    ("pim_aware", dict(policy="pim_aware", pack=True, fuse=True,
+                       superstep=4)),
+)
+# phase 9's interleaved serve again, sampling at temperature 0.8: the
+# counter-based noise's cost a decode round, beside the greedy serve
+SAMPLED = ("interleaved sampled", dict(POLICY_SERVES[1][1], temperature=0.8))
+# the step kinds (``Scheduler.stats``) by what they carry
+PURE_DECODE = ("decode_only", "superstep")
+WITH_PREFILL = ("prefill_only", "serialized", "overlapped", "fused")
+
+
+def policy_arrivals(vocab: int):
+    """Phase 9's open-loop workload: requests arrive while others decode."""
+    from repro_torch.trace import poisson_arrivals
+    return poisson_arrivals(0.25, 48, vocab=vocab, prompt_len=(64, 700),
+                            max_new=(16, 32), seed=11)
+
+
+def policy_engine(cfg, params, recorder=None, **kw):
+    from repro_torch.serve import ServeConfig, ServeEngine
+    return ServeEngine(cfg, params, ServeConfig(
+        max_slots=8, max_len=1024, prefill_chunk=128, **kw),
+        recorder=recorder, device=params["embed"]["tok"].device)
+
+
+class StepTally:
+    """A recorder (the engine's trace hooks) and a hook around
+    ``engine.step``: each step's kind (from the scheduler's counts), its
+    decode rounds (engine ticks) and tokens, and a CUDA event at its end;
+    each request's arrival tick and the tick of its first token; the k of
+    each superstep. No host syncs of its own."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.arrival, self.first, self.supersteps = {}, {}, {}
+        self.steps = []           # (kind, end event, rounds, tokens)
+
+    def bind(self, engine) -> None:
+        pass
+
+    def on_request(self, step, rid, prompt_len, max_new, arrival_offset=0,
+                   gid=None) -> None:
+        self.arrival[rid] = step - arrival_offset
+
+    def on_admit(self, *a, **k) -> None:
+        pass
+
+    def on_prefill(self, *a, **k) -> None:
+        pass
+
+    def on_complete(self, *a, **k) -> None:
+        pass
+
+    def on_decode(self, step, *, tokens, superstep=1, superstep_id=-1,
+                  **k) -> None:
+        for rid, _ in tokens:
+            self.first.setdefault(rid, step)
+        if superstep > 1:
+            self.supersteps[superstep_id] = superstep
+
+    def wrap(self, eng) -> None:
+        step = eng.step
+
+        def timed():
+            before, tick = dict(eng.scheduler.stats), eng.step_idx
+            out = step()
+            ev = self.torch.cuda.Event(enable_timing=True)
+            ev.record()
+            kind = next(k for k, v in eng.scheduler.stats.items()
+                        if k != "steps" and v != before[k])
+            rounds = eng.step_idx - tick if kind == "superstep" \
+                else int(kind not in ("prefill_only", "idle"))
+            self.steps.append((kind, ev, rounds, len(out)))
+            return out
+        eng.step = timed
+
+
+def policy_serve(torch, cfg, params, name: str, kw: dict, per_round: dict,
+                 per_chunk: dict) -> dict:
+    """One measured serve of ``policy_arrivals`` under ``kw``, under CUDA's
+    sync debug mode, with the launch counts set to 0 just before and read
+    just after. Fails unless every kernel launched exactly ``per_round``
+    times a decode round run on the card (a superstep's k, dead rounds
+    included) plus ``per_chunk`` times a prefill chunk (a fused step is a
+    round and a chunk), the host synced once per decode, superstep and
+    fused dispatch and at no other point, and an interleaving policy ran
+    fused steps and supersteps."""
+    import warnings
+
+    from repro_torch.kernels import ops
+    from repro_torch.trace import drive
+
+    arrivals = policy_arrivals(cfg.vocab_size)
+    tally = StepTally(torch)
+    eng = policy_engine(cfg, params, recorder=tally, **kw)
+    tally.wrap(eng)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        start.record()
+        try:
+            results = drive(eng, arrivals)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    hidden = [str(w.message) for w in caught
+              if "called a synchronizing CUDA operation" in str(w.message)]
+
+    if sorted(results) != list(range(len(arrivals))) or any(
+            len(results[i]) != ev.max_new
+            or not all(0 <= t < cfg.vocab_size for t in results[i])
+            for i, ev in enumerate(arrivals)):
+        fail(f"9 {name}: serve returned "
+             f"{({k: len(v) for k, v in results.items()})}")
+    stats, dc = dict(eng.scheduler.stats), dict(eng.dispatch_counts)
+    rounds = sum(r for _, _, r, _ in tally.steps)
+    chunks = dc["prefill"] + dc["fused"]
+    if rounds != (dc["decode"] - stats["superstep"] + dc["fused"]
+                  + sum(tally.supersteps.values())):
+        fail(f"9 {name}: {rounds} decode rounds do not add up: {dc}, "
+             f"supersteps {tally.supersteps}")
+    want = {k: round(per_round[k]) * rounds + round(per_chunk[k]) * chunks
+            for k in counts}
+    if counts != want or any(counts[k] == 0 for k in (
+            "flash_attention_segmented", "decode_attention", "pim_matvec",
+            "layernorm")):
+        fail(f"9 {name}: launches {counts}, expected {want} for {rounds} "
+             f"decode rounds and {chunks} prefill chunks")
+    if eng.host_syncs != dc["decode"] + dc["fused"] or hidden:
+        fail(f"9 {name}: {eng.host_syncs} host syncs for {dc}, and "
+             f"{len(hidden)} hidden ones ({hidden[:1]})")
+    if kw["policy"] == "interleaved" and not (stats["fused"]
+                                              and stats["superstep"]):
+        fail(f"9 {name}: no fused step or no superstep: {stats}")
+    if kw["policy"] == "pim_aware" and (
+            not stats["superstep"] or stats["fused"] + stats["overlapped"]
+            != sum(d["overlap"] for d in eng.scheduler.decision_log)):
+        fail(f"9 {name}: steps {stats} against its decisions")
+
+    # each step's seconds (device timeline, host gaps included), rounds and
+    # tokens, summed over the steps of the given kinds
+    ends = [start] + [ev for _, ev, _, _ in tally.steps]
+    rows = [(kind, a.elapsed_time(b) / 1e3, r, n) for (kind, _, r, n), a, b
+            in zip(tally.steps, ends, ends[1:])]
+
+    def total(kinds):
+        return [sum(col) for col in zip(*[row[1:] for row in rows
+                                          if row[0] in kinds])]
+    pd_s, pd_rounds, pd_tokens = total(PURE_DECODE)
+    pd_syncs = stats["decode_only"] + stats["superstep"]
+    pf_s = total(WITH_PREFILL)[0]
+    ttft = [tally.first[r] - tally.arrival[r] for r in results]
+    out = dict(phase=f"9 {name}", serve=kw, requests=len(results),
+               tokens=sum(len(v) for v in results.values()), wall_s=wall,
+               tok_s=sum(len(v) for v in results.values()) / wall,
+               decode_tok_s=pd_tokens / pd_s,
+               ms_per_decode_round=1e3 * pd_s / pd_rounds,
+               decode_rounds=rounds, pure_decode_rounds=pd_rounds,
+               rounds_per_host_sync=rounds / eng.host_syncs,
+               pure_decode_rounds_per_host_sync=pd_rounds / pd_syncs,
+               prefill_s=pf_s,
+               prefill_tok_s=eng.prefill_stats["valid_tokens"] / pf_s,
+               ttft_steps_mean=sum(ttft) / len(ttft), ttft_steps_max=max(ttft),
+               dispatch_counts=dc, host_syncs=eng.host_syncs,
+               hidden_syncs=len(hidden), steps=stats,
+               superstep_tokens=eng.superstep_tokens, launches=counts,
+               results=results)
+    del eng
+    return out
+
+
+POLICY_TIMED = ("wall_s", "tok_s", "decode_tok_s", "ms_per_decode_round",
+                "prefill_s", "prefill_tok_s")
+
+
+def policy_serves(torch, cfg, params, unpacked: dict, packed: dict) -> dict:
+    """Phase 9 on phase 3's bf16 weights: one unmeasured serve of each
+    policy and of ``SAMPLED`` (new packed shapes, module loads), two
+    measured ones in turns (serial, interleaved, sampled, pim_aware,
+    pim_aware, sampled, interleaved, serial), then one profiled serve of
+    each for the device's busy share. Launches per decode round are
+    phase 3's per decode step, per prefill chunk phase 3b's per packed
+    dispatch."""
+    from repro_torch.trace import drive
+
+    per_round = unpacked["launches_per_decode_step"]
+    per_chunk = packed["launches_per_prefill_dispatch"]
+    arrivals = policy_arrivals(cfg.vocab_size)
+    serves = POLICY_SERVES[:2] + (SAMPLED,) + POLICY_SERVES[2:]
+    t0 = time.perf_counter()
+    for _, kw in serves:
+        drive(policy_engine(cfg, params, **kw), arrivals)
+    log(f"phase 9 warm-up took {time.perf_counter() - t0:.1f} s")
+    runs = {name: [] for name, _ in serves}
+    for name, kw in serves + serves[::-1]:
+        t0 = time.perf_counter()
+        runs[name].append(policy_serve(torch, cfg, params, name, kw,
+                                       per_round, per_chunk))
+        log(f"phase 9 {name} took {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for name, kw in serves:
+        a, b = runs[name]
+        t0 = time.perf_counter()
+        prof = device_profile(torch, lambda kw=kw: drive(
+            policy_engine(cfg, params, **kw), arrivals))
+        log(f"phase 9 profile {name} took {time.perf_counter() - t0:.1f} s")
+        out[name] = dict(
+            {k: v for k, v in a.items() if k != "results"},
+            **{k: (a[k] + b[k]) / 2 for k in POLICY_TIMED},
+            **{f"{k}_runs": [a[k], b[k]] for k in POLICY_TIMED},
+            same_tokens_both_runs=a["results"] == b["results"],
+            same_tokens_as_serial=a["results"] == runs["serial"][0]["results"],
+            busy_share=prof["busy_share"], profile=prof)
+        log("serve " + json.dumps(out[name]))
+    keys = POLICY_TIMED[2:] + ("rounds_per_host_sync",
+                               "pure_decode_rounds_per_host_sync",
+                               "ttft_steps_mean", "ttft_steps_max",
+                               "busy_share")
+    for name in ("interleaved", "pim_aware"):
+        log(f"9 {name} against serial (means of two serves): " + json.dumps(
+            {k: [out[name][k], out["serial"][k]] for k in keys}))
+    name = SAMPLED[0]
+    log(f"9 {name} against greedy (two serves each; busy seconds of one "
+        "profiled serve): " + json.dumps(
+            {k: [out[name][k], out["interleaved"][k]] for k in (
+                "ms_per_decode_round_runs", "decode_tok_s_runs",
+                "ms_per_decode_round", "same_tokens_both_runs")}
+            | {"busy_s": [out[name]["profile"]["busy_s"],
+                          out["interleaved"]["profile"]["busy_s"]]}))
+    return out
+
+
+def policy_parity(torch) -> None:
+    """Phase 9b: phase 9's workload at full width, depth 2, float32."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.trace import drive
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"), num_layers=2,
+                              dtype="float32")
+    params = init_params(T.param_defs(cfg),
+                         torch.Generator(device="cuda").manual_seed(2),
+                         device="cuda")
+
+    def tree(fn, t):
+        return {k: tree(fn, v) for k, v in t.items()} \
+            if isinstance(t, dict) else fn(t)
+    params = {"cuda": tree(lambda a: a.float(), params)}
+    params["cpu"] = tree(lambda a: a.cpu(), params["cuda"])
+    arrivals = policy_arrivals(cfg.vocab_size)
+    runs = {}
+    for name, kw in POLICY_SERVES:
+        for dev in ("cuda",) if name == "serial" else ("cuda", "cpu"):
+            eng = policy_engine(cfg, params[dev], **kw)
+            runs[name, dev] = dict(
+                tokens=drive(eng, arrivals), dispatches=eng.dispatch_counts,
+                host_syncs=eng.host_syncs, steps=eng.scheduler.stats,
+                decisions=getattr(eng.scheduler, "decision_log", None))
+        if name == "serial":
+            continue
+        if runs[name, "cuda"] != runs[name, "cpu"]:
+            diff = [k for k in runs[name, "cuda"]
+                    if runs[name, "cuda"][k] != runs[name, "cpu"][k]]
+            fail(f"9b {name}: kernel path != plain path in {diff}")
+        if runs[name, "cuda"]["tokens"] != runs["serial", "cuda"]["tokens"]:
+            fail(f"9b {name}: tokens differ from the serial serve's")
+        r = runs[name, "cuda"]
+        log(f"parity float32 depth 2, 9b {name}: tokens, dispatches "
+            f"{r['dispatches']}, {r['host_syncs']} host syncs, steps "
+            f"{r['steps']}" + (f", {len(r['decisions'])} decisions"
+                               if r["decisions"] else "")
+            + " identical on cuda and cpu; tokens == serial's")
+    del params
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------- #
@@ -1086,16 +1400,14 @@ PORT_KERNELS = ("pim_matvec_kernel", "decode_attention_kernel",
 
 
 def device_profile(torch, fn, top: int = 8) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: its wall time, the
-    device's busy seconds, the ``top`` device ops by time and the port's
-    kernels' count and time. The profiler adds host time to every op, so
-    the busy share is a lower bound."""
+    """One call of ``fn`` under ``torch.profiler``, tracing the device
+    alone: its wall time, the device's busy seconds, the ``top`` device
+    ops by time and the port's kernels' count and time."""
     from repro_torch.launch.serve import device_time
 
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1292,6 +1604,9 @@ def main() -> None:
         t0 = time.perf_counter()
         parity_serve(torch)
         log(f"phase 4 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        policy_parity(torch)
+        log(f"phase 9b took {time.perf_counter() - t0:.1f} s")
         rwkv_cfg = get_arch("rwkv6-7b")
         rwkv = recurrent_full_width(
             torch, rwkv_cfg, "rwkv", ("5", "5b"), ["pim_matvec", "layernorm"],

@@ -2,6 +2,8 @@
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --requests 8
   python -m repro_torch.launch.serve --smoke --device cpu [--pack]
+  python -m repro_torch.launch.serve --policy interleaved --pack --fuse \
+      --superstep 4 [--prefill-jobs 2] [--decode-floor 2]
   python -m repro_torch.launch.serve --arch rwkv6-7b [--smoke --device cpu]
   python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke --device cpu
 
@@ -15,7 +17,8 @@ Runs on the card unless ``--device cpu`` is given (then through the
 kernels' plain PyTorch versions). Weights are random, from ``--seed``.
 On the card, one short request through a throwaway engine warms the
 kernels up before the timed run. Prints tok/s, the PAS log summary,
-dispatch counts, host syncs and the launch count of each kernel. ``--profile`` (card only) traces the run with
+dispatch counts (and with ``--superstep`` the supersteps), host syncs, the
+policy's step kinds and the launch count of each kernel. ``--profile`` (card only) traces the run with
 ``torch.profiler`` and prints the device's busy share of the wall time and
 the kernels that took the most device time.
 """
@@ -49,9 +52,24 @@ def main(argv=None):
     ap.add_argument("--prefill-mode", default="batched",
                     choices=["batched", "sequential"])
     ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--policy", default="serial",
+                    choices=["serial", "interleaved", "pim_aware"],
+                    help="step-composition policy (sched/policies.py)")
     ap.add_argument("--pack", action="store_true",
                     help="pack several prompts per prefill chunk row "
                          "(sched/packing.py)")
+    ap.add_argument("--prefill-jobs", type=int, default=1,
+                    help="concurrent prefill sub-batches (interleaving "
+                         "policies)")
+    ap.add_argument("--decode-floor", type=int, default=0,
+                    help="defer decode below this ready-slot occupancy "
+                         "when a prefill chunk fills the step")
+    ap.add_argument("--fuse", action="store_true",
+                    help="run an overlapped step (prefill chunk + the "
+                         "ready slots' decode) as one dispatch")
+    ap.add_argument("--superstep", type=int, default=1,
+                    help="run up to K decode rounds per dispatch when no "
+                         "prefill work is pending (1 = off)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     ap.add_argument("--seed", type=int, default=0)
@@ -68,7 +86,11 @@ def main(argv=None):
     params = init_params(T.param_defs(cfg), device=dev, seed=args.seed)
     scfg = ServeConfig(max_slots=args.slots, max_len=args.max_len,
                        prefill_mode=args.prefill_mode,
-                       prefill_chunk=args.prefill_chunk, pack=args.pack)
+                       prefill_chunk=args.prefill_chunk,
+                       policy=args.policy, pack=args.pack,
+                       max_prefill_jobs=args.prefill_jobs,
+                       decode_floor=args.decode_floor, fuse=args.fuse,
+                       superstep=args.superstep)
     if dev.type == "cuda":
         # one short request through a throwaway engine first, so that the
         # kernels' build, Triton's JIT and the libraries' set-up stay out
@@ -89,9 +111,8 @@ def main(argv=None):
         torch.cuda.synchronize(dev)
     prof = None
     if args.profile:
-        prof = torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA])
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
         prof.start()
     t0 = time.perf_counter()
     results = eng.run_until_done()
@@ -112,15 +133,28 @@ def main(argv=None):
         print(f"[serve] PAS {phase}: {len(entries)} steps, "
               f"{gemv} on the GEMV (PIM-analogue) path")
     print(f"[serve] dispatches: {eng.dispatch_counts['prefill']} prefill "
-          f"({eng.effective_prefill_mode}), "
-          f"{eng.dispatch_counts['decode']} decode; "
+          f"({eng.effective_prefill_mode}"
+          f"{', packed' if args.pack else ''}), "
+          f"{eng.dispatch_counts['decode']} decode, "
+          f"{eng.dispatch_counts['fused']} fused; "
           f"{eng.host_syncs} host syncs")
+    if args.superstep > 1:
+        print(f"[serve] supersteps (K={args.superstep}): "
+              f"{eng.scheduler.stats['superstep']} dispatches covering "
+              f"{eng.superstep_tokens} decode rounds")
     st = eng.prefill_stats
     if st["token_slots"]:
         print(f"[serve] prefill valid fraction "
               f"{st['valid_tokens'] / st['token_slots']:.3f} "
               f"({st['valid_tokens']} of {st['token_slots']} token slots"
-              f"{', packed' if args.pack else ''})")
+              f"{', packed' if args.pack else ''})"
+              + (f", decode deferrals: {eng.decode_deferrals}"
+                 if eng.decode_deferrals else ""))
+    stats = eng.scheduler.stats
+    print(f"[serve] policy {eng.effective_policy}: "
+          f"{stats['fused']} fused / {stats['overlapped']} overlapped / "
+          f"{stats['serialized']} serialized / {stats['decode_only']} "
+          f"decode-only steps")
     print(f"[serve] kernel launches: {ops.launch_counts()}")
     if prof is not None:
         print_device_time(prof, dt)

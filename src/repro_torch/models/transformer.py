@@ -1,6 +1,7 @@
 """The model of the port: parameter and cache trees, the one-token decode
-step, the full-sequence forward, batched chunked prefill, and the one-call
-decode + sample + terminate step.
+step, the full-sequence forward, batched chunked prefill, the one-call
+decode + sample + terminate step, decode supersteps and fused overlapped
+steps.
 
 Counterpart of ``repro/models/transformer.py`` for the ``dense``, ``ssm``
 (RWKV6) and ``hybrid`` (Jamba: Mamba and attention mixers, dense and MoE
@@ -20,7 +21,7 @@ land in place in the stacked cache.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -271,27 +272,62 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return logits[:, 0, :], cache
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A 32-bit integer hash (xor-shift-multiply, two rounds) of x in
+    [0, 2^32), in int64 tensor ops: the multiplier is under 2^27, so no
+    product leaves int64, and every step is exact on any device."""
+    x = ((x >> 16) ^ x) * 0x45D9F3B & _M32
+    x = ((x >> 16) ^ x) * 0x45D9F3B & _M32
+    return (x >> 16) ^ x
+
+
+def uniform_noise(seed: int, draw: torch.Tensor, shape, device
+                  ) -> torch.Tensor:
+    """Uniform float32 noise in [2^-24, 1 - 2^-24] of ``shape`` (B, V) for
+    draw number ``draw`` (a () int64 device tensor) of the stream
+    ``seed``: element (b, v) is a hash of (seed, draw, b * V + v), so the
+    stream needs no generator object and no host value, a round that
+    draws nothing leaves the stream where it was, and every device gives
+    the same bits."""
+    k1 = _mix32(_mix32(draw & _M32) ^ (seed & _M32))
+    k2 = _mix32(k1 ^ 0x9E3779B9)
+    idx = torch.arange(shape[0] * shape[1], device=device,
+                       dtype=torch.int64).reshape(shape)
+    h = _mix32(_mix32(idx ^ k1) ^ k2)
+    # 23 bits, centred in their cell
+    return ((h >> 9).to(torch.float32) + 0.5) * 2.0 ** -23
+
+
+def gumbel_noise(seed: int, draw: torch.Tensor, shape, device
+                 ) -> torch.Tensor:
+    """Gumbel(0, 1) noise from ``uniform_noise``'s draw ``draw``."""
+    return -torch.log(-torch.log(uniform_noise(seed, draw, shape, device)))
+
+
 def decode_and_sample(cfg: ModelConfig, params: dict, cache: dict,
                       last_tok: torch.Tensor, lens: torch.Tensor,
                       active: torch.Tensor, gen_count: torch.Tensor,
-                      max_new: torch.Tensor,
-                      generator: Optional[torch.Generator], *,
+                      max_new: torch.Tensor, draw: Optional[torch.Tensor], *,
                       temperature: float, eos_token: Optional[int],
-                      max_len: int):
+                      max_len: int, seed: int = 0):
     """One generation step across all slots in one call: decode, sample,
     and the per-slot length / termination update, all on the device. The
     host's whole view of the step is the (3, B) int32 ``fetch`` = stack of
     (token, done, new length). Inactive slots are frozen: their token stays
     ``last_tok`` and their lens/gen_count do not advance. Temperature
-    sampling is Gumbel-max with noise from ``generator`` (the reference's
-    ``jax.random.categorical`` draws differ). Returns
-    (fetch, cache, toks, lens, gen_count, generator)."""
+    sampling is Gumbel-max with ``gumbel_noise(seed, draw)`` (the
+    reference's ``jax.random.categorical`` draws differ); the draw counter
+    ``draw`` advances by one when a lane is live, on the device (greedy
+    decoding draws nothing and passes it through). Returns
+    (fetch, cache, toks, lens, gen_count, draw)."""
     logits, cache = decode_step(cfg, params, last_tok[:, None], cache, lens)
     if temperature > 0:
-        u = torch.rand(logits.shape, generator=generator,
-                       device=logits.device, dtype=torch.float32)
-        gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
-        toks = torch.argmax(logits.float() / temperature + gumbel, dim=-1)
+        noise = gumbel_noise(seed, draw, logits.shape, logits.device)
+        toks = torch.argmax(logits.float() / temperature + noise, dim=-1)
+        draw = draw + active.any()
     else:
         toks = torch.argmax(logits, dim=-1)
     toks = torch.where(active, toks.to(torch.int32), last_tok)
@@ -304,7 +340,32 @@ def decode_and_sample(cfg: ModelConfig, params: dict, cache: dict,
         eos = torch.zeros_like(active)
     done = active & (eos | (gen_count >= max_new) | (lens >= max_len - 1))
     fetch = torch.stack([toks, done.to(torch.int32), lens])
-    return fetch, cache, toks, lens, gen_count, generator
+    return fetch, cache, toks, lens, gen_count, draw
+
+
+def decode_superstep(cfg: ModelConfig, params: dict, cache: dict,
+                     last_tok: torch.Tensor, lens: torch.Tensor,
+                     active: torch.Tensor, gen_count: torch.Tensor,
+                     max_new: torch.Tensor, draw: Optional[torch.Tensor], *,
+                     k: int, temperature: float, eos_token: Optional[int],
+                     max_len: int, seed: int = 0):
+    """k generation steps in one call: k ``decode_and_sample`` rounds, the
+    termination mask carried on the device (a lane that finishes at round
+    t is frozen for the rest), the fetches stacked to (k, 3, B). A round
+    with no live lane draws no noise, so the tokens equal k single steps',
+    under temperature too. Issues no host read of a device value. Dead
+    rounds still write K/V at frozen cursors, in rows that admission
+    resets before reuse. Returns (fetches, cache, toks, lens, gen_count,
+    draw)."""
+    fetches = []
+    for _ in range(k):
+        fetch, cache, last_tok, lens, gen_count, draw = decode_and_sample(
+            cfg, params, cache, last_tok, lens, active, gen_count, max_new,
+            draw, temperature=temperature, eos_token=eos_token,
+            max_len=max_len, seed=seed)
+        active = active & (fetch[1] == 0)
+        fetches.append(fetch)
+    return torch.stack(fetches), cache, last_tok, lens, gen_count, draw
 
 
 # --------------------------------------------------------------------------- #
@@ -359,3 +420,27 @@ def prefill_chunk_packed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                               cfg, p, h, kv, seg_slot, seg_pos, seg_ids,
                               tok_valid, row_slot, prefix_len,
                               prefix_span=prefix_span))
+
+
+# --------------------------------------------------------------------------- #
+# fused overlapped steps: the resident batch's decode and a prefill chunk in
+# one call
+# --------------------------------------------------------------------------- #
+def fused_step(cfg: ModelConfig, params: dict, cache: dict,
+               chunk: Callable[[dict], dict], last_tok: torch.Tensor,
+               lens: torch.Tensor, active: torch.Tensor,
+               gen_count: torch.Tensor, max_new: torch.Tensor,
+               draw: Optional[torch.Tensor], *, temperature: float,
+               eos_token: Optional[int], max_len: int, seed: int = 0):
+    """One overlapped serving step as one dispatch: ``decode_and_sample``,
+    then ``chunk(cache) -> cache``, a prefill chunk (``prefill_chunk`` or
+    ``prefill_chunk_packed`` with its inputs bound). The order is the
+    unfused step's and it keeps the in-place cache writes apart: the
+    decode reads the pre-step cache and writes a mid-prefill slot's K/V at
+    its parked max_len-1 cursor, then the chunk writes its rows below it.
+    Returns decode_and_sample's tuple."""
+    fetch, cache, last_tok, lens, gen_count, draw = decode_and_sample(
+        cfg, params, cache, last_tok, lens, active, gen_count, max_new,
+        draw, temperature=temperature, eos_token=eos_token, max_len=max_len,
+        seed=seed)
+    return (fetch, chunk(cache), last_tok, lens, gen_count, draw)

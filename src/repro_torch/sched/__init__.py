@@ -2,9 +2,11 @@
 from repro_torch.sched.base import PrefillJob, Scheduler
 from repro_torch.sched.packing import (PackedDispatch, PackedPrefillJob,
                                        plan_packed_job)
-from repro_torch.sched.policies import (POLICY_NAMES, SerialScheduler,
+from repro_torch.sched.policies import (POLICY_NAMES, InterleavedScheduler,
+                                        PimAwareScheduler, SerialScheduler,
                                         choose_superstep, make_scheduler)
 
 __all__ = ["PrefillJob", "Scheduler", "PackedDispatch", "PackedPrefillJob",
-           "plan_packed_job", "POLICY_NAMES", "SerialScheduler",
+           "plan_packed_job", "POLICY_NAMES", "InterleavedScheduler",
+           "PimAwareScheduler", "SerialScheduler",
            "choose_superstep", "make_scheduler"]

@@ -27,10 +27,29 @@ class PrefillJob:
     n_chunks: int
     sub_batch: int                      # wave ordinal (trace sub-batch id)
     next_chunk: int = 0
+    _wave_taken: bool = False
 
     @property
     def done(self) -> bool:
         return self.next_chunk >= self.n_chunks
+
+    def next_valid_count(self) -> int:
+        """Valid prompt tokens in the chunk the next dispatch would run:
+        what a mapping-aware policy routes on."""
+        if self.done:
+            return 0
+        c, C = self.next_chunk, self.chunk
+        return int(self.valid[:, c * C:(c + 1) * C].sum())
+
+    def take_completed(self) -> List[Tuple[int, object]]:
+        """(slot, req) pairs whose prefill finished since the last call. The
+        unpacked layout fills every slot's row in lockstep, so the whole
+        wave completes with the final chunk (``PackedPrefillJob`` arms its
+        slots per dispatch)."""
+        if self.done and not self._wave_taken:
+            self._wave_taken = True
+            return list(self.wave)
+        return []
 
 
 class Scheduler:

@@ -1,6 +1,6 @@
 """Serving engine of the port: phase-separated continuous batching.
 
-Counterpart of ``repro/serve/engine.py`` under the ``serial`` policy:
+Counterpart of ``repro/serve/engine.py``:
 
   * summarization (prefill) — admitted prompts run as whole chunks through
     ``T.prefill_chunk`` (the flash kernel), filling every slot's KV cache in
@@ -17,6 +17,13 @@ Counterpart of ``repro/serve/engine.py`` under the ``serial`` policy:
     with ``non_blocking`` copies, so they never wait for the card;
   * every dispatch's phase and FC route lands in ``pas_log``.
 
+Step composition belongs to a ``sched`` policy (``ServeConfig.policy``):
+``serial`` prefills each admission wave to completion, ``interleaved``
+and ``pim_aware`` feed one prefill chunk per step beside the resident
+batch's decode (``sched/policies.py``). A slot whose prompt is still being
+prefilled is resident but not ready: the decode's active mask leaves it
+out, and its write cursor is parked at max_len-1.
+
 An ``ssm`` (RWKV6) or ``hybrid`` (Jamba: Mamba, attention and MoE) stack
 cannot prefill in chunks (its recurrent state is threaded token by token),
 so it takes the sequential path whatever ``prefill_mode`` says, as in the
@@ -30,18 +37,28 @@ mode). The segment mask makes packing numerically invisible: packed and
 unpacked serves give the same greedy tokens. A packed dispatch uploads its
 layout arrays and adds no host sync.
 
-Counters: one call of ``prefill_chunk`` or ``decode_and_sample`` (or, on
-the sequential path, of ``decode_step``) is one dispatch; ``host_syncs``
-counts blocking fetches. A ``repro.trace.TraceRecorder`` (or anything with
-its hooks) can be attached; the port never imports one.
+Fused steps and supersteps: with ``fuse``, a co-scheduled step runs the
+decode and the prefill chunk in one call (``T.fused_step``,
+``dispatch_fused_step``); with ``superstep`` > 1, a pure-decode step may
+run up to k decode rounds in one call (``T.decode_superstep``) and fetch
+one (k, 3, B) result, copied into its own pinned buffer. Greedy tokens are
+the same whatever the policy and knobs; temperature sampling draws
+counter-based noise that a round with no live lane does not consume, so
+fused and unfused, and superstep k and 1, sample the same tokens too.
 
-Knobs of later slices raise ``NotImplementedError`` at construction:
-``fuse``, ``superstep > 1``, the interleaving policies (with or without
-``pack``) and the families other than ``dense``, ``ssm`` and ``hybrid``;
-KV-snapshot restores raise in ``add_request``.
+Counters: one call of ``prefill_chunk``, ``decode_and_sample``,
+``decode_superstep`` or a fused step (or, on the sequential path, of
+``decode_step``) is one dispatch; ``host_syncs`` counts blocking fetches,
+one per decode, superstep or fused dispatch. A ``repro.trace.TraceRecorder``
+(or anything with its hooks) can be attached; the port never imports one.
+
+The families other than ``dense``, ``ssm`` and ``hybrid`` raise
+``NotImplementedError`` at construction, KV-snapshot restores in
+``add_request``.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -78,15 +95,15 @@ class ServeConfig:
     prefill_chunk: int = 32       # summarization chunk (tokens per dispatch)
     prefill_mode: str = "batched"  # "batched" | "sequential" (reference)
     admission: str = "bucketed"   # "bucketed" (length-sorted) | "fifo"
-    policy: str = "serial"        # only "serial" is ported
-    sub_batch: int = 0            # interleaving policies only
-    map_dims: Optional[Tuple[int, int]] = None  # pim_aware only
+    policy: str = "serial"        # "serial" | "interleaved" | "pim_aware"
+    sub_batch: int = 0            # slots per interleaved wave (0 = all free)
+    map_dims: Optional[Tuple[int, int]] = None  # (d_in, d_out) pim_aware routes
     double_buffer: bool = True    # async fetch of the decode result
     pack: bool = False            # packed prefill (sched/packing.py)
-    max_prefill_jobs: int = 1     # interleaving policies only
-    decode_floor: int = 0         # interleaving policies only
-    fuse: bool = False            # fused steps: not ported yet
-    superstep: int = 1            # decode supersteps: not ported yet
+    max_prefill_jobs: int = 1     # prefill jobs an interleaving policy runs
+    decode_floor: int = 0         # defer a decode of fewer ready slots
+    fuse: bool = False            # co-scheduled decode + chunk in one call
+    superstep: int = 1            # most decode rounds a pure-decode step runs
     queue_cap: int = 0            # admission-queue capacity (0 = unbounded)
 
 
@@ -98,29 +115,35 @@ class AdmissionRejected(RuntimeError):
 class PendingDecode:
     """A dispatched-but-unresolved decode step: its (3, B) fetch (on the
     device, or the pinned host buffer it is being copied into plus the
-    event that marks the copy done) and the host view of its batch."""
+    event that marks the copy done) and the host view of its batch.
+    ``overlap`` marks a decode co-scheduled with a prefill chunk,
+    ``fused`` one that ran in the same call as the chunk."""
     fetch: torch.Tensor
     ready: Optional[torch.cuda.Event]
     active_np: np.ndarray
     n_tok: int
     route: dict
+    overlap: bool = False
+    fused: bool = False
 
 
-def _unsupported(scfg: ServeConfig) -> Optional[str]:
-    # unported families raise in T.cache_defs, the interleaving policies
-    # (with or without pack) in make_scheduler
-    if scfg.fuse or scfg.superstep > 1:
-        return "fused steps and supersteps (ROADMAP queue 1, item 8)"
-    return None
+@dataclass
+class PendingSuperstep:
+    """A dispatched-but-unresolved superstep: one (k, 3, B) fetch for k
+    decode rounds. ``sid`` is the superstep's ordinal (the trace groups
+    the k decode events it expands into by it)."""
+    fetch: torch.Tensor
+    ready: Optional[torch.cuda.Event]
+    active_np: np.ndarray
+    k: int
+    route: dict
+    sid: int
 
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params,
                  scfg: ServeConfig = ServeConfig(), recorder=None, *,
                  device=None):
-        why = _unsupported(scfg)
-        if why is not None:
-            raise NotImplementedError(f"not ported yet: {why}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -137,17 +160,23 @@ class ServeEngine:
         self.slot_ready: List[bool] = [False] * B
         self.queue: List[Request] = []
         self._next_rid = 0
-        self._gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
+        # temperature sampling's draw counter (T.gumbel_noise), on the device
+        self._draw = torch.zeros((), dtype=torch.int64, device=self.device)
         self._batched_ok = T.supports_batched_prefill(cfg)
-        self.scheduler = make_scheduler(self.effective_policy)
+        self.scheduler = make_scheduler(self.effective_policy,
+                                        sub_batch=scfg.sub_batch,
+                                        map_dims=scfg.map_dims,
+                                        max_jobs=scfg.max_prefill_jobs,
+                                        decode_floor=scfg.decode_floor)
         self.pas_log: List[dict] = []
+        # a fused step counts as "fused" (neither prefill nor decode), a
+        # superstep as one "decode"
         self.dispatch_counts = {"prefill": 0, "decode": 0, "fused": 0}
         self.host_syncs = 0           # blocking device->host transfers
         self.async_fetches = 0        # fetches whose copy started at dispatch
-        # read by TraceRecorder's summary; only the interleaving policies
-        # and supersteps (not ported yet) move them
-        self.decode_deferrals = 0
-        self.superstep_tokens = 0
+        self.decode_deferrals = 0     # decodes the decode_floor guard pushed
+        self.superstep_tokens = 0     # decode rounds resolved by supersteps
+        self._superstep_seq = 0       # superstep ordinal (trace)
         self.prefill_stats = {"token_slots": 0, "valid_tokens": 0,
                               "kv_cells": 0}
         # read by TraceRecorder's summary; KV snapshots (not ported yet)
@@ -158,12 +187,19 @@ class ServeEngine:
         self.step_idx = 0
         self.wave_count = 0
         self.admission_rejects = 0
-        # two pinned host buffers for the double-buffered decode fetch
-        self._fetch_bufs = []
+        # pinned host buffers for the double-buffered fetch, a pair for the
+        # (3, B) decode fetch and, with supersteps, a (superstep, 3, B) pair
+        # that a k-round fetch fills [:k] of (allocated here: pinning
+        # memory mid-serve would stall the card)
+        self._fetch_bufs = {}
         if self.device.type == "cuda" and scfg.double_buffer:
-            self._fetch_bufs = [torch.empty((3, B), dtype=torch.int32,
-                                            pin_memory=True) for _ in range(2)]
-        self._buf_i = 0
+            shapes = [(3, B)] + ([(scfg.superstep, 3, B)]
+                                 if scfg.superstep > 1 else [])
+            self._fetch_bufs = {len(sh): [torch.empty(sh, dtype=torch.int32,
+                                                      pin_memory=True)
+                                          for _ in range(2)]
+                                for sh in shapes}
+        self._buf_i = {n: 0 for n in self._fetch_bufs}
         self.recorder = recorder
         if recorder is not None:
             recorder.bind(self)
@@ -299,7 +335,10 @@ class ServeEngine:
                           n_chunks=n_chunks, sub_batch=self.wave_count - 1)
 
     def _account_chunk_prefill(self, job: PrefillJob, c: int,
-                               vc: np.ndarray) -> None:
+                               vc: np.ndarray, *, overlap: bool,
+                               fused: bool) -> None:
+        """Stats, PAS log and trace event of one unpacked chunk (alone or
+        in a fused step)."""
         B, C = self.scfg.max_slots, job.chunk
         self.prefill_stats["token_slots"] += B * C
         self.prefill_stats["valid_tokens"] += int(vc.sum())
@@ -312,10 +351,11 @@ class ServeEngine:
                 self.step_idx, offset=c * C, chunk=C,
                 valid=int(vc.sum()), kv=c * C + C,
                 slots=[int(s) for s, _ in job.wave if vc[s].any()],
-                route=entry, sub_batch=job.sub_batch, overlap=False,
-                fused=False)
+                route=entry, sub_batch=job.sub_batch, overlap=overlap,
+                fused=fused)
 
-    def _account_packed_prefill(self, job: PackedPrefillJob, d) -> None:
+    def _account_packed_prefill(self, job: PackedPrefillJob, d, *,
+                                overlap: bool, fused: bool) -> None:
         """Stats, PAS log and trace event of one packed dispatch. A packed
         event has no single offset (each lane sits elsewhere in its
         prompts), so the trace records offset -1 and the packing."""
@@ -330,41 +370,50 @@ class ServeEngine:
             self.recorder.on_prefill(
                 self.step_idx, offset=-1, chunk=C, valid=d.n_valid,
                 kv=d.prefix_span + C, slots=slots, route=entry,
-                sub_batch=job.sub_batch, overlap=False, fused=False,
+                sub_batch=job.sub_batch, overlap=overlap, fused=fused,
                 packed=True, segments=d.segments, rows=d.rows)
 
-    def _dispatch_packed_chunk(self, job: PackedPrefillJob) -> None:
-        """Run the job's next packed dispatch through
-        ``T.prefill_chunk_packed``: its grid is exactly the lanes the plan
-        uses, and the per-token (slot, position) layout drives the K/V
-        scatter and the segment mask."""
-        d = job.dispatches[job.next_chunk]
-        job.next_chunk += 1
-        self.cache = T.prefill_chunk_packed(
-            self.cfg, self.params, self._upload(d.tokens), self.cache,
-            self._upload(d.seg_slot), self._upload(d.seg_pos),
-            self._upload(d.seg_ids), self._upload(d.valid),
-            self._upload(d.row_slot), self._upload(d.prefix_len),
-            prefix_span=d.prefix_span)
-        self.dispatch_counts["prefill"] += 1
-        self._account_packed_prefill(job, d)
-
-    def dispatch_prefill_chunk(self, job: PrefillJob) -> None:
-        """Run the job's next chunk through ``T.prefill_chunk`` (or, for a
-        packed job, its next packed dispatch)."""
+    def _next_chunk(self, job):
+        """Advance ``job`` past its next chunk (a packed job: its next
+        packed dispatch) and upload its inputs. Returns ``(run, account)``:
+        ``run(cache) -> cache`` issues the chunk's model call
+        (``T.prefill_chunk`` or ``T.prefill_chunk_packed``, whose grid is
+        exactly the lanes the plan uses), ``account(overlap=, fused=)``
+        books it; None for an unpacked chunk with no valid token."""
+        cfg, params = self.cfg, self.params
         if isinstance(job, PackedPrefillJob):
-            return self._dispatch_packed_chunk(job)
+            d = job.dispatches[job.next_chunk]
+            job.next_chunk += 1
+            layout = [self._upload(a) for a in (
+                d.tokens, d.seg_slot, d.seg_pos, d.seg_ids, d.valid,
+                d.row_slot, d.prefix_len)]
+            return (lambda cache: T.prefill_chunk_packed(
+                        cfg, params, layout[0], cache, *layout[1:],
+                        prefix_span=d.prefix_span),
+                    functools.partial(self._account_packed_prefill, job, d))
         c, C = job.next_chunk, job.chunk
         job.next_chunk += 1
         vc = job.valid[:, c * C:(c + 1) * C]
         if not vc.any():
+            return None
+        tokens = self._upload(job.tokens[:, c * C:(c + 1) * C])
+        valid = self._upload(vc)
+        return (lambda cache: T.prefill_chunk(cfg, params, tokens, cache,
+                                              valid, offset=c * C),
+                functools.partial(self._account_chunk_prefill, job, c, vc))
+
+    def dispatch_prefill_chunk(self, job: PrefillJob, *,
+                               overlap: bool = False) -> None:
+        """Run the job's next chunk (or, for a packed job, its next packed
+        dispatch). ``overlap=True`` marks it as co-scheduled with this
+        step's decode (in the trace)."""
+        chunk = self._next_chunk(job)
+        if chunk is None:
             return
-        self.cache = T.prefill_chunk(
-            self.cfg, self.params,
-            self._upload(job.tokens[:, c * C:(c + 1) * C]), self.cache,
-            self._upload(vc), offset=c * C)
+        run, account = chunk
+        self.cache = run(self.cache)
         self.dispatch_counts["prefill"] += 1
-        self._account_chunk_prefill(job, c, vc)
+        account(overlap=overlap, fused=False)
 
     def finish_prefill(self, wave) -> None:
         """A wave's prompt is cached: arm its slots for generation (the last
@@ -431,36 +480,118 @@ class ServeEngine:
         return phase_log_entry(phase, n_tokens, active,
                                self.cfg.d_model, self.cfg.d_ff)
 
-    def dispatch_decode(self) -> Optional[PendingDecode]:
-        """Issue the decode + sample + terminate call for every ready slot
-        and start the fetch's copy to the host; the blocking sync happens
-        in ``resolve_decode``."""
+    def _ready_active(self) -> Tuple[Optional[np.ndarray], int]:
+        """(active mask, count) over the ready slots; (None, 0) when none
+        is: the prologue of every decode dispatch."""
         ready = self.ready_slot_ids()
         if not ready:
-            return None
+            return None, 0
         active_np = np.zeros((self.scfg.max_slots,), bool)
         active_np[ready] = True
-        entry = self._phase_entry("generation", len(ready), len(ready))
+        return active_np, len(ready)
+
+    def _log_generation(self, n_tok: int) -> dict:
+        entry = self._phase_entry("generation", n_tok, n_tok)
         self.pas_log.append(entry)
+        return entry
+
+    def _sampling(self) -> dict:
+        return dict(temperature=self.scfg.temperature,
+                    eos_token=self.scfg.eos_token, max_len=self.scfg.max_len,
+                    seed=self.scfg.seed)
+
+    def _start_fetch(self, fetch: torch.Tensor):
+        """Double-buffered fetch: on the card, a ``non_blocking`` copy into
+        the next pinned buffer of the fetch's rank (a superstep's k rounds
+        fill the first k rows of its (superstep, 3, B) buffer) and an event
+        that marks it done. Returns (fetch or its host buffer, event)."""
+        if not self.scfg.double_buffer:
+            return fetch, None
+        self.async_fetches += 1
+        bufs = self._fetch_bufs.get(fetch.dim())
+        if bufs is None:
+            return fetch, None
+        i = self._buf_i[fetch.dim()]
+        self._buf_i[fetch.dim()] = i ^ 1
+        buf = bufs[i][:fetch.shape[0]] if fetch.dim() == 3 else bufs[i]
+        buf.copy_(fetch, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return buf, ready
+
+    def _fetch_np(self, fetch: torch.Tensor, ready) -> np.ndarray:
+        """The blocking half of the fetch: one host sync."""
+        self.host_syncs += 1
+        if ready is not None:
+            ready.synchronize()
+            return fetch.numpy().copy()
+        return fetch.cpu().numpy()
+
+    def dispatch_decode(self, *, overlap: bool = False
+                        ) -> Optional[PendingDecode]:
+        """Issue the decode + sample + terminate call for every ready slot
+        and start the fetch's copy to the host; the blocking sync happens
+        in ``resolve_decode``, after whatever the scheduler co-schedules."""
+        active_np, n_tok = self._ready_active()
+        if active_np is None:
+            return None
+        entry = self._log_generation(n_tok)
         (fetch, self.cache, self.last_tok, self.lens, self.gen_count,
-         self._gen) = T.decode_and_sample(
+         self._draw) = T.decode_and_sample(
             self.cfg, self.params, self.cache, self.last_tok, self.lens,
-            self._upload(active_np), self.gen_count, self.max_new, self._gen,
-            temperature=self.scfg.temperature, eos_token=self.scfg.eos_token,
-            max_len=self.scfg.max_len)
+            self._upload(active_np), self.gen_count, self.max_new, self._draw,
+            **self._sampling())
         self.dispatch_counts["decode"] += 1
-        ready_ev = None
-        if self.scfg.double_buffer:
-            if self._fetch_bufs:
-                buf = self._fetch_bufs[self._buf_i]
-                self._buf_i ^= 1
-                buf.copy_(fetch, non_blocking=True)
-                ready_ev = torch.cuda.Event()
-                ready_ev.record()
-                fetch = buf
-            self.async_fetches += 1
-        return PendingDecode(fetch=fetch, ready=ready_ev, active_np=active_np,
-                             n_tok=len(ready), route=entry)
+        fetch, ready = self._start_fetch(fetch)
+        return PendingDecode(fetch=fetch, ready=ready, active_np=active_np,
+                             n_tok=n_tok, route=entry, overlap=overlap)
+
+    def dispatch_fused_step(self, job) -> PendingDecode:
+        """Issue ONE call carrying the ready slots' decode and the job's
+        next prefill chunk (``T.fused_step``): one ``fused`` dispatch,
+        traced as a fused prefill + decode pair. The caller guarantees a
+        ready slot and a chunk with valid tokens."""
+        active_np, n_tok = self._ready_active()
+        if active_np is None:
+            raise RuntimeError("a fused step needs a ready slot")
+        dentry = self._log_generation(n_tok)
+        chunk = self._next_chunk(job)
+        if chunk is None:
+            raise RuntimeError("a fused step got an empty prefill chunk")
+        run, account = chunk
+        (fetch, self.cache, self.last_tok, self.lens, self.gen_count,
+         self._draw) = T.fused_step(
+            self.cfg, self.params, self.cache, run, self.last_tok, self.lens,
+            self._upload(active_np), self.gen_count, self.max_new, self._draw,
+            **self._sampling())
+        account(overlap=True, fused=True)
+        self.dispatch_counts["fused"] += 1
+        fetch, ready = self._start_fetch(fetch)
+        return PendingDecode(fetch=fetch, ready=ready, active_np=active_np,
+                             n_tok=n_tok, route=dentry, overlap=True,
+                             fused=True)
+
+    def dispatch_decode_superstep(self, k: int
+                                  ) -> Optional[PendingSuperstep]:
+        """Issue ONE call running k decode rounds (``T.decode_superstep``;
+        finished lanes freeze on the device) and start its (k, 3, B)
+        fetch: one ``decode`` dispatch, one host sync. The route is decided
+        once, at dispatch, so the k decode events share it."""
+        active_np, n_tok = self._ready_active()
+        if active_np is None:
+            return None
+        entry = self._log_generation(n_tok)
+        (fetch, self.cache, self.last_tok, self.lens, self.gen_count,
+         self._draw) = T.decode_superstep(
+            self.cfg, self.params, self.cache, self.last_tok, self.lens,
+            self._upload(active_np), self.gen_count, self.max_new, self._draw,
+            k=k, **self._sampling())
+        self.dispatch_counts["decode"] += 1
+        fetch, ready = self._start_fetch(fetch)
+        sid = self._superstep_seq
+        self._superstep_seq += 1
+        return PendingSuperstep(fetch=fetch, ready=ready, active_np=active_np,
+                                k=k, route=entry, sid=sid)
 
     def _finish_slot(self, i: int) -> None:
         r = self.slot_req[i]
@@ -482,12 +613,7 @@ class ServeEngine:
                        ) -> List[Tuple[int, int]]:
         """Wait for the step's (token, done, len) fetch -- the step's one
         blocking host sync -- and apply it: tokens, trace, completions."""
-        if pending.ready is not None:
-            pending.ready.synchronize()
-            fetch_np = pending.fetch.numpy().copy()
-        else:
-            fetch_np = pending.fetch.cpu().numpy()
-        self.host_syncs += 1
+        fetch_np = self._fetch_np(pending.fetch, pending.ready)
         toks_np, done_np, lens_np = (fetch_np[0], fetch_np[1].astype(bool),
                                      fetch_np[2])
         active_idx = np.nonzero(pending.active_np)[0]
@@ -499,11 +625,47 @@ class ServeEngine:
                 self.step_idx, occupancy=pending.n_tok,
                 slot_lens=[int(x) for x in lens_np],
                 slots=[int(i) for i in active_idx],
-                tokens=list(out), route=pending.route, overlap=False,
-                fused=False)
+                tokens=list(out), route=pending.route,
+                overlap=pending.overlap, fused=pending.fused)
         for i in active_idx:
             if done_np[i]:
                 self._finish_slot(i)
+        return out
+
+    def resolve_decode_superstep(self, pending: PendingSuperstep
+                                 ) -> List[Tuple[int, int]]:
+        """Wait for a superstep's (k, 3, B) fetch -- one host sync for k
+        rounds -- and expand it round by round: tokens in round order, a
+        decode event per round with a live lane, completions at the round
+        where a lane ended, and the engine clock one tick a round."""
+        fetch_np = self._fetch_np(pending.fetch, pending.ready)
+        out: List[Tuple[int, int]] = []
+        active = pending.active_np.copy()
+        for i in range(pending.k):
+            if i:
+                self.step_idx += 1     # inner rounds advance the timeline
+            idx = np.nonzero(active)[0]
+            if idx.size == 0:
+                continue               # every lane done; the clock still ran
+            toks_np, lens_np = fetch_np[i, 0], fetch_np[i, 2]
+            done_np = fetch_np[i, 1].astype(bool)
+            step_out = [(self.slot_req[s].rid, int(toks_np[s])) for s in idx]
+            for s, (_rid, tok) in zip(idx, step_out):
+                self.slot_req[s].generated.append(tok)
+            self.superstep_tokens += 1
+            if self.recorder is not None:
+                self.recorder.on_decode(
+                    self.step_idx, occupancy=int(idx.size),
+                    slot_lens=[int(x) for x in lens_np],
+                    slots=[int(s) for s in idx],
+                    tokens=list(step_out), route=pending.route,
+                    overlap=False, superstep=pending.k,
+                    superstep_id=pending.sid)
+            for s in idx:
+                if done_np[s]:
+                    self._finish_slot(s)
+            active &= ~done_np
+            out.extend(step_out)
         return out
 
     # ---- step: composition delegated to the scheduling policy --------------- #

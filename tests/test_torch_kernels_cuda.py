@@ -646,3 +646,195 @@ def test_jamba_forward_full_and_engine_on_the_card_match_the_cpu(card):
 def _tree(fn, t):
     return {k: _tree(fn, v) for k, v in t.items()} if isinstance(t, dict) \
         else fn(t)
+
+
+def _serving_state(dtype, dev, B=4, L=64, seed=8):
+    """The reduced llama in ``dtype`` on ``dev`` with a random cache: slots
+    0 and 1 ready (lengths 10 and 40), slots 2 and 3 parked mid-prefill at
+    max_len-1. Returns (cfg, params, cache, decode state)."""
+    name = str(dtype).replace("torch.", "")
+    cfg = dataclasses.replace(get_arch("llama3.2-1b").reduced(), dtype=name)
+    params = _tree(lambda a: a.to(dev, dtype),
+                   init_params(T.param_defs(cfg), device="cpu", seed=seed))
+    rng = np.random.default_rng(seed)
+    shape = (cfg.num_layers, B, cfg.num_kv_heads, L, cfg.head_dim)
+    cache = {"pos0": {k: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev, dtype) for k in ("k", "v")}}
+    state = [torch.tensor(a, device=dev) for a in (
+        np.array([5, 9, 0, 0], np.int32), np.array([10, 40, L - 1, L - 1],
+                                                   np.int32),
+        np.array([True, True, False, False]), np.zeros(B, np.int32),
+        np.full(B, 6, np.int32))]
+    return cfg, params, cache, state
+
+
+def _chunk(pack: bool, dev, B=4, C=16):
+    """A prefill chunk of slots 2 and 3 for the fused step: unpacked at
+    offset 16, or the last dispatch of their wave packed."""
+    from types import SimpleNamespace
+
+    from repro_torch.sched import plan_packed_job
+    rng = np.random.default_rng(9)
+    if not pack:
+        valid = np.zeros((B, C), bool)
+        valid[2, :], valid[3, :7] = True, True
+        return dict(tokens=rng.integers(0, 256, (B, C)).astype(np.int32),
+                    tok_valid=valid, offset=16)
+    wave = [(s, SimpleNamespace(prompt=rng.integers(0, 256, n)))
+            for s, n in ((2, 37), (3, 9))]
+    d = plan_packed_job(wave, max_slots=B, chunk=C,
+                        sub_batch=0).dispatches[-1]
+    return dict(tokens=d.tokens, seg_slot=d.seg_slot, seg_pos=d.seg_pos,
+                seg_ids=d.seg_ids, tok_valid=d.valid, row_slot=d.row_slot,
+                prefix_len=d.prefix_len, prefix_span=d.prefix_span)
+
+
+def _fused(cfg, params, cache, state, chunk, dev, fused: bool,
+           draw=None, temperature=0.0):
+    """One overlapped step: ``T.fused_step``, or its unfused pair
+    (``decode_and_sample``, then the chunk). Returns (fetch, cache)."""
+    arrays = {k: torch.as_tensor(v, device=dev)
+              for k, v in chunk.items() if k not in ("offset", "prefix_span")}
+    static = {k: chunk[k] for k in ("offset", "prefix_span") if k in chunk}
+    sample = dict(temperature=temperature, eos_token=None, max_len=64)
+    packed = "prefix_span" in chunk
+    names = (["tokens", "seg_slot", "seg_pos", "seg_ids", "tok_valid",
+              "row_slot", "prefix_len"] if packed else ["tokens", "tok_valid"])
+    layout = [arrays[k] for k in names]
+    fn = T.prefill_chunk_packed if packed else T.prefill_chunk
+
+    def chunk_fn(c):
+        return fn(cfg, params, layout[0], c, *layout[1:], **static)
+    if fused:
+        fetch, cache, *_, draw = T.fused_step(cfg, params, cache, chunk_fn,
+                                              *state, draw, **sample)
+        return fetch, cache, draw
+    fetch, cache, *_, draw = T.decode_and_sample(cfg, params, cache, *state,
+                                                 draw, **sample)
+    return fetch, chunk_fn(cache), draw
+
+
+@pytest.mark.parametrize("pack", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_step_on_the_card(card, dtype, pack):
+    """A fused step (two slots decoding, two parked slots prefilling) runs
+    the decode kernels and flash (once per layer) and gives its unfused
+    pair's fetch and cache bit for bit (the same kernels in the same
+    order); in float32 it is within 1e-4 of the plain path on the CPU."""
+    chunk = _chunk(pack, "cuda")
+    cfg, params, cache, state = _serving_state(dtype, "cuda")
+    ops.reset_launch_counts()
+    got = _fused(cfg, params, _tree(torch.clone, cache), state, chunk,
+                 "cuda", fused=True)
+    counts = ops.launch_counts()
+    flash = "flash_attention_segmented" if pack else "flash_attention"
+    assert counts[flash] == cfg.num_layers
+    assert counts["decode_attention"] == cfg.num_layers
+    assert counts["pim_matvec"] > 0 and counts["layernorm"] > 0
+    want = _fused(cfg, params, _tree(torch.clone, cache), state, chunk,
+                  "cuda", fused=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    for key, leaf in got[1]["pos0"].items():
+        assert torch.equal(leaf, want[1]["pos0"][key]), key
+    if dtype == torch.float32:
+        cfg, params, cache, state = _serving_state(dtype, "cpu")
+        plain = _fused(cfg, params, cache, state, chunk, "cpu", fused=True)
+        assert torch.equal(got[0].cpu(), plain[0])
+        for key, leaf in got[1]["pos0"].items():
+            torch.testing.assert_close(leaf.cpu(), plain[1]["pos0"][key],
+                                       rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_superstep_on_the_card(card, dtype):
+    """A k=4 superstep (lane 0 reaches the max_len-1 cap at round 2, lane 1
+    runs on, the parked lanes stay frozen) launches the decode kernels 4
+    times a layer and gives the fetches and cache of four single steps bit
+    for bit; in float32 it is within 1e-4 of the plain path on the CPU."""
+    cfg, params, cache, state = _serving_state(dtype, "cuda")
+    state[1][0] = 61                           # 3 rounds short of max_len 64
+    sample = dict(temperature=0.0, eos_token=None, max_len=64)
+    ops.reset_launch_counts()
+    got, got_cache, *_ = T.decode_superstep(
+        cfg, params, _tree(torch.clone, cache), *state, None, k=4, **sample)
+    assert ops.launch_counts()["decode_attention"] == 4 * cfg.num_layers
+    one_cache, (tok, lens, active, gen, max_new) = \
+        _tree(torch.clone, cache), list(state)
+    want = []
+    for _ in range(4):
+        fetch, one_cache, tok, lens, gen, _ = T.decode_and_sample(
+            cfg, params, one_cache, tok, lens, active, gen, max_new, None,
+            **sample)
+        active = active & (fetch[1] == 0)
+        want.append(fetch)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.stack(want))
+    assert got[1, 1, 0] == 1 and bool((got[2:, 2, 0] == 63).all())
+    for key, leaf in got_cache["pos0"].items():
+        assert torch.equal(leaf, one_cache["pos0"][key]), key
+    if dtype == torch.float32:
+        cfg, params, cache, state = _serving_state(dtype, "cpu")
+        state[1][0] = 61
+        plain, plain_cache, *_ = T.decode_superstep(
+            cfg, params, cache, *state, None, k=4, **sample)
+        assert torch.equal(got.cpu(), plain)
+        for key, leaf in got_cache["pos0"].items():
+            torch.testing.assert_close(leaf.cpu(), plain_cache["pos0"][key],
+                                       rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sampled_steps_on_the_card_issue_no_sync(card, dtype):
+    """Temperature 0.8 under CUDA's sync debug mode set to raise: a k=4
+    superstep (lane 0 reaches the max_len-1 cap at round 2, lane 1 its
+    max_new at round 3, so round 4 is dead) gives four single steps'
+    fetches and draw counter (3: the dead round draws nothing) bit for bit,
+    and a packed fused step its unfused pair's. The noise's bits are the
+    CPU's; its logs are each device's own float32 ``log``, so within a
+    few units in the last place."""
+    cfg, params, cache, state = _serving_state(dtype, "cuda")
+    state[1][0], state[4][1] = 61, 3
+    chunk = {k: torch.as_tensor(v, device="cuda") if isinstance(
+        v, np.ndarray) else v for k, v in _chunk(True, "cuda").items()}
+    zero = torch.zeros((), dtype=torch.int64, device="cuda")
+    sample = dict(temperature=0.8, eos_token=None, max_len=64, seed=5)
+    caches = [_tree(torch.clone, cache) for _ in range(5)]
+    # the kernels built and loaded before the sync check
+    _fused(cfg, params, caches[4], state, chunk, "cuda", True, zero, 0.8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, got_cache, *_, got_draw = T.decode_superstep(
+            cfg, params, caches[0], *state, zero, k=4, **sample)
+        one_cache, draw = caches[1], zero
+        tok, lens, active, gen, max_new = state
+        want = []
+        for _ in range(4):
+            fetch, one_cache, tok, lens, gen, draw = T.decode_and_sample(
+                cfg, params, one_cache, tok, lens, active, gen, max_new,
+                draw, **sample)
+            active = active & (fetch[1] == 0)
+            want.append(fetch)
+        fused = _fused(cfg, params, caches[2], state, chunk, "cuda", True,
+                       zero, 0.8)
+        pair = _fused(cfg, params, caches[3], state, chunk, "cuda", False,
+                      zero, 0.8)
+        noise = T.gumbel_noise(5, zero + 2, (4, cfg.vocab_size), "cuda")
+        bits = T.uniform_noise(5, zero + 2, (4, cfg.vocab_size), "cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, torch.stack(want))
+    assert int(got_draw) == int(draw) == 3
+    assert got[1, 1, 0] == 1 and got[2, 1, 1] == 1
+    for key, leaf in got_cache["pos0"].items():
+        assert torch.equal(leaf, one_cache["pos0"][key]), key
+    assert torch.equal(fused[0], pair[0]) and int(fused[2]) == 1
+    for key, leaf in fused[1]["pos0"].items():
+        assert torch.equal(leaf, pair[1]["pos0"][key]), key
+    cpu_draw = torch.tensor(2)
+    assert torch.equal(bits.cpu(), T.uniform_noise(
+        5, cpu_draw, (4, cfg.vocab_size), "cpu"))
+    torch.testing.assert_close(noise.cpu(), T.gumbel_noise(
+        5, cpu_draw, (4, cfg.vocab_size), "cpu"), rtol=4 * 2.0 ** -23,
+        atol=4 * 2.0 ** -23)

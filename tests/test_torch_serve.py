@@ -145,17 +145,6 @@ def test_temperature_sampling_is_deterministic(params):
     assert all(len(v) == 4 for v in outs[0].values())
 
 
-@pytest.mark.parametrize("knob", [
-    dict(fuse=True), dict(superstep=2), dict(policy="interleaved"),
-    dict(policy="pim_aware"), dict(policy="interleaved", pack=True),
-])
-def test_later_slice_knobs_raise(params, knob):
-    _, cfg = _cfgs()
-    _, tp = params
-    with pytest.raises(NotImplementedError):
-        _engine(cfg, tp, **knob)
-
-
 @pytest.mark.parametrize("change", [
     dict(family="moe"), dict(family="encdec"), dict(family="vlm"),
     dict(family="moe", num_experts=4, experts_per_token=2),

@@ -140,9 +140,10 @@ def test_done_rule_eos_budget_and_cache_end(params):
 
 
 def test_temperature_sampling_is_seeded(params):
-    """Temperature sampling draws from the generator only: the same seed
-    gives the same tokens (the reference's jax.random stream cannot be
-    matched, so this is the port's own invariant)."""
+    """Temperature sampling draws its noise from (seed, draw counter)
+    only: the same seed gives the same tokens, and each step with a live
+    lane advances the counter by one (the reference's jax.random stream
+    cannot be matched, so this is the port's own invariant)."""
     _, port = _cfgs()
     _, tp = params
     B, L = 2, 16
@@ -150,18 +151,19 @@ def test_temperature_sampling_is_seeded(params):
     for _ in range(2):
         from repro_torch.models.params import init_params
         cache = init_params(T.cache_defs(port, B, L), device="cpu")
-        g = torch.Generator().manual_seed(9)
+        draw = torch.zeros((), dtype=torch.int64)
         tok = torch.tensor([1, 2], dtype=torch.int32)
         lens = torch.tensor([0, 0], dtype=torch.int32)
         gen = torch.zeros(B, dtype=torch.int32)
         seq = []
         for _ in range(4):
-            fetch, cache, tok, lens, gen, g = T.decode_and_sample(
+            fetch, cache, tok, lens, gen, draw = T.decode_and_sample(
                 port, tp, cache, tok, lens, torch.ones(B, dtype=torch.bool),
-                gen, torch.full((B,), 9, dtype=torch.int32), g,
-                temperature=0.8, eos_token=None, max_len=L)
+                gen, torch.full((B,), 9, dtype=torch.int32), draw,
+                temperature=0.8, eos_token=None, max_len=L, seed=9)
             seq.append(fetch.numpy().copy())
         outs.append(np.stack(seq))
+        assert int(draw) == 4
     np.testing.assert_array_equal(outs[0], outs[1])
 
 
