@@ -17,7 +17,11 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      rwkv6-7b's full-sequence prefill for ``rwkv_chunk``, also at the
      model's strong decays, and jamba-v0.1-52b's for ``mamba_chunk`` and
      for flash: S 2048, head dim 128, causal, beside SDPA with
-     ``is_causal``; both prefill steps' norms) plus ragged cases, in
+     ``is_causal``; both prefill steps' norms; flash in both modes at the
+     head dims that are no multiple of 64: gpt2-2.5b's prefill chunk (D
+     96), kimi-k2's and pixtral-12b's prefill steps (D 112 and 160, S
+     1024 causal); gpt2-xl's and gpt2-2.5b's decode FCs and norms,
+     qwen3-moe's k/v FC and kimi-k2's prefill norm) plus ragged cases, in
      float32 and bfloat16 (tolerances of the reference's kernel tests:
      1e-4, 2e-3 for the chunked wkv (in bf16 too where y is f32), and
      5e-2; flash, decode_attention, pim_matvec and rwkv_chunk's bf16 y in
@@ -100,10 +104,37 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      and ``pim_aware`` through the kernels on the card and the plain
      versions on the CPU give identical greedy tokens, dispatch counts,
      host syncs, step kinds and (``pim_aware``) decision logs, and on the
-     card the tokens of the ``serial`` serve.
+     card the tokens of the ``serial`` serve;
+  10. serve phase 3's prompts through gpt2-xl (the paper's model: 48
+     layers, d 1536, 24 heads of 64, layernorm with bias, gelu, tied) at
+     full width and depth, unpacked and packed, each twice in turns: each
+     decode step and prefill dispatch launches exactly decode attention
+     and flash once a layer, the norm twice a layer (and once at the end
+     of a step) and the GEMV 6 times a layer; then phase 9's arrivals
+     under ``serial`` + pack and ``pim_aware`` + pack + fuse + superstep
+     4, held to these launches a round and a chunk as phase 9 holds its
+     own, and one profiled short serve;
+  10b. as 10 without the policies, through gpt2-2.5b (54 layers, d 1920,
+     20 heads of 96): flash in both modes and decode attention at D 96;
+  10c. gpt2-2.5b at full width and depth 2 in float32, unpacked and
+     packed, the kernels on the card against the plain versions on the
+     CPU, as phase 8 (the float32 flash route at D 96 in the model);
+  11. serve phase 3's prompts through qwen3-moe-30b-a3b at its published
+     widths (128 experts top-8, 32 / 4 heads of 64) cut to 12 of 48
+     layers, unpacked and packed (batched and packed prefill through MoE),
+     with 10's launch checks (no GEMV for the experts, batched matmuls as
+     in the reference), then one profiled serve;
+  11b. qwen3-moe-30b-a3b at depth 2 in float32, card against CPU, as 10c,
+     with the MoE aux loss within 1e-4;
+  11c. on a card emptied of every earlier phase's tensors, kimi-k2's
+     prefill step (B 2, S 1024) at its published widths (d 7168, 64 / 8
+     heads of 112, 384 experts) cut to 1 of 61 layers: flash at D 112
+     once, logits finite, its peak memory logged.
 
 The last two lines of standard output are the kernel table as one JSON
-object, then ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+object (a row a kernel at its main-path shape, then flash at D 96 in both
+modes, launched by phase 10b, and at D 112, by phase 11c), then
+``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when there is no CUDA device, when the port's sources are missing,
 or when any phase fails.
 """
@@ -111,6 +142,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -175,9 +207,22 @@ def time_ms(torch, fn, iters: int = 21, warmup: int = 3) -> float:
 # 128-token chunk) and decode rows (rmsnorm, d 2048); rwkv6-7b's
 # (layernorm) and jamba's (rmsnorm) decode rows and prefill-step rows
 # (B 2 x S 2048) at d 4096
+# (B 2 x S 2048) at d 4096; gpt2-xl's and gpt2-2.5b's (layernorm with
+# bias, d 1536 and 1920) prefill and decode rows; kimi-k2's prefill-step
+# rows (B 2 x S 1024, d 7168)
 NORM_SHAPES = (("rmsnorm", 1024, 2048), ("rmsnorm", 8, 2048),
                ("layernorm", 8, 4096), ("rmsnorm", 8, 4096),
-               ("layernorm", 4096, 4096), ("rmsnorm", 4096, 4096))
+               ("layernorm", 4096, 4096), ("rmsnorm", 4096, 4096),
+               ("layernorm", 1024, 1536), ("layernorm", 8, 1536),
+               ("layernorm", 1024, 1920), ("layernorm", 8, 1920),
+               ("rmsnorm", 2048, 7168))
+# the flash shapes at the reference's head dims that are no multiple of 64,
+# as (B, S, cache L, offset, H, KH, D): gpt2-2.5b's prefill chunk (MHA, 20
+# heads of 96), kimi-k2's prefill step (S 1024 causal, 64 / 8 heads of
+# 112) and pixtral-12b's (32 / 8 heads of 160), each with a ragged chunk
+WIDE_FLASH = ((8, 128, 1024, 512, 20, 20, 96), (2, 37, 300, 128, 20, 20, 96),
+              (2, 1024, 1024, 0, 64, 8, 112), (2, 37, 300, 128, 64, 8, 112),
+              (2, 1024, 1024, 0, 32, 8, 160), (2, 37, 300, 128, 32, 8, 160))
 
 
 def kernel_cases(torch, dtype):
@@ -201,13 +246,17 @@ def kernel_cases(torch, dtype):
 
     H, KH, D, d, f = 32, 8, 64, 2048, 8192
     cases = []
-    # flash: (B, chunk S, cache L, offset, head dim) -- llama's prefill
-    # chunks (the third overhangs L), and jamba's prefill step (S 2048 from
-    # 0, hd 128; its yardstick SDPA with is_causal, the same mask)
-    for B, S, L, off, hd in ((8, 128, 1024, 512, D), (4, 128, 300, 256, D),
-                             (2, 37, 300, 128, D), (2, 2048, 2048, 0, 128)):
-        q = rn(B, H, S, hd)
-        kc, vc = rn(B, KH, L, hd), rn(B, KH, L, hd)
+    # flash: (B, chunk S, cache L, offset, heads, KV heads, head dim) --
+    # llama's prefill chunks (the third overhangs L), jamba's prefill step
+    # (S 2048 from 0, hd 128; its yardstick SDPA with is_causal, the same
+    # mask), and WIDE_FLASH
+    for B, S, L, off, h, kh, hd in ((8, 128, 1024, 512, H, KH, D),
+                                    (4, 128, 300, 256, H, KH, D),
+                                    (2, 37, 300, 128, H, KH, D),
+                                    (2, 2048, 2048, 0, H, KH, 128)) \
+            + WIDE_FLASH:
+        q = rn(B, h, S, hd)
+        kc, vc = rn(B, kh, L, hd), rn(B, kh, L, hd)
         span = min(off + S, L)
         k, v = kc[:, :, :span], vc[:, :, :span]
         pos_q = off + torch.arange(S, device="cuda")
@@ -221,30 +270,33 @@ def kernel_cases(torch, dtype):
                 q, k, v, attn_mask=m, enable_gqa=True)))
         cases.append(dict(
             kernel="flash_attention", tol=TIGHT_TOL,
-            label=f"B{B} S{S} span{span} off{off}"
-            + ("" if hd == D else f" D{hd}"),
+            label=f"B{B} S{S} span{span} off{off}" + heads_label(h, kh, hd),
             run=lambda q=q, k=k, v=v, off=off: flash_attention(
                 q, k, v, causal=True, q_offset=off),
             plain=lambda q=q, k=k, v=v, off=off: ref.flash_attention_ref(
                 q, k, v, causal=True, q_offset=off),
             library=library,
-            bytes=(2 * q.numel() + 2 * B * KH * span * hd) * es,
-            flops=4.0 * B * H * pairs * hd))
+            bytes=(2 * q.numel() + 2 * B * kh * span * hd) * es,
+            flops=4.0 * B * h * pairs * hd))
     # segmented flash: the packed layouts the planner gives -- the packed
     # serve's widest dispatch (phase 3b's prompts), and a ragged one with
-    # padding columns, lanes without a prefix and Skv off the 32-key tile
-    for plens, C in (([len(p) for p in serve_prompts(2)], 128),
-                     ((80, 30, 12, 9, 3), 37)):
+    # padding columns, lanes without a prefix and Skv off the 32-key tile;
+    # both at llama's heads and at WIDE_FLASH's
+    layouts = (([len(p) for p in serve_prompts(2)], 128),
+               ((80, 30, 12, 9, 3), 37))
+    heads = ((H, KH, D), (20, 20, 96), (64, 8, 112), (32, 8, 160))
+    for (h, kh, hd), (plens, C) in itertools.product(heads, layouts):
         info, R, span = packed_layout(torch, plens, C)
         Skv = span + C
-        q = rn(R, H, C, D)
-        k, v = rn(R, KH, Skv, D), rn(R, KH, Skv, D)
+        q = rn(R, h, C, hd)
+        k, v = rn(R, kh, Skv, hd), rn(R, kh, Skv, hd)
         mask = ((info[1][:, :, None] == info[3][:, None, :])
                 & (info[0][:, :, None] >= info[2][:, None, :]))
-        rows = (info[1] >= 0)[:, None, :, None].expand(R, H, C, D)
+        rows = (info[1] >= 0)[:, None, :, None].expand(R, h, C, hd)
         cases.append(dict(
             kernel="flash_attention_segmented", tol=TIGHT_TOL,
-            label=f"R{R} C{C} span{span}", rows=rows,
+            label=f"R{R} C{C} span{span}" + heads_label(h, kh, hd),
+            rows=rows,
             run=lambda q=q, k=k, v=v, i=info: flash_attention_segmented(
                 q, k, v, i),
             plain=lambda q=q, k=k, v=v, i=info: ref.segment_attention_ref(
@@ -252,9 +304,9 @@ def kernel_cases(torch, dtype):
             library=lambda q=q, k=k, v=v, m=mask[:, None]:
                 F.scaled_dot_product_attention(q, k, v, attn_mask=m,
                                                enable_gqa=True),
-            bytes=(2 * q.numel() + 2 * R * KH * Skv * D) * es
+            bytes=(2 * q.numel() + 2 * R * kh * Skv * hd) * es
             + 4 * 2 * R * (C + Skv),
-            flops=4.0 * H * D * float(mask.sum())))
+            flops=4.0 * h * hd * float(mask.sum())))
     # decode: llama's cache (lengths of 1 and off every tile) and a ragged
     # one; jamba's (head dim 128, max_len 256, lengths off every tile)
     for B, L, lens, hd in ((8, 1024, (1, 77, 700, 1023, 1024, 5, 333, 512), D),
@@ -278,17 +330,23 @@ def kernel_cases(torch, dtype):
     # matvec: llama's decode FCs -- wg/wi (d -> f), wo of the MLP (f -> d),
     # wq/wo of attention (d -> d), wk/wv (d -> KH*D) -- at n in {1, 3, 8}
     # slot rows; then rwkv6-7b's (4096 -> 4096, 4096 -> 14336, 14336 ->
-    # 4096) and jamba-v0.1-52b's (4096 -> 8192, 8192 -> 4096, 4096 -> 1024)
-    # at the 8 rows the engine decodes
+    # 4096) and jamba-v0.1-52b's (4096 -> 8192, 8192 -> 4096, 4096 -> 1024);
+    # gpt2-xl's and gpt2-2.5b's (d -> d for q, k, v and o; d -> 4d gelu and
+    # 4d -> d, the non-gated MLP) and qwen3-moe-30b-a3b's k and v (2048 ->
+    # 256), at the 8 rows the engine decodes
     shapes = [(n, d, f, "silu") for n in (1, 3, 8)] \
         + [(n, f, d, "none") for n in (1, 3, 8)] \
         + [(8, d, d, "none"), (8, d, KH * D, "none")] \
         + [(8, 4096, 4096, "none"), (8, 4096, 14336, "silu"),
            (8, 14336, 4096, "none"), (8, 4096, 8192, "none"),
-           (8, 8192, 4096, "none"), (8, 4096, 1024, "none")]
+           (8, 8192, 4096, "none"), (8, 4096, 1024, "none")] \
+        + [s for dm in (1536, 1920) for s in (
+            (8, dm, dm, "none"), (8, dm, 4 * dm, "gelu"),
+            (8, 4 * dm, dm, "none"))] + [(8, d, 256, "none")]
     for n, din, dout, act in shapes:
         x, w = rn(n, din), rn(din, dout, scale=din ** -0.5)
-        lib_act = F.silu if act == "silu" else (lambda t: t)
+        lib_act = {"silu": F.silu, "none": lambda t: t,
+                   "gelu": lambda t: F.gelu(t, approximate="tanh")}[act]
         cases.append(dict(
             kernel="pim_matvec", label=f"n{n} {din}->{dout} {act}",
             tol=TIGHT_TOL, deterministic=True,
@@ -387,6 +445,13 @@ def kernel_cases(torch, dtype):
             bytes=(2 * x.numel() + dn * (1 if b is None else 2)) * es,
             flops=(4.0 if b is None else 7.0) * rows * dn))
     return cases
+
+
+def heads_label(h: int, kh: int, hd: int) -> str:
+    """A flash case's label suffix where its heads differ from llama's (H
+    32, KH 8, D 64)."""
+    return ("" if hd == 64 else f" D{hd}") \
+        + ("" if (h, kh) == (32, 8) else f" H{h}/{kh}")
 
 
 def timing_floor(torch) -> dict:
@@ -544,9 +609,10 @@ def ptxas_entries(log_text: str):
     """Each kernel's registers, static shared memory and spills from
     ``nvcc -Xptxas -v``, its template arguments (head dim, segmented) read
     off the mangled name. The bf16 flash route's shared memory is dynamic:
-    2 Q tiles and 3 K and 3 V tiles (2 at D 128) of 64 rows of D bf16, and
-    1 KB to align them (the segmented mode adds its key ids and tile
-    ranges)."""
+    2 Q tiles (1 in the segmented mode at D 160) and 3 K and 3 V tiles (2
+    above D 64) of 64 rows of DP bf16 (D padded to a multiple of 64 above
+    64), and 1 KB to align them (the segmented mode adds its key ids and
+    tile ranges)."""
     import re
     out, name, spills = [], None, (0, 0)
     for line in log_text.splitlines():
@@ -569,9 +635,12 @@ def ptxas_entries(log_text: str):
                          smem=int(m.group(2) or 0),
                          spill_stores=spills[0], spill_loads=spills[1])
             if kernel and kernel.group(0) == "wgmma_flash_kernel" and args:
-                d = int(args[0][1])
-                stages = 2 if d == 128 else 3
-                entry["dynamic_smem"] = (2 + 2 * stages) * 64 * d * 2 + 1024
+                d, seg = int(args[0][1]), int(args[1][1])
+                dp = d if d <= 64 else -(-d // 64) * 64
+                stages = 2 if dp >= 128 else 3
+                nwg = 1 if seg and dp > 128 else 2
+                entry["dynamic_smem"] = \
+                    (nwg + 2 * stages) * 64 * dp * 2 + 1024
             out.append(entry)
             name, spills = None, (0, 0)
     return out
@@ -585,6 +654,9 @@ def flat(torch, out):
 
 
 def check_kernels(torch) -> dict:
+    """Every case of ``kernel_cases`` in both dtypes: fails on a kernel
+    that disagrees with its plain version; returns the timed rows by
+    (kernel, label)."""
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
@@ -638,8 +710,7 @@ def check_kernels(torch) -> dict:
                                    else "operations")
                 if "exps" in c:
                     row["exps"] = c["exps"]
-                if c["label"] == REPORTED[c["kernel"]]:
-                    report[c["kernel"]] = row
+                report[c["kernel"], c["label"]] = row
             log("kernel " + json.dumps(row))
     return report
 
@@ -786,6 +857,14 @@ TIMED = ("wall_s", "prefill_s", "prefill_tok_s", "decode_s", "decode_tok_s",
          "ms_per_decode_step")
 
 
+def two_serves(a: dict, b: dict) -> dict:
+    """Two measured serves of one kind as one record: the first's counts,
+    the means and both runs of the times, whether the tokens repeated."""
+    return dict(a, **{k: (a[k] + b[k]) / 2 for k in TIMED},
+                **{f"{k}_runs": [a[k], b[k]] for k in TIMED},
+                same_tokens_both_runs=a["tokens"] == b["tokens"])
+
+
 def full_width_serves(torch) -> dict:
     """Phases 3, 3b and 3c on one set of full-width bf16 weights, then 3d
     on the same weights (which it casts to float32)."""
@@ -821,9 +900,7 @@ def full_width_serves(torch) -> dict:
         log(f"phase {name} took {time.perf_counter() - t0:.1f} s")
     out = {}
     for name, (a, b) in runs.items():
-        out[name] = dict(a, **{k: (a[k] + b[k]) / 2 for k in TIMED},
-                         **{f"{k}_runs": [a[k], b[k]] for k in TIMED},
-                         same_tokens_both_runs=a["tokens"] == b["tokens"])
+        out[name] = two_serves(a, b)
         log(f"serve {name} " + json.dumps(
             {k: v for k, v in out[name].items() if k != "tokens"}))
     base, pk, i8 = out["3 unpacked"], out["3b packed"], out["3c int8"]
@@ -944,7 +1021,7 @@ class StepTally:
 
 
 def policy_serve(torch, cfg, params, name: str, kw: dict, per_round: dict,
-                 per_chunk: dict) -> dict:
+                 per_chunk: dict, phase: str = "9") -> dict:
     """One measured serve of ``policy_arrivals`` under ``kw``, under CUDA's
     sync debug mode, with the launch counts set to 0 just before and read
     just after. Fails unless every kernel launched exactly ``per_round``
@@ -984,32 +1061,32 @@ def policy_serve(torch, cfg, params, name: str, kw: dict, per_round: dict,
             len(results[i]) != ev.max_new
             or not all(0 <= t < cfg.vocab_size for t in results[i])
             for i, ev in enumerate(arrivals)):
-        fail(f"9 {name}: serve returned "
+        fail(f"{phase} {name}: serve returned "
              f"{({k: len(v) for k, v in results.items()})}")
     stats, dc = dict(eng.scheduler.stats), dict(eng.dispatch_counts)
     rounds = sum(r for _, _, r, _ in tally.steps)
     chunks = dc["prefill"] + dc["fused"]
     if rounds != (dc["decode"] - stats["superstep"] + dc["fused"]
                   + sum(tally.supersteps.values())):
-        fail(f"9 {name}: {rounds} decode rounds do not add up: {dc}, "
+        fail(f"{phase} {name}: {rounds} decode rounds do not add up: {dc}, "
              f"supersteps {tally.supersteps}")
     want = {k: round(per_round[k]) * rounds + round(per_chunk[k]) * chunks
             for k in counts}
     if counts != want or any(counts[k] == 0 for k in (
             "flash_attention_segmented", "decode_attention", "pim_matvec",
             "layernorm")):
-        fail(f"9 {name}: launches {counts}, expected {want} for {rounds} "
+        fail(f"{phase} {name}: launches {counts}, expected {want} for {rounds} "
              f"decode rounds and {chunks} prefill chunks")
     if eng.host_syncs != dc["decode"] + dc["fused"] or hidden:
-        fail(f"9 {name}: {eng.host_syncs} host syncs for {dc}, and "
+        fail(f"{phase} {name}: {eng.host_syncs} host syncs for {dc}, and "
              f"{len(hidden)} hidden ones ({hidden[:1]})")
     if kw["policy"] == "interleaved" and not (stats["fused"]
                                               and stats["superstep"]):
-        fail(f"9 {name}: no fused step or no superstep: {stats}")
+        fail(f"{phase} {name}: no fused step or no superstep: {stats}")
     if kw["policy"] == "pim_aware" and (
             not stats["superstep"] or stats["fused"] + stats["overlapped"]
             != sum(d["overlap"] for d in eng.scheduler.decision_log)):
-        fail(f"9 {name}: steps {stats} against its decisions")
+        fail(f"{phase} {name}: steps {stats} against its decisions")
 
     # each step's seconds (device timeline, host gaps included), rounds and
     # tokens, summed over the steps of the given kinds
@@ -1024,7 +1101,7 @@ def policy_serve(torch, cfg, params, name: str, kw: dict, per_round: dict,
     pd_syncs = stats["decode_only"] + stats["superstep"]
     pf_s = total(WITH_PREFILL)[0]
     ttft = [tally.first[r] - tally.arrival[r] for r in results]
-    out = dict(phase=f"9 {name}", serve=kw, requests=len(results),
+    out = dict(phase=f"{phase} {name}", serve=kw, requests=len(results),
                tokens=sum(len(v) for v in results.values()), wall_s=wall,
                tok_s=sum(len(v) for v in results.values()) / wall,
                decode_tok_s=pd_tokens / pd_s,
@@ -1436,17 +1513,8 @@ def recurrent_full_width(torch, cfg, name: str, phases, required,
     then a profile of each; with a third phase name, ``bf16_steps`` last
     (the prompts cut to 16 tokens, the prefill step at B 2 x S 1024)."""
     from repro_torch.launch.steps import step_fn_for
-    from repro_torch.models import transformer as T
-    from repro_torch.models.params import init_params
 
-    t0 = time.perf_counter()
-    params = init_params(T.param_defs(cfg),
-                         torch.Generator(device="cuda").manual_seed(0),
-                         device="cuda")
-    torch.cuda.synchronize()
-    n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
-    log(f"{name} weights: {n_bytes} bytes in "
-        f"{time.perf_counter() - t0:.1f} s")
+    params, n_bytes = weights(torch, cfg, name)
     prompts = recurrent_prompts(cfg.vocab_size)
     kw = dict(max_slots=8, max_len=256)
     # one short unmeasured serve first (module loads, cuBLAS's choices)
@@ -1503,13 +1571,14 @@ def leaves(tree):
 # --------------------------------------------------------------------------- #
 # phases 6 and 8: kernel path == plain path, float32, depth 2
 # --------------------------------------------------------------------------- #
-def recurrent_parity(torch, cfg, name: str) -> None:
+def depth2_parity(torch, cfg, name: str, variants=({},)) -> None:
     """``cfg`` (full width, depth 2) in float32, through the kernels on the
     card and the plain versions on the CPU: the serve with 4 slots and
     short prompts gives identical greedy tokens, dispatch counts and host
-    syncs; the prefill step at S 256 gives logits within 1e-4 (the plain
-    scans are the sequential oracles), and, with MoE, the full-sequence
-    forward's aux loss within 1e-4."""
+    syncs under each of ``variants`` (``ServeConfig`` changes: packed
+    prefill for the attention stacks); the prefill step at S 256 gives
+    logits within 1e-4 (the plain scans are the sequential oracles), and,
+    with MoE, the full-sequence forward's aux loss within 1e-4."""
     import numpy as np
     from repro_torch.launch.steps import step_fn_for
     from repro_torch.models import transformer as T
@@ -1532,13 +1601,14 @@ def recurrent_parity(torch, cfg, name: str) -> None:
     tokens = rng.integers(0, cfg.vocab_size, (2, 256))
     runs, logits, aux = {}, {}, {}
     for dev in ("cuda", "cpu"):
-        eng = ServeEngine(cfg, params[dev], ServeConfig(max_slots=4,
-                                                        max_len=64),
-                          device=dev)
-        for pr in prompts:
-            eng.add_request(pr, max_new_tokens=6)
-        runs[dev] = (eng.run_until_done(), dict(eng.dispatch_counts),
-                     eng.host_syncs)
+        runs[dev] = []
+        for kw in variants:
+            eng = ServeEngine(cfg, params[dev], ServeConfig(
+                max_slots=4, max_len=64, **kw), device=dev)
+            for pr in prompts:
+                eng.add_request(pr, max_new_tokens=6)
+            runs[dev].append((eng.run_until_done(),
+                              dict(eng.dispatch_counts), eng.host_syncs))
         logits[dev] = step_fn_for(cfg, "prefill", device=dev)(
             params[dev], {"tokens": tokens}).cpu()
         if cfg.is_moe:
@@ -1557,14 +1627,207 @@ def recurrent_parity(torch, cfg, name: str) -> None:
     if aux_err > 1e-4:
         fail(f"{name} prefill step: aux loss {aux['cuda']} on the card, "
              f"{aux['cpu']} on the CPU")
-    log(f"parity float32 depth 2, {name}: tokens, dispatches "
-        f"{runs['cuda'][1]} and {runs['cuda'][2]} host syncs identical on "
-        f"cuda and cpu; prefill step S 256 logits max |err| "
+    log(f"parity float32 depth 2, {name} {list(variants)}: tokens, "
+        f"dispatches {[r[1] for r in runs['cuda']]} and host syncs "
+        f"{[r[2] for r in runs['cuda']]} identical on cuda and cpu; prefill "
+        f"step S 256 logits max |err| "
         f"{float(err.max()):.3g} (relative {worst:.3g})"
         + (f"; aux loss {aux['cuda']!r} against {aux['cpu']!r}" if aux
            else ""))
     del params
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
+# phases 10-11c: the paper's GPT-2 models and the moe family
+# --------------------------------------------------------------------------- #
+def path_launches(cfg, packed: bool):
+    """The launches of an attention stack's decode step and prefill chunk:
+    a step runs decode attention once a layer, the norm twice a layer and
+    once at the end, and the GEMV for q, k, v and o and the dense MLP's
+    FCs (two non-gated, three gated; none for a MoE FFN, whose experts are
+    batched matmuls) a layer; a chunk runs flash (segmented when packed)
+    once a layer and the norm twice."""
+    n = cfg.num_layers
+    mlp = 0 if cfg.is_moe else (3 if cfg.act == "silu" else 2)
+    flash = "flash_attention_segmented" if packed else "flash_attention"
+    step = {"decode_attention": n, "layernorm": 2 * n + 1,
+            "pim_matvec": (4 + mlp) * n}
+    return step, {flash: n, "layernorm": 2 * n}
+
+
+def check_launches(serve: dict, cfg, packed: bool) -> None:
+    """A serve's launches a decode step and a prefill dispatch are exactly
+    ``path_launches``'s, and no other kernel launched."""
+    step, chunk = path_launches(cfg, packed)
+    for got, want, what in ((serve["launches_per_decode_step"], step,
+                             "decode step"),
+                            (serve["launches_per_prefill_dispatch"], chunk,
+                             "prefill dispatch")):
+        if {k: v for k, v in got.items() if v} != want:
+            fail(f"{serve['phase']}: launches a {what} {got}, expected "
+                 f"{want}")
+
+
+def weights(torch, cfg, name: str):
+    """``cfg``'s bf16 weights from a seed on the card, with their bytes."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    t0 = time.perf_counter()
+    params = init_params(T.param_defs(cfg),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    log(f"{name} weights ({cfg.num_layers} layers): {n_bytes} bytes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params, n_bytes
+
+
+def attention_serves(torch, cfg, params, phase: str, name: str) -> dict:
+    """Phase 3's serve and 3b's packed one on ``cfg``: one unmeasured serve
+    of each, then two measured ones in turns (unpacked, packed, packed,
+    unpacked), each with exactly ``path_launches``'s kernels; the two
+    serves of a kind must give the same tokens."""
+    decode = ["decode_attention", "pim_matvec", "layernorm"]
+    variants = (("unpacked", ["flash_attention"] + decode, {}),
+                ("packed", ["flash_attention_segmented"] + decode,
+                 dict(pack=True)))
+    t0 = time.perf_counter()
+    for _, _, kw in variants:
+        serve_engine(cfg, params, **kw).run_until_done()
+    log(f"phase {phase} warm-up took {time.perf_counter() - t0:.1f} s")
+    runs = {v: [] for v, *_ in variants}
+    for v, required, kw in variants + variants[::-1]:
+        t0 = time.perf_counter()
+        r = full_width_serve(torch, cfg, params, f"{phase} {name} {v}",
+                             required, **kw)
+        check_launches(r, cfg, packed=bool(kw))
+        runs[v].append(r)
+        log(f"phase {phase} {v} took {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for v, (a, b) in runs.items():
+        out[v] = two_serves(a, b)
+        if not out[v]["same_tokens_both_runs"]:
+            fail(f"{phase} {name} {v}: two serves of the same requests gave "
+                 f"other tokens")
+        log(f"serve {phase} {name} {v} " + json.dumps(
+            {k: w for k, w in out[v].items() if k != "tokens"}))
+    return out
+
+
+def gpt2_serves(torch) -> dict:
+    """Phases 10 and 10b: gpt2-xl and gpt2-2.5b (the paper's Table 3) at
+    full width and depth, bf16, unpacked and packed; gpt2-xl also under
+    phase 9's arrivals with ``serial`` + pack and ``pim_aware`` + pack +
+    fuse + superstep 4 (the launches of phase 10's own serves a decode
+    round and a packed chunk), then one profiled short serve (phase 10's
+    prompts, 8 new tokens each). Phase 10c: gpt2-2.5b at depth 2 in
+    float32, card against CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.trace import drive
+
+    out = {}
+    for name, phase in (("gpt2-xl", "10"), ("gpt2-2.5b", "10b")):
+        cfg = get_arch(name)
+        t_phase = time.perf_counter()
+        params, n_bytes = weights(torch, cfg, name)
+        out[phase] = attention_serves(torch, cfg, params, phase, name)
+        out[phase]["weight_bytes"] = n_bytes
+        if phase == "10":
+            per_round = out[phase]["unpacked"]["launches_per_decode_step"]
+            per_chunk = out[phase]["packed"]["launches_per_prefill_dispatch"]
+            arrivals = policy_arrivals(cfg.vocab_size)
+            for pname, kw in (POLICY_SERVES[0], POLICY_SERVES[2]):
+                t0 = time.perf_counter()
+                drive(policy_engine(cfg, params, **kw), arrivals)
+                r = policy_serve(torch, cfg, params, pname, kw, per_round,
+                                 per_chunk, phase="10")
+                out[phase][pname] = {k: v for k, v in r.items()
+                                     if k != "results"}
+                log(f"phase 10 {pname} took {time.perf_counter() - t0:.1f} "
+                    f"s; serve " + json.dumps(out[phase][pname]))
+            t0 = time.perf_counter()
+            eng = serve_engine(cfg, params, max_new=8)
+            prof = device_profile(torch, eng.run_until_done)
+            out[phase]["profile"] = prof
+            del eng
+            log(f"profile 10 {name} (8 new tokens each; took "
+                f"{time.perf_counter() - t0:.1f} s) " + json.dumps(prof))
+        del params
+        torch.cuda.empty_cache()
+        log(f"phase {phase} took {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    depth2_parity(torch, dataclasses.replace(
+        get_arch("gpt2-2.5b"), num_layers=2, dtype="float32"), "gpt2-2.5b",
+        variants=({}, dict(pack=True)))
+    log(f"phase 10c took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def moe_serves(torch) -> dict:
+    """Phase 11: qwen3-moe-30b-a3b at its published widths, cut to 12 of
+    48 layers, bf16, unpacked and packed (batched and packed prefill
+    through MoE), then one profiled unpacked serve. Phase 11b: depth 2 in
+    float32, card against CPU."""
+    from repro_torch.configs import get_arch
+
+    full = get_arch("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(full, num_layers=12)
+    log(f"phase 11: {full.name} cut to {cfg.num_layers} of "
+        f"{full.num_layers} layers")
+    t_phase = time.perf_counter()
+    params, n_bytes = weights(torch, cfg, full.name)
+    out = attention_serves(torch, cfg, params, "11", full.name)
+    out["weight_bytes"] = n_bytes
+    t0 = time.perf_counter()
+    eng = serve_engine(cfg, params)
+    out["profile"] = device_profile(torch, eng.run_until_done)
+    log(f"profile 11 {full.name} (took {time.perf_counter() - t0:.1f} s) "
+        + json.dumps(out["profile"]))
+    del eng, params
+    torch.cuda.empty_cache()
+    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    depth2_parity(torch, dataclasses.replace(full, num_layers=2,
+                                             dtype="float32"), full.name,
+                  variants=({}, dict(pack=True)))
+    log(f"phase 11b took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def kimi_step(torch) -> dict:
+    """Phase 11c: kimi-k2-1t-a32b's prefill step at its published widths
+    (d 7168, 64 / 8 heads of 112, 384 experts), cut to 1 of 61 layers, on
+    B 2 x S 1024: flash at D 112 once, logits finite. It runs on an empty
+    card: every earlier phase's tensors must be gone first."""
+    import gc
+
+    from repro_torch.configs import get_arch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    if held > 2**30:
+        fail(f"11c: {held} bytes still allocated before kimi-k2's weights")
+    full = get_arch("kimi-k2-1t-a32b")
+    cfg = dataclasses.replace(full, num_layers=1)
+    log(f"phase 11c: {full.name} cut to {cfg.num_layers} of "
+        f"{full.num_layers} layers; {held} bytes allocated before it")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params, n_bytes = weights(torch, cfg, full.name)
+    init_peak = torch.cuda.max_memory_allocated()
+    step = prefill_step_run(torch, cfg, params, "11c kimi-k2 prefill step",
+                            {"flash_attention": 1}, B=2, S=1024)
+    step.update(weight_bytes=n_bytes, allocated_before=held,
+                max_memory_allocated_init=init_peak)
+    log("step " + json.dumps(step))
+    del params
+    torch.cuda.empty_cache()
+    log(f"phase 11c took {time.perf_counter() - t0:.1f} s")
+    return step
 
 
 def main() -> None:
@@ -1612,7 +1875,7 @@ def main() -> None:
             torch, rwkv_cfg, "rwkv", ("5", "5b"), ["pim_matvec", "layernorm"],
             {"rwkv_chunk": rwkv_cfg.num_layers})
         t0 = time.perf_counter()
-        recurrent_parity(torch, dataclasses.replace(
+        depth2_parity(torch, dataclasses.replace(
             rwkv_cfg, num_layers=2, dtype="float32"), "rwkv")
         log(f"phase 6 took {time.perf_counter() - t0:.1f} s")
         # jamba's 32 layers are 103 GB in bf16: one whole period of 8 fits
@@ -1625,26 +1888,41 @@ def main() -> None:
             {"mamba_chunk": kinds.count("mamba"),
              "flash_attention": kinds.count("attn")})
         t0 = time.perf_counter()
-        recurrent_parity(torch, dataclasses.replace(
+        depth2_parity(torch, dataclasses.replace(
             jamba_cfg, num_layers=2, attn_period=2, attn_offset=1,
             dtype="float32"), "jamba")
         log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+        gpt2 = gpt2_serves(torch)
+        qwen = moe_serves(torch)
+        kimi = kimi_step(torch)
     except SystemExit:
         raise
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         fail("a phase raised")
 
+    # each kernel's row at its main-path shape, its launches from the run
+    # of its own path; then flash at the head dims of gpt2-2.5b (its serves)
+    # and kimi-k2 (its prefill step)
+    rows = [(name, name, REPORTED[name],
+             {"flash_attention_segmented": serves["3b packed"],
+              "rwkv_chunk": rwkv["step"], "mamba_chunk": jamba["step"],
+              "masked_softmax": path}.get(name, serves["3 unpacked"]))
+            for name in SOURCES] + [
+        ("flash_attention D96", "flash_attention",
+         "B8 S128 span640 off512 D96 H20/20", gpt2["10b"]["unpacked"]),
+        ("flash_attention_segmented D96", "flash_attention_segmented",
+         REPORTED["flash_attention_segmented"] + " D96 H20/20",
+         gpt2["10b"]["packed"]),
+        ("flash_attention D112", "flash_attention",
+         "B2 S1024 span1024 off0 D112 H64/8", kimi)]
     kernels = []
-    for name, (route, source, replaces) in SOURCES.items():
-        r = report[name]
-        # each kernel's launches come from the run of its own path
-        run = {"flash_attention_segmented": serves["3b packed"],
-               "rwkv_chunk": rwkv["step"], "mamba_chunk": jamba["step"],
-               "masked_softmax": path}.get(name, serves["3 unpacked"])
+    for name, kernel, label, run in rows:
+        route, source, replaces = SOURCES[kernel]
+        r = report[kernel, label]
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=run["launches"][name], max_abs_err=r["max_abs_err"],
+            launches=run["launches"][kernel], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["label"], dtype=r["dtype"]))

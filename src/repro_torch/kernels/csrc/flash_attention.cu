@@ -29,12 +29,13 @@
 //
 // bf16 -> wgmma_flash_kernel, on the tensor cores. A CTA owns a (batch
 //   row, KV head, tile of 128 query rows): two consumer warpgroups of 64
-//   rows each and one producer warp. The rows are taken from the G * S
-//   rows of the KV head's G query heads, which lie contiguous in
+//   rows each (one, and 64 rows, in the segmented mode at D 160) and one
+//   producer warp. The rows are taken from the G * S rows of the KV
+//   head's G query heads, which lie contiguous in
 //   (B, H, S, D) q, so each K/V tile is read once for 128 rows of all G
 //   heads (a tile may straddle two heads: its row r sits at position
 //   q_offset + r % S). The producer warp moves Q once and then K/V tiles
-//   of 64 keys into a ring of stages (3, or 2 at D 128) by TMA, each stage
+//   of 64 keys into a ring of stages (3, or 2 above D 64) by TMA, each stage
 //   with a "full" mbarrier (the TMA's bytes) and an "empty" one (every
 //   consumer warp's release), so the warpgroups never wait for each other
 //   at a CTA barrier and the loads run ahead of the products without
@@ -62,11 +63,27 @@
 //   may thus average fewer keys than the plain version's; it stays finite
 //   and nothing reads it.
 //
+//   Head dims: 16, 32 and 64 take one box of D columns a row tile; above
+//   64 a tile is boxes of 64 columns (128B swizzle). A D that is not a
+//   multiple of 64 (96: gpt2-2.5b, 112: kimi-k2, 160: pixtral-12b) runs as
+//   the next multiple, DP (128, 128, 192), with the TMA's out-of-bounds
+//   fill supplying zero columns: each box still moves its full 64 x 64 x 2
+//   bytes into shared memory, and the "full" barrier expects exactly those
+//   bytes (as it already did for the key rows past Skv). S = Q K^T stops at
+//   D / 16 k-steps, so only P V computes the zero columns (96: 33 %, 112:
+//   14 %, 160: 20 % more of its products), and only D columns are stored.
+//   This was chosen over boxes of 32 or 16 columns (no wasted products, but
+//   16-wide P V products at 112 and three swizzles to keep apart): D 96 and
+//   112 run D 128's tested instance shape, D 160 a 192-wide one. Each
+//   consumer thread holds DP / 2 f32 accumulators (96 at 160), so every D
+//   above 64 takes 2 stages and 1 CTA an SM, as D 128 does.
+//
 // f32 -> flash_attention_kernel, on the CUDA cores in f32, kept as it was: TF32
 //   products would miss the 1e-4 to which the float32 paths are held. One
 //   block per (query tile of 32 rows, head, batch row); four threads share
 //   a query row, each owning every fourth dimension of q and of the
-//   accumulator; 32-key tiles of K and V staged in shared memory as f32.
+//   accumulator (any D that is a multiple of 4); 32-key tiles of K and V
+//   staged in shared memory as f32.
 #include <cuda.h>
 
 #include <climits>
@@ -205,10 +222,17 @@ constexpr float kLog2e = 1.4426950408889634f;
 // rows), a ring of 3 K/V stages and 2 CTAs an SM below D 128; at D 128 a
 // third stage or a second CTA an SM makes ptxas spill, so 2 stages and 1
 // CTA: the fastest shape without spills among those timed (PERF.md's
-// findings on this kernel).
-constexpr int kNWG = 2;
-template <int D> constexpr int kStages = D == 128 ? 2 : 3;
-template <int D> constexpr int kMinBlocks = D == 128 ? 1 : 2;
+// findings on this kernel). Every D above 64 computes at its padded width
+// kPadD (a multiple of 64) and takes D 128's shape, but for the segmented
+// mode at DP 192 (D 160): 9 warps put 3 on one of the SM's four register-
+// file quarters, which caps ptxas at 168 registers a thread, and the 96
+// accumulators beside the key ids spill there; one consumer warpgroup (5
+// warps) lifts the cap to 255. Its K/V tiles are then read once for 64
+// rows, not 128.
+template <int D> constexpr int kPadD = D <= 64 ? D : (D + 63) / 64 * 64;
+template <int D, bool SEG> constexpr int kNWG = SEG && kPadD<D> > 128 ? 1 : 2;
+template <int D> constexpr int kStages = kPadD<D> >= 128 ? 2 : 3;
+template <int D> constexpr int kMinBlocks = kPadD<D> >= 128 ? 1 : 2;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -355,20 +379,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // The tensor maps of q, k and v: 3-d (D columns, rows, heads), boxes of
 // min(D, 64) columns x 64 rows, swizzled by their row of min(D, 64) * 2
-// bytes. A (64 x D) tile lands as D / 64 such boxes side by side (one for
-// D <= 64), each row r's 16-byte chunk c at r * row + ((c ^ r % 8) % (row
-// / 16)) * 16 -- the layout the wgmma descriptors name.
+// bytes. A (64 x D) tile lands as DP / 64 such boxes side by side (one for
+// D <= 64; the columns past D zero-filled), each row r's 16-byte chunk c
+// at r * row + ((c ^ r % 8) % (row / 16)) * 16 -- the layout the wgmma
+// descriptors name.
 struct FlashMaps {
   CUtensorMap q, k, v;
 };
 
 // Shared memory, from a 1024-byte-aligned base: NWG Q tiles, STAGES K
-// tiles, STAGES V tiles (64 x D bf16 each), then (SEG) STAGES x 64 key
+// tiles, STAGES V tiles (64 x DP bf16 each), then (SEG) STAGES x 64 key
 // (position, segment id) pairs; then the mbarriers (full and empty a
 // stage, and Q's) and (SEG) the ranges: of each consumer warp's 32 rows
 // (rows 0-63 of a warpgroup lie in its warps 0 and 1) and of each KV tile.
 template <int D, bool SEG>
-__global__ void __launch_bounds__(128 * kNWG + 32, kMinBlocks<D>)
+__global__ void __launch_bounds__(128 * kNWG<D, SEG> + 32, kMinBlocks<D>)
 wgmma_flash_kernel(const __grid_constant__ FlashMaps maps,
                    __nv_bfloat16* __restrict__ o,
                    const int* __restrict__ q_pos_ids,
@@ -376,15 +401,15 @@ wgmma_flash_kernel(const __grid_constant__ FlashMaps maps,
                    const int* __restrict__ kv_pos_ids,
                    const int* __restrict__ kv_seg_ids, int H, int KH, int S,
                    int Skv, int q_offset, int causal, float scale) {
-  constexpr int NWG = kNWG, STAGES = kStages<D>;
+  constexpr int NWG = kNWG<D, SEG>, STAGES = kStages<D>, DP = kPadD<D>;
   constexpr int kConsumers = 128 * NWG, kCtaThreads = kConsumers + 32;
   constexpr int kRows = kWgRows * NWG;
-  constexpr int kTileBytes = kWgRows * D * 2;     // 64 rows of D bf16
+  constexpr int kTileBytes = kWgRows * DP * 2;    // 64 rows of DP bf16
   constexpr int kBoxCols = D < 64 ? D : 64;
   constexpr int kRowBytes = kBoxCols * 2;         // a swizzled row
   constexpr int kBoxBytes = kWgRows * kRowBytes;  // one box: 64 rows
   constexpr int kOutN = kBoxCols;                 // N of one P V product
-  constexpr int kOutParts = D / kOutN;            // P V products a k-step
+  constexpr int kOutParts = DP / kOutN;           // P V products a k-step
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -575,9 +600,9 @@ wgmma_flash_kernel(const __grid_constant__ FlashMaps maps,
     }
   }
 
-  float acc[D / 2];    // O: kOutParts products of kOutN / 2 a thread
+  float acc[DP / 2];   // O: kOutParts products of kOutN / 2 a thread
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m[2] = {RT_NEG_INF, RT_NEG_INF}, l[2] = {0.f, 0.f};
   const float sl2 = scale * kLog2e;
   const uint32_t q_addr = smem_addr(q_s + wg * kTileBytes);
@@ -594,7 +619,8 @@ wgmma_flash_kernel(const __grid_constant__ FlashMaps maps,
       const uint32_t k_addr = smem_addr(k_s + s * kTileBytes);
       const uint32_t v_addr = smem_addr(v_s + s * kTileBytes);
       // S = Q K^T: K-major both; a k-step of 16 columns is 32 bytes along
-      // the swizzled row, the next box after 64 columns
+      // the swizzled row, the next box after 64 columns; the zero columns
+      // past D add nothing and are skipped
       float sc[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = 0.f;
@@ -660,7 +686,7 @@ wgmma_flash_kernel(const __grid_constant__ FlashMaps maps,
         l[h] += sc[i];
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i / 2) % 2];
 
       // P (bf16, in place) V: V MN-major (D contiguous); a k-step of 16
       // keys is two 8-row groups, 16 swizzled rows; a part is one box
@@ -681,7 +707,7 @@ wgmma_flash_kernel(const __grid_constant__ FlashMaps maps,
                                     kBoxBytes, 8 * kRowBytes, kRowBytes));
       wgmma_commit();
       wgmma_wait_all();
-      fence_regs<D / 2>(acc);
+      fence_regs<DP / 2>(acc);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty_bar + 8 * s);   // this warp is done
@@ -702,6 +728,7 @@ wgmma_flash_kernel(const __grid_constant__ FlashMaps maps,
     for (int part = 0; part < kOutParts; ++part)
 #pragma unroll
       for (int jn = 0; jn < kOutN / 8; ++jn) {
+        if (part * kOutN + 8 * jn >= D) continue;     // a zero column
         const int i = part * (kOutN / 2) + 4 * jn + 2 * h;
         const int col = part * kOutN + 8 * jn + 2 * (lane % 4);
         *reinterpret_cast<__nv_bfloat162*>(op + col) =
@@ -710,9 +737,10 @@ wgmma_flash_kernel(const __grid_constant__ FlashMaps maps,
   }
 }
 
-// dynamic shared memory of the bf16 kernel (with the 1 KB of alignment)
-size_t wgmma_smem_bytes(int D, int NWG, int STAGES, bool seg, int Skv) {
-  const size_t tiles = (size_t)(NWG + 2 * STAGES) * kWgRows * D * 2;
+// dynamic shared memory of the bf16 kernel (with the 1 KB of alignment), at
+// the padded head dim DP
+size_t wgmma_smem_bytes(int DP, int NWG, int STAGES, bool seg, int Skv) {
+  const size_t tiles = (size_t)(NWG + 2 * STAGES) * kWgRows * DP * 2;
   const size_t n_kv_tiles = ((size_t)Skv + kKeys - 1) / kKeys;
   const size_t ids = seg ? STAGES * kKeys * 8 : 0;
   const size_t bars = 8 * (2 * STAGES + 2);
@@ -722,7 +750,7 @@ size_t wgmma_smem_bytes(int D, int NWG, int STAGES, bool seg, int Skv) {
 
 // (D, rows, heads) bf16 at `base`: rows D elements apart, heads
 // head_stride elements apart; boxes of min(D, 64) x 64 x 1, rows past
-// `rows` read as zeros
+// `rows` and columns past D read as zeros
 bool encode_map(CUtensorMap* map, const void* base, int D, long long rows,
                 long long heads, long long head_stride) {
   const RtEncodeTiled encode = rt_encode_tiled();
@@ -751,7 +779,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          int S, int Skv, long long kv_head_stride,
                          int q_offset, int causal, float scale,
                          cudaStream_t stream) {
-  constexpr int NWG = kNWG, STAGES = kStages<D>;
+  constexpr int NWG = kNWG<D, SEG>, STAGES = kStages<D>;
   // TMA reads from 16-byte-aligned addresses at 16-byte-multiple strides
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) |
                           reinterpret_cast<uintptr_t>(k) |
@@ -768,7 +796,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
       !encode_map(&maps.k, k, D, Skv, (long long)B * KH, kv_head_stride) ||
       !encode_map(&maps.v, v, D, Skv, (long long)B * KH, kv_head_stride))
     return cudaErrorInvalidValue;
-  const size_t smem = wgmma_smem_bytes(D, NWG, STAGES, SEG, Skv);
+  const size_t smem = wgmma_smem_bytes(kPadD<D>, NWG, STAGES, SEG, Skv);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   auto kernel = wgmma_flash_kernel<D, SEG>;
   // set on every launch above 48 KB: the attribute belongs to the current
@@ -819,7 +847,10 @@ cudaError_t launch_route(int dtype, const void* q, const void* k,
     RT_FLASH_CASE(16)
     RT_FLASH_CASE(32)
     RT_FLASH_CASE(64)
+    RT_FLASH_CASE(96)
+    RT_FLASH_CASE(112)
     RT_FLASH_CASE(128)
+    RT_FLASH_CASE(160)
     default:
       return cudaErrorInvalidValue;
   }
@@ -831,11 +862,11 @@ cudaError_t launch_route(int dtype, const void* q, const void* k,
 // q, o: (B, H, S, D) contiguous; k, v: (B, KH, Skv, D) with rows of D
 // contiguous elements and kv_head_stride elements between heads (a prefix
 // slice of a longer cache row is taken without a copy). D in {16, 32, 64,
-// 128}; H a multiple of KH; dtype RT_BF16 (tensor cores; pointers and
-// kv_head_stride 16-byte aligned) or RT_F32 (CUDA cores). With q_pos null
-// the static mode runs (q_offset, causal); otherwise the segmented mode,
-// with q_pos/q_seg contiguous (B, S) and kv_pos/kv_seg contiguous (B, Skv)
-// int32 arrays (q_offset and causal are then ignored).
+// 96, 112, 128, 160}; H a multiple of KH; dtype RT_BF16 (tensor cores;
+// pointers and kv_head_stride 16-byte aligned) or RT_F32 (CUDA cores).
+// With q_pos null the static mode runs (q_offset, causal); otherwise the
+// segmented mode, with q_pos/q_seg contiguous (B, S) and kv_pos/kv_seg
+// contiguous (B, Skv) int32 arrays (q_offset and causal are then ignored).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const int* q_pos, const int* q_seg,

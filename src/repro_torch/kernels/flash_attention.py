@@ -29,7 +29,7 @@ from repro_torch.kernels._checks import dtype_code, on_cuda, stream_of
 from repro_torch.kernels.ref import (  # noqa: F401  (plain versions)
     flash_attention_ref, segment_attention_ref)
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 160)
 Q_TILE = 64      # query rows a warpgroup of the bf16 route (wgmma's M)
 KV_TILE = 64     # keys a KV tile of the bf16 route
 

@@ -4,14 +4,22 @@
   python -m repro_torch.launch.serve --smoke --device cpu [--pack]
   python -m repro_torch.launch.serve --policy interleaved --pack --fuse \
       --superstep 4 [--prefill-jobs 2] [--decode-floor 2]
+  python -m repro_torch.launch.serve --arch gpt2-xl --policy pim_aware
+  python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --smoke --device cpu
   python -m repro_torch.launch.serve --arch rwkv6-7b [--smoke --device cpu]
   python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke --device cpu
 
-An ``ssm`` or ``hybrid`` architecture (rwkv6-7b, jamba-v0.1-52b) prefills
-sequentially whatever ``--prefill-mode`` says, as the engine does. The
-launcher serves an architecture at its full depth, as the reference's
-does: jamba-v0.1-52b's 103 GB of bf16 weights do not fit one 80 GB card
-(``chip_smoke.py`` serves it at depth 8).
+``--arch`` takes any name of ``repro_torch.configs.ARCHS``: the ``dense``
+ones (llama3.2-1b, olmo-1b, granite-20b, phi3-medium-14b, and the paper's
+gpt2-m/l/xl/2.5b, bert-b/l/1.3b/3.9b and gpt-6.7b/13b/30b), the ``moe``
+ones (qwen3-moe-30b-a3b, kimi-k2-1t-a32b), rwkv6-7b and jamba-v0.1-52b.
+An ``ssm`` or ``hybrid`` architecture prefills sequentially whatever
+``--prefill-mode`` says, as the engine does; a ``moe`` one prefills in
+chunks through its MoE layers. The launcher serves an architecture at its
+full depth, as the reference's does: jamba-v0.1-52b's 103 GB and
+kimi-k2-1t-a32b's 2 TB of bf16 weights do not fit one 80 GB card
+(``chip_smoke.py`` serves jamba at depth 8 and runs kimi-k2's prefill step
+at depth 1).
 
 Runs on the card unless ``--device cpu`` is given (then through the
 kernels' plain PyTorch versions). Weights are random, from ``--seed``.

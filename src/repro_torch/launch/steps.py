@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/launch/steps.py``: ``"prefill"`` is the
 full-sequence forward with last-position logits (the serving prefill of a
-whole prompt batch from a zero state). ``"train"`` is not ported yet
-(ROADMAP queue 1 item 13); the engine runs its decode step itself
+whole prompt batch from a zero state), for every family the port serves
+(MoE FFNs route the whole (B, S) batch as one group). ``"train"`` is not
+ported yet (ROADMAP queue 1 item 6); the engine runs its decode step itself
 (``serve/engine.py``). The step runs on the card unless ``device="cpu"``
 is given; it moves the tokens there, and the params must already be
 there.
@@ -32,7 +33,7 @@ def make_prefill_step_fn(cfg: ModelConfig, device=None):
 def step_fn_for(cfg: ModelConfig, kind: str, device=None):
     if kind == "train":
         raise NotImplementedError("not ported yet: training (ROADMAP queue "
-                                  "1 item 13)")
+                                  "1 item 6)")
     if kind != "prefill":
         raise ValueError(f"unknown step kind {kind!r}: the port has "
                          f"\"prefill\"")

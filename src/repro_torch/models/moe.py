@@ -12,8 +12,12 @@ parallel ``shard_map`` path) waits for sharding.
 
 Nothing here reads a device value on the host: ``counts`` comes from
 ``scatter_add_``, the (E, C + 1) table from an index ``scatter_`` and the
-combine from ``index_add_`` into Tg + 1 rows whose sentinel row is
-dropped, so the decode step keeps its one host sync. ``lax.top_k`` and
+combine from a gather of each token's k slots, so the decode step keeps
+its one host sync. The combine sums a token's k expert outputs in the
+order of its top-k, where the reference scatter-adds them (``.at[].add``):
+a CUDA scatter-add sums them by atomics in an order that varies from run
+to run, and with k 8 bf16 sums in another order round differently, so a
+serve would not repeat its own tokens. ``lax.top_k`` and
 ``jnp.argsort(stable=True)`` break ties by the lower index, and so do the
 stable sorts here.
 """
@@ -101,7 +105,7 @@ def _dispatch_tables(expert_idx: torch.Tensor, k: int, E: int, C: int):
 def apply_moe_ep(cfg: ModelConfig, p: dict, x: torch.Tensor, mesh):
     raise NotImplementedError(
         "not ported yet: the expert-parallel MoE (shard_map) waits for "
-        "sharding, ROADMAP queue 1 item 14")
+        "sharding, ROADMAP queue 1 item 7")
 
 
 def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -133,7 +137,13 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor,
     h = activation(cfg, mm(inp, p["wg"])) * h
     out = mm(h, p["wo"])                                    # (E, C, d)
     out = out * w_slot[..., None].to(out.dtype)
-    # scatter-add expert slots back to tokens; the sentinel row Tg drops
-    y = out.new_zeros((Tg + 1, d)).index_add_(
-        0, token_for_slot.reshape(-1), out.reshape(-1, d))[:Tg]
+    # each token's k slots (row E * C, zeros, for an assignment dropped by
+    # the capacity), summed in top-k order; empty slots write the sentinel
+    # entry Tg * k, which is cut off
+    slot_of = torch.full((Tg * k + 1,), E * C, dtype=torch.long,
+                         device=x.device)
+    slot_of.scatter_(0, weight_sel.reshape(-1),
+                     torch.arange(E * C, device=x.device))
+    out_pad = torch.cat([out.reshape(E * C, d), out.new_zeros((1, d))])
+    y = out_pad[slot_of[:Tg * k].reshape(Tg, k)].sum(dim=1)
     return y.reshape(B, S, d), aux

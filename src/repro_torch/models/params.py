@@ -73,8 +73,10 @@ def _materialize(pd: ParamDef, gen: torch.Generator,
         return (torch.log(u) * pd.scale).to(dt)
     std = pd.scale * 0.02 if pd.init == "small_normal" \
         else pd.scale * pd.fan_in() ** -0.5
-    return (torch.randn(pd.shape, generator=gen, device=device,
-                        dtype=torch.float32) * std).to(dt)
+    # scaled in place: one float32 draw at a time (an expert leaf of
+    # kimi-k2's is 22.5 GB in float32)
+    return torch.randn(pd.shape, generator=gen, device=device,
+                       dtype=torch.float32).mul_(std).to(dt)
 
 
 def _map_tree(fn, tree):

@@ -3,16 +3,16 @@ step, the full-sequence forward, batched chunked prefill, the one-call
 decode + sample + terminate step, decode supersteps and fused overlapped
 steps.
 
-Counterpart of ``repro/models/transformer.py`` for the ``dense``, ``ssm``
-(RWKV6) and ``hybrid`` (Jamba: Mamba and attention mixers, dense and MoE
-FFNs) families; ``vlm``, ``encdec`` and ``moe`` raise
-``NotImplementedError``. The trees keep the reference's superblock nesting:
-parameters of position j of the superblock stacked with a leading axis of
-n_super = n_layers / period under ``blocks/pos{j}`` (dense and ssm stacks
-have period 1, so ``pos0``; jamba's is 8, its ``.reduced()`` 2). The cache
-of an attention position is ``{k, v}`` of shape (n_super, B, KH, L, hd),
-plus ``{k_scale, v_scale}`` (n_super, B, KH, L) for the int8 cache; of an
-RWKV position ``wkv`` (n_super, B, H, hd, hd) f32 and ``{shift_tm,
+Counterpart of ``repro/models/transformer.py`` for the ``dense``, ``moe``
+(attention mixers, MoE FFNs), ``ssm`` (RWKV6) and ``hybrid`` (Jamba: Mamba
+and attention mixers, dense and MoE FFNs) families; ``vlm`` and ``encdec``
+raise ``NotImplementedError``. The trees keep the reference's superblock
+nesting: parameters of position j of the superblock stacked with a leading
+axis of n_super = n_layers / period under ``blocks/pos{j}`` (dense and ssm
+stacks have period 1, so ``pos0``; jamba's is 8, its ``.reduced()`` 2). The
+cache of an attention position is ``{k, v}`` of shape (n_super, B, KH, L,
+hd), plus ``{k_scale, v_scale}`` (n_super, B, KH, L) for the int8 cache; of
+an RWKV position ``wkv`` (n_super, B, H, hd, hd) f32 and ``{shift_tm,
 shift_cm}`` (n_super, B, d) in ``cfg.dtype``; of a Mamba position ``conv``
 (n_super, B, cw - 1, d_inner) in ``cfg.dtype`` and ``ssm`` (n_super, B,
 d_inner, d_state) f32. The reference's ``lax.scan`` over superblocks is a
@@ -32,16 +32,14 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.params import ParamDef
 
-_UNPORTED = {"moe": "the moe family's serving (its batched and packed "
-                    "prefill through MoE), ROADMAP queue 1 item 11",
-             "encdec": "ROADMAP queue 1 item 12",
-             "vlm": "ROADMAP queue 1 item 12"}
+_UNPORTED = {"encdec": "ROADMAP queue 1 item 5",
+             "vlm": "ROADMAP queue 1 item 5"}
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"the port serves the dense, ssm and hybrid families; "
+            f"the port serves the dense, moe, ssm and hybrid families; "
             f"{cfg.family!r} stacks are "
             f"{_UNPORTED.get(cfg.family, 'not ported')}")
 
@@ -375,21 +373,23 @@ def _prefill_stack(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                    cache: dict, attend) -> dict:
     """Run a prompt chunk's tokens through the full stack; each layer's
     attention is ``attend(p_attn, h, layer_cache)``, which writes the
-    chunk's K/V into the layer's cache. Emits no logits. Returns the
-    cache."""
-    if not supports_batched_prefill(cfg) or cfg.is_moe:
+    chunk's K/V into the layer's cache. A MoE FFN routes the whole (B, C, d)
+    chunk as one group, idle rows included, as the reference's
+    ``_apply_block_prefill`` does. Emits no logits. Returns the cache."""
+    if not supports_batched_prefill(cfg):
         raise NotImplementedError(
-            "batched prefill covers attention mixers with dense FFNs only "
-            "(through MoE: ROADMAP queue 1 item 11)")
+            "batched prefill covers attention mixers only")
     x = L.embed_tokens(params["embed"], tokens)
-    blocks, kv = params["blocks"]["pos0"], cache["pos0"]
-    for i in range(cfg.num_layers):
-        p = _layer(blocks, i)
-        h = L.apply_norm(cfg, p["norm1"], x)
-        y, _ = attend(p["attn"], h, _layer(kv, i))
-        x = x + y
-        h = L.apply_norm(cfg, p["norm2"], x)
-        x = x + L.apply_mlp(cfg, p["ffn"], h)
+    kinds = _position_kinds(cfg)
+    n_super = cfg.num_layers // len(kinds)
+    for i in range(n_super):
+        for j, (_mixer, ffn) in enumerate(kinds):
+            p = _layer(params["blocks"][f"pos{j}"], i)
+            h = L.apply_norm(cfg, p["norm1"], x)
+            y, _ = attend(p["attn"], h, _layer(cache[f"pos{j}"], i))
+            x = x + y
+            h = L.apply_norm(cfg, p["norm2"], x)
+            x = x + _apply_ffn(cfg, ffn, p["ffn"], h, gemv=False)[0]
     return cache
 
 

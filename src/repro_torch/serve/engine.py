@@ -52,8 +52,10 @@ Counters: one call of ``prefill_chunk``, ``decode_and_sample``,
 one per decode, superstep or fused dispatch. A ``repro.trace.TraceRecorder``
 (or anything with its hooks) can be attached; the port never imports one.
 
-The families other than ``dense``, ``ssm`` and ``hybrid`` raise
-``NotImplementedError`` at construction, KV-snapshot restores in
+A ``moe`` stack (attention mixers, MoE FFNs) prefills in chunks like a
+dense one; each chunk's MoE layers route its whole (B, C) tokens as one
+group, idle rows included, as in the reference. ``encdec`` and ``vlm``
+raise ``NotImplementedError`` at construction, KV-snapshot restores in
 ``add_request``.
 """
 from __future__ import annotations
@@ -226,7 +228,7 @@ class ServeEngine:
                              f"max_len-1 ({self.scfg.max_len - 1})")
         if restore is not None:
             raise NotImplementedError("not ported yet: KV-snapshot restore "
-                                      "(ROADMAP queue 1, item 9)")
+                                      "(ROADMAP queue 1, item 2)")
         if 0 < self.scfg.queue_cap <= len(self.queue):
             self.admission_rejects += 1
             raise AdmissionRejected(

@@ -358,12 +358,40 @@ def test_wave_mates_change_each_others_tokens(params):
 
 
 def test_batched_prefill_through_moe_raises():
-    """An all-attention stack with MoE FFNs (the ``moe`` family's shape)
-    would take the batched prefill, which runs dense FFNs only: it raises
-    rather than misread the expert weights."""
-    _, cfg = _cfgs(attn_period=0)
-    assert T.supports_batched_prefill(cfg) and cfg.is_moe
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.prefill_chunk(cfg, {"embed": {}, "blocks": {}},
+    """Batched prefill through MoE FFNs raises where the stack has other
+    mixers than attention: jamba's Mamba state is threaded token by token,
+    so its engine prefills sequentially. An all-attention stack with MoE
+    FFNs (the ``moe`` family's shape) prefills in chunks, its MoE layers
+    routing each chunk as one group, as the reference does: here at
+    jamba's widths with every layer attention, dense and MoE FFNs
+    alternating (``tests/test_torch_configs.py`` holds the ``moe``
+    family's engines against the reference)."""
+    _, jamba = _cfgs()
+    assert not T.supports_batched_prefill(jamba) and jamba.is_moe
+    with pytest.raises(NotImplementedError, match="attention mixers"):
+        T.prefill_chunk(jamba, {"embed": {}, "blocks": {}},
                         torch.zeros((1, 4), dtype=torch.long), {},
                         torch.ones((1, 4), dtype=torch.bool), offset=0)
+    ref, cfg = _cfgs(attn_period=0)
+    assert T.supports_batched_prefill(cfg) and cfg.is_moe
+    rng = np.random.default_rng(3)
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(
+        RT.param_defs(ref), is_leaf=lambda x: hasattr(x, "fan_in"))
+    p = jax.tree_util.tree_unflatten(treedef, [
+        jnp.asarray(_np_leaf(path[-1].key, pd, rng)) for path, pd in leaves])
+    tp = from_jax_tree(jax.tree.map(np.asarray, p))
+    tokens = rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    valid = np.array([[True] * 8, [True] * 5 + [False] * 3])
+    want = RT.prefill_chunk(
+        ref, p, jnp.asarray(tokens),
+        JP.init_params(RT.cache_defs(ref, 2, 16), jax.random.PRNGKey(0)),
+        jnp.asarray(valid), offset=0)
+    got = T.prefill_chunk(
+        cfg, tp, torch.from_numpy(tokens).long(),
+        {k: {n: torch.zeros(v.shape) for n, v in c.items()}
+         for k, c in T.cache_defs(cfg, 2, 16).items()},
+        torch.from_numpy(valid), offset=0)
+    for pos in want:
+        for leaf in want[pos]:
+            np.testing.assert_allclose(got[pos][leaf].numpy(),
+                                       np.asarray(want[pos][leaf]), **TOL)

@@ -78,7 +78,7 @@ def test_engine_without_a_device_refuses_the_cpu():
 @pytest.mark.parametrize("kind,error,match", [
     pytest.param("prefill", RuntimeError, "no CUDA device", id="prefill"),
     pytest.param("decode", ValueError, "unknown step kind", id="decode"),
-    pytest.param("train", NotImplementedError, "item 13", id="train"),
+    pytest.param("train", NotImplementedError, "item 6", id="train"),
 ])
 def test_step_functions_without_a_device_refuse_the_cpu(kind, error, match):
     """The prefill step refuses the CPU unless asked for it; the kinds the

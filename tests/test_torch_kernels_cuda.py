@@ -159,6 +159,32 @@ def test_flash_kernel_tile_edges(card, B, H, KH, S, L, offset, D, dtype):
     _close_tight(got, want, dtype)
 
 
+@pytest.mark.parametrize("D", [96, 112, 160])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_at_head_dims_off_64(card, D, dtype):
+    """The head dims of the reference's configs that are no multiple of 64
+    (gpt2-2.5b's 96, kimi-k2's 112, pixtral-12b's 160), in both modes,
+    against the plain version: the bf16 route computes them at the next
+    multiple of 64 over zero-filled columns and stores D columns a row."""
+    B, H, KH, S, L, offset = 2, 8, 2, 77, 300, 130
+    q = _rand((B, H, S, D), 4, dtype)
+    kc, vc = _rand((B, KH, L, D), 5, dtype), _rand((B, KH, L, D), 6, dtype)
+    k, v = kc[:, :, :offset + S], vc[:, :, :offset + S]
+    got = flash_attention(q, k, v, causal=True, q_offset=offset)
+    want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=offset)
+    _close_tight(got, want, dtype)
+    info = _segment_layout(3, 37, (0, 50, 13), 7)
+    Skv = info[2].shape[1]
+    q = _rand((3, H, 37, D), 1, dtype)
+    k, v = _rand((3, KH, Skv, D), 2, dtype), _rand((3, KH, Skv, D), 3, dtype)
+    got = flash_attention_segmented(q, k, v, info)
+    want = ref.segment_attention_ref(q, k, v, *info)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    rows = (info[1] >= 0)[:, None, :, None].expand_as(got)
+    _close_tight(got[rows], want[rows], dtype)
+
+
 def _lanes_layout(C, lanes, prefix_span):
     """Packed lanes from explicit segment lengths: ``lanes`` holds, per
     lane, (prefix_len, [segment lengths]) -- a lane with a prefix starts
@@ -609,6 +635,25 @@ def test_dense_forward_full_on_the_card_matches_the_cpu(card):
         if dev == "cuda":
             assert ops.launch_counts()["flash_attention"] == cfg.num_layers
     torch.testing.assert_close(out[0], out[1], rtol=1e-4, atol=1e-4)
+
+
+def test_moe_on_the_card_repeats_its_bits(card):
+    """qwen3-moe's MoE FFN (128 experts, top-8) in bf16 on a prefill
+    chunk's rows: two calls give the same bits (the combine sums each
+    token's 8 expert outputs in a fixed order, where a scatter-add's
+    atomics would vary it). Its values are held to the CPU in float32 by
+    ``chip_smoke.py`` phase 11b."""
+    from repro_torch.models import moe as M
+    cfg = get_arch("qwen3-moe-30b-a3b")
+    p = init_params(M.moe_defs(cfg),
+                    torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    x = _rand((4, 64, cfg.d_model), 1, torch.bfloat16)
+    y1, aux1 = M.apply_moe(cfg, p, x)
+    y2, aux2 = M.apply_moe(cfg, p, x)
+    torch.cuda.synchronize()
+    assert y1.shape == x.shape and bool(torch.isfinite(y1).all())
+    assert torch.equal(y1, y2) and torch.equal(aux1, aux2)
 
 
 def test_jamba_forward_full_and_engine_on_the_card_match_the_cpu(card):

@@ -107,6 +107,68 @@ def test_flash_plain_full(B, H, KH, S, D, causal, dtype):
                                **_tol(dtype))
 
 
+def _two_lanes(C, span):
+    """Packed segment ids of two lanes of C queries over [span ; chunk]
+    keys: lane 0 two whole prompts (20 and C - 20 tokens, ids 1 and 2),
+    lane 1 a prompt's continuation after a ``span``-token prefix (id 0)
+    and padding (query id -2, key id -1)."""
+    q_pos = np.zeros((2, C), np.int32)
+    q_seg = np.full((2, C), -2, np.int32)
+    q_pos[0] = np.r_[np.arange(20), np.arange(C - 20)]
+    q_seg[0] = np.r_[np.full(20, 1), np.full(C - 20, 2)]
+    n = C - 8
+    q_pos[1, :n], q_seg[1, :n] = span + np.arange(n), 0
+    pref_pos = np.tile(np.arange(span, dtype=np.int32), (2, 1))
+    pref_seg = np.array([[-1] * span, [0] * span], np.int32)
+    kv_pos = np.concatenate([pref_pos, q_pos], axis=1)
+    kv_seg = np.concatenate([pref_seg, np.where(q_seg < 0, -1, q_seg)],
+                            axis=1).astype(np.int32)
+    return q_pos, q_seg, kv_pos, kv_seg
+
+
+@pytest.mark.parametrize("D", [96, 112, 160])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_flash_plain_at_the_configs_head_dims(D, dtype):
+    """The head dims of gpt2-2.5b (96), kimi-k2 (112) and pixtral-12b
+    (160): the plain static mode (a chunk at an offset) and segmented mode
+    against the Pallas kernel in interpret mode, on its valid rows."""
+    B, H, KH, S, Skv, off = 1, 4, 2, 32, 64, 32
+    q = _rand((B, H, S, D), 1, dtype)
+    k, v = _rand((B, KH, Skv, D), 2, dtype), _rand((B, KH, Skv, D), 3, dtype)
+    got = ref.flash_attention_ref(_t(q), _t(k), _t(v), causal=True,
+                                  q_offset=off)
+    want = pallas_flash(q, k, v, causal=True, block_q=16, block_kv=32,
+                        q_offset=off, interpret=True)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **_tol(dtype))
+    info = _two_lanes(S, 32)
+    q = _rand((2, H, S, D), 4, dtype)
+    k, v = _rand((2, KH, Skv, D), 5, dtype), _rand((2, KH, Skv, D), 6, dtype)
+    got = ref.segment_attention_ref(_t(q), _t(k), _t(v),
+                                    *[torch.from_numpy(a) for a in info])
+    want = pallas_flash(q, k, v, block_q=16, block_kv=32,
+                        segment_info=[jnp.asarray(a) for a in info],
+                        interpret=True)
+    rows = np.broadcast_to((info[1] >= 0)[:, None, :, None], got.shape)
+    np.testing.assert_allclose(_np(got)[rows],
+                               np.asarray(want, np.float32)[rows],
+                               **_tol(dtype))
+
+
+def test_every_configs_head_dim_has_both_attention_kernels():
+    """Each head dim of the port's registry, and of the reference's
+    attention configs not ported yet (whisper-medium, pixtral-12b), is one
+    that the flash and decode attention kernels take."""
+    from repro.configs import ARCHS as JAX_ARCHS
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_attention, flash_attention
+    dims = {c.head_dim for c in ARCHS.values()} | {
+        c.head_dim for c in JAX_ARCHS.values() if c.family != "ssm"}
+    assert {96, 112, 160} <= dims
+    assert dims <= set(flash_attention.HEAD_DIMS)
+    assert dims <= set(decode_attention.HEAD_DIMS)
+
+
 @pytest.mark.parametrize("B,H,KH,S,D", [
     (2, 8, 2, 256, 64),
     (3, 4, 1, 512, 64),

@@ -140,6 +140,6 @@ def test_moe_defs_match_reference():
 
 def test_expert_parallel_moe_is_not_ported():
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         M.apply_moe(cfg, {}, torch.zeros((1, 2, cfg.d_model)),
                     mesh=object())

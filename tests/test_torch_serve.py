@@ -146,12 +146,15 @@ def test_temperature_sampling_is_deterministic(params):
 
 
 @pytest.mark.parametrize("change", [
-    dict(family="moe"), dict(family="encdec"), dict(family="vlm"),
-    dict(family="moe", num_experts=4, experts_per_token=2),
+    dict(family="encdec", encoder_layers=2, encoder_seq=16),
+    dict(family="encdec"), dict(family="vlm"),
+    dict(family="vlm", num_patches=4),
 ])
 def test_unported_model_configs_raise(params, change):
-    """The families the port does not serve yet; ``hybrid`` serves since
-    the Mamba and MoE slice (``tests/test_torch_hybrid.py``)."""
+    """The families the port does not serve yet, with and without their
+    own fields set; ``hybrid`` serves since the Mamba and MoE slice
+    (``tests/test_torch_hybrid.py``), ``moe`` since the configs slice
+    (``tests/test_torch_configs.py``)."""
     _, cfg = _cfgs(**change)
     _, tp = params
     with pytest.raises(NotImplementedError):

@@ -168,9 +168,9 @@ def test_temperature_sampling_is_seeded(params):
 
 
 def test_non_dense_families_raise():
-    """The families the port does not serve yet (all but dense, ssm and
-    hybrid) raise in every tree and entry point."""
-    for name in ("qwen3-moe-30b-a3b", "whisper-medium", "pixtral-12b"):
+    """The families the port does not serve yet (all but dense, moe, ssm
+    and hybrid) raise in every tree and entry point."""
+    for name in ("whisper-medium", "pixtral-12b"):
         cfg = dataclasses.replace(get_arch("llama3.2-1b"),
                                   family=jax_arch(name).family)
         with pytest.raises(NotImplementedError):
