@@ -129,7 +129,41 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
   11c. on a card emptied of every earlier phase's tensors, kimi-k2's
      prefill step (B 2, S 1024) at its published widths (d 7168, 64 / 8
      heads of 112, 384 experts) cut to 1 of 61 layers: flash at D 112
-     once, logits finite, its peak memory logged.
+     once, logits finite, its peak memory logged;
+  12. the chaos guard's fleet (``benchmarks/data/chaos_baseline.json``'s
+     serve, bursty workload, 3 replicas, ``least_loaded``, the plan read
+     from ``chaos_plan.json``) at full llama3.2-1b width and depth in
+     bf16: fault-free, under the plan, and under the plan with mirrored
+     KV snapshots every 4 ticks; then ``fleet_baseline.json``'s
+     two-replica fleet under each routing policy. The workloads end by
+     budget, so the tick schedule does not depend on the weights: the
+     chaos counts, the snapshot events, rows, restores, saved and paid
+     tokens and the fleet's requests, tokens and tick latencies must
+     equal the baselines', the snapshot bytes rows x 32,768; goodput 1.0,
+     saved + paid = the from-zero re-prefill; the kernels launch exactly
+     a decode round's and a packed chunk's count for the rounds and
+     chunks the nodes' traces record; one host sync per decode,
+     superstep or fused dispatch, and beside them one blocking transfer
+     per KV export and no other (CUDA's sync debug mode). Logged: ms per
+     fleet tick, bf16 token agreement of each chaos run with the
+     fault-free run;
+  12b. a fleet at phase 3's serving shape and knobs (``SERVING_FLEET``:
+     bursty prompts of 64-700 tokens, 16-32 new, 3 replicas, node 1
+     crashing at tick 18, after the second snapshot interval of 8):
+     fault-free, crashed from zero, crashed with mirrored snapshots; the
+     same launch and sync gates, goodput 1.0, a restore, saved + paid =
+     from zero. Logged: ms per fleet tick and per decode round of each
+     node, the KV exports' bytes, device ms and GB/s to the host, each
+     restore's device ms, each recovered request's ticks and device ms
+     to its first new token, p50/p99 TTFT/TPOT/queue wait in ticks
+     (``FleetMetrics``), peak memory;
+  12c. phase 12's fleet at full llama3.2-1b width, depth 2, float32:
+     the chaos and snapshot runs give the fault-free run's tokens for
+     every arrival, and the fault-free fleet's tokens, assignments,
+     dispatches and host syncs on the card equal the port's on the CPU.
+
+``--phases 12,12b,12c`` builds the kernels and runs only the named fleet
+phases, printing no result lines (a development run).
 
 The last two lines of standard output are the kernel table as one JSON
 object (a row a kernel at its main-path shape, then flash at D 96 in both
@@ -1830,7 +1864,483 @@ def kimi_step(torch) -> dict:
     return step
 
 
+# --------------------------------------------------------------------------- #
+# phases 12-12c: fleet serving, chaos failover and KV snapshots
+# --------------------------------------------------------------------------- #
+BENCH_DATA = os.path.join(ROOT, "benchmarks", "data")
+# the chaos guard's gated chaos counts and snapshot counts
+CHAOS_GUARDED = ("goodput", "completed", "offered", "recovered",
+                 "reprefill_tokens", "crash_inflight")
+SNAP_GUARDED = ("events", "rows", "restores", "saved_tokens", "paid_tokens")
+# phase 12b: a fleet at phase 3's serving shape and knobs, node 1 crashing
+# after the second snapshot interval (a ready slot's prefix is restored)
+SERVING_FLEET = dict(
+    serve=dict(max_slots=8, max_len=1024, prefill_chunk=128,
+               policy="interleaved", pack=True, fuse=True, superstep=4),
+    workload=dict(rate=1.0, horizon=24, burst=6, idle=6, prompt_len=(64, 700),
+                  max_new=(16, 32), seed=3),
+    replicas=3, routing="least_loaded", crash="node_crash,node=1,step=18",
+    snapshot=dict(snapshot_interval=8, snapshot_mirror=True))
+
+
+def bench_json(name: str) -> dict:
+    with open(os.path.join(BENCH_DATA, name)) as f:
+        return json.load(f)
+
+
+def fleet_inputs(serve: dict, wl: dict, vocab: int):
+    """A ``ServeConfig`` and the bursty arrivals of a workload as the
+    baselines write them (lists for tuples), prompts drawn below
+    ``vocab``."""
+    from repro_torch.serve import ServeConfig
+    from repro_torch.trace import bursty_arrivals
+
+    def tup(d):
+        return {k: tuple(v) if isinstance(v, list) else v
+                for k, v in d.items()}
+    wl = tup(wl)
+    return ServeConfig(**tup(serve)), bursty_arrivals(
+        wl["rate"], wl["horizon"], vocab=vocab, burst=wl["burst"],
+        idle=wl["idle"], prompt_len=wl["prompt_len"],
+        max_new=wl["max_new"], seed=wl["seed"])
+
+
+def trace_work(trace):
+    """Decode rounds run on the card (a superstep's k, dead rounds
+    included; a fused step's one) and prefill chunks (a fused step's one)
+    of one node's trace."""
+    decodes = trace.of_type("decode")
+    supersteps = {e["superstep_id"]: e["superstep"] for e in decodes
+                  if e["superstep"] > 1}
+    rounds = sum(e["superstep"] == 1 for e in decodes) \
+        + sum(supersteps.values())
+    return rounds, len(trace.of_type("prefill"))
+
+
+@contextlib.contextmanager
+def fleet_clocks(torch):
+    """Within it, every ``ServeEngine.step``, KV export and KV import is
+    bracketed by CUDA events (no host sync), with the step's kind and
+    decode rounds; yields the records, keyed by ``id(engine)``."""
+    from repro_torch.serve.engine import ServeEngine
+
+    rec = {"steps": {}, "exports": [], "imports": []}
+    orig = {n: getattr(ServeEngine, n) for n in
+            ("step", "export_kv_snapshot", "import_kv_snapshot")}
+
+    def events():
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        return a, b
+
+    def step(self):
+        before, tick = dict(self.scheduler.stats), self.step_idx
+        a, b = events()
+        out = orig["step"](self)
+        b.record()
+        kind = next(k for k, v in self.scheduler.stats.items()
+                    if k != "steps" and v != before[k])
+        rounds = self.step_idx - tick if kind == "superstep" \
+            else int(kind not in ("prefill_only", "idle"))
+        rec["steps"].setdefault(id(self), []).append(
+            (kind, rounds, tick, a, b))
+        return out
+
+    def export(self, since=None):
+        a, b = events()
+        out = orig["export_kv_snapshot"](self, since)
+        b.record()
+        rec["exports"].append((sum(e["bytes"] for e in out), a, b))
+        return out
+
+    def restore(self, slot, snapshot, **kw):
+        a, b = events()
+        orig["import_kv_snapshot"](self, slot, snapshot, **kw)
+        b.record()
+        rec["imports"].append((int(snapshot["prefix_len"]),
+                               int(snapshot.get("bytes", 0)), a, b))
+
+    ServeEngine.step = step
+    ServeEngine.export_kv_snapshot = export
+    ServeEngine.import_kv_snapshot = restore
+    try:
+        yield rec
+    finally:
+        for n, fn in orig.items():
+            setattr(ServeEngine, n, fn)
+
+
+def measured_fleet(torch, name: str, cfg, run, launches_per=None) -> dict:
+    """One fleet run (``run()`` returns a ``FleetResult`` or a
+    ``ChaosResult``) under CUDA's sync debug mode, launch counts set to 0
+    just before and read just after. Fails unless the host synced once per
+    decode, superstep or fused dispatch of every node, a blocking transfer
+    ran once per KV export and no other, and (``launches_per``: a decode
+    round's and a packed chunk's) the kernels launched exactly that many
+    times for the rounds and chunks the nodes' traces record. The run's
+    engines (and their caches) are dropped from the result it returns, so
+    that each run's peak memory is its own."""
+    import gc
+    import warnings
+
+    from repro_torch.kernels import ops
+
+    gc.collect()                    # earlier runs' engines (recorder cycles)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with fleet_clocks(torch) as clocks, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            res = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    hidden = [str(w.message) for w in caught
+              if "called a synchronizing CUDA operation" in str(w.message)]
+    engines = res.engines
+    dc = {k: sum(e.dispatch_counts[k] for e in engines.values())
+          for k in ("prefill", "decode", "fused")}
+    syncs = sum(e.host_syncs for e in engines.values())
+    transfers = sum(e.export_transfers for e in engines.values())
+    export_syncs = sum(e.snapshot_stats["export_syncs"]
+                       for e in engines.values())
+    if syncs != dc["decode"] + dc["fused"] or len(hidden) != transfers:
+        fail(f"{name}: {syncs} host syncs for {dc}; {len(hidden)} blocking "
+             f"transfers beside them for {transfers} KV exports "
+             f"({hidden[:1]})")
+    work = [trace_work(t) for t in res.traces.values()]
+    rounds, chunks = (sum(col) for col in zip(*work))
+    if launches_per is not None:
+        per_round, per_chunk = launches_per
+        want = {k: per_round.get(k, 0) * rounds + per_chunk.get(k, 0) * chunks
+                for k in counts}
+        if counts != want:
+            fail(f"{name}: launches {counts}, expected {want} for {rounds} "
+                 f"decode rounds and {chunks} prefill chunks")
+    ticks = max(e.step_idx for e in engines.values())
+    node_of = {id(e): n for n, e in engines.items()}
+    per_node, step_ms = {}, {}
+    for key, steps in clocks["steps"].items():
+        node = node_of[key]
+        step_ms[node] = [(tick, a.elapsed_time(b))
+                         for _, _, tick, a, b in steps]
+        dec = [(r, a.elapsed_time(b)) for k, r, _, a, b in steps
+               if k in PURE_DECODE]
+        per_node[node] = dict(
+            steps=len(steps), device_ms=sum(ms for _, ms in step_ms[node]),
+            ms_per_decode_round=(sum(ms for _, ms in dec)
+                                 / max(sum(r for r, _ in dec), 1)))
+    res.engines = {}
+    exp_bytes = sum(n for n, _, _ in clocks["exports"])
+    exp_ms = sum(a.elapsed_time(b) for _, a, b in clocks["exports"])
+    return dict(
+        phase=name, result=res, step_ms=step_ms, wall_s=wall,
+        fleet_ticks=ticks,
+        ms_per_fleet_tick=1e3 * wall / ticks, dispatch_counts=dc,
+        host_syncs=syncs, decode_rounds=rounds, prefill_chunks=chunks,
+        launches=counts, export_transfers=transfers,
+        blocking_transfers=len(hidden), export_syncs=export_syncs,
+        export_bytes=exp_bytes, export_ms=exp_ms,
+        export_gb_s=exp_bytes / exp_ms / 1e6 if exp_ms else None,
+        restores=[dict(prefix_len=p, bytes=n, ms=a.elapsed_time(b))
+                  for p, n, a, b in clocks["imports"]],
+        nodes=dict(sorted(per_node.items())),
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def logged(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k not in ("result", "step_ms")}
+
+
+def recovery_windows(run: dict) -> list:
+    """Each recovered request on its survivor: from its placement to its
+    first new token, the ticks and the device ms of the survivor's steps
+    in between (its re-prefill, beside whatever else those steps ran)."""
+    res, out = run["result"], []
+    for r in res.recoveries:
+        first = next(e["step"] for e in res.traces[r["node"]].of_type(
+            "decode") if any(rid == r["rid"] for rid, _ in e["tokens"]))
+        out.append(dict(
+            gid=r["gid"], restored_tokens=r["restored_tokens"],
+            reprefill_tokens=r["reprefill_tokens"],
+            ticks=first - r["step"],
+            device_ms=sum(ms for tick, ms in run["step_ms"][r["node"]]
+                          if r["step"] <= tick <= first)))
+    return out
+
+
+def agreement(run, ref) -> float:
+    """The share of arrivals whose tokens equal the fault-free run's."""
+    got, want = run.tokens_by_gid(), ref.tokens_by_gid()
+    return sum(got.get(g) == t for g, t in want.items()) / len(want)
+
+
+def check_chaos(name: str, free, chaos, snap, row_bytes: int) -> dict:
+    """The chaos guard's invariants that hold whatever the weights: goodput
+    1.0, nothing failed or rejected, at least one restore, and saved +
+    paid re-prefill equal to the from-zero run's; snapshot bytes are rows
+    x the model's row size."""
+    from repro_torch.fleet import FleetMetrics
+
+    c = FleetMetrics.from_traces(chaos.traces).chaos_summary()
+    sc = FleetMetrics.from_traces(snap.traces).chaos_summary()
+    sn = sc["snapshots"]
+    for label, s, run in (("chaos", c, chaos), ("snapshot", sc, snap)):
+        if s["goodput"] != 1.0 or run.failed or run.rejected \
+                or s["completed"] != len(free.tokens_by_gid()):
+            fail(f"{name} {label}: goodput {s['goodput']}, failed "
+                 f"{run.failed}, rejected {run.rejected}")
+    if not sn["restores"] or sn["saved_tokens"] + sc["reprefill_tokens"] \
+            != c["reprefill_tokens"]:
+        fail(f"{name}: {sn['restores']} restores; saved "
+             f"{sn['saved_tokens']} + paid {sc['reprefill_tokens']} != "
+             f"from-zero {c['reprefill_tokens']}")
+    if sn["bytes"] != sn["rows"] * row_bytes:
+        fail(f"{name}: {sn['bytes']} snapshot bytes for {sn['rows']} rows "
+             f"of {row_bytes} bytes")
+    return dict(chaos=c, snapshot=sc)
+
+
+def baseline_vocab() -> int:
+    """The vocabulary the guards draw their prompts below: the reduced
+    llama3.2-1b's (``prefix_affinity`` routes on the prompts' tokens, so a
+    baseline's routing holds only for its own prompts; they are valid
+    tokens of the full model too)."""
+    from repro_torch.configs import get_arch
+    return get_arch("llama3.2-1b").reduced().vocab_size
+
+
+def kv_row_bytes(cfg) -> int:
+    """One token's K and V over every layer, in the cache's type."""
+    return cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * 2
+
+
+def chaos_fleet(torch) -> dict:
+    """Phase 12: the chaos guard's fleet (``benchmarks/data/
+    chaos_baseline.json``'s serve, workload, plan and snapshot knobs) at
+    full llama3.2-1b width and depth in bf16, fault-free, under the plan,
+    and under the plan with mirrored snapshots; then
+    ``fleet_baseline.json``'s two-replica fleet under each routing
+    policy. The tick schedule does not depend on the weights (the
+    workload ends by budget), so the counts must equal the baselines'."""
+    from repro_torch.chaos import FaultPlan, serve_fleet_chaos
+    from repro_torch.configs import get_arch
+    from repro_torch.fleet import FleetMetrics, serve_fleet
+
+    base = bench_json("chaos_baseline.json")
+    cfg = get_arch("llama3.2-1b")
+    params, n_bytes = weights(torch, cfg, cfg.name)
+    w = base["workload"]
+    scfg, arrivals = fleet_inputs(w["serve"], w["workload"],
+                                  baseline_vocab())
+    plan = FaultPlan.load(os.path.join(BENCH_DATA, "chaos_plan.json"))
+    if plan.to_dict() != w["plan"]:
+        fail("12: chaos_plan.json is not the baseline's plan")
+    kw = dict(replicas=w["replicas"], routing=w["routing"], device="cuda")
+    per = path_launches(cfg, packed=True)
+    t0 = time.perf_counter()
+    serve_fleet(cfg, params, scfg, arrivals, **kw)       # warm-up
+    log(f"phase 12 warm-up took {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for label, fn in (
+            ("fault-free", lambda: serve_fleet(cfg, params, scfg, arrivals,
+                                               **kw)),
+            ("chaos", lambda: serve_fleet_chaos(cfg, params, scfg, arrivals,
+                                                plan, **kw)),
+            ("snapshot", lambda: serve_fleet_chaos(
+                cfg, params, scfg, arrivals, plan, **w["snapshot"], **kw))):
+        runs[label] = measured_fleet(torch, f"12 {label}", cfg, fn, per)
+        log(f"fleet 12 {label} " + json.dumps(logged(runs[label])))
+    free, chaos, snap = (runs[k]["result"] for k in runs)
+    sums = check_chaos("12", free, chaos, snap, kv_row_bytes(cfg))
+    c, sc = sums["chaos"], sums["snapshot"]
+    got = dict(chaos={k: c[k] for k in CHAOS_GUARDED},
+               mttr_ticks=json.loads(json.dumps(c["mttr_ticks"])),
+               faults=c["faults"], recoveries=len(chaos.recoveries),
+               failed=sorted(chaos.failed), rejected=sorted(chaos.rejected))
+    want = {k: base[k] for k in got}
+    snap_got = {k: sc["snapshots"][k] for k in SNAP_GUARDED}
+    if got != want or snap_got != {k: base["snapshots"][k]
+                                   for k in SNAP_GUARDED}:
+        fail(f"12: chaos {got} / snapshots {snap_got} against the baseline "
+             f"{want} / {base['snapshots']}")
+    out = {label: logged(r) for label, r in runs.items()}
+    for label in ("chaos", "snapshot"):
+        out[label]["bf16_token_agreement"] = agreement(
+            runs[label]["result"], free)
+    out["summary"] = dict(chaos=got, snapshots=sc["snapshots"],
+                          reprefill_tokens=[c["reprefill_tokens"],
+                                            sc["reprefill_tokens"]],
+                          bf16_token_agreement=[out[k][
+                              "bf16_token_agreement"] for k in
+                              ("chaos", "snapshot")])
+    log("fleet 12 summary " + json.dumps(out["summary"]))
+    # fleet_baseline.json: 2 replicas under each routing policy
+    fb = bench_json("fleet_baseline.json")
+    fw = fb["workload"]
+    fscfg, farr = fleet_inputs(fw["serve"], fw, baseline_vocab())
+    for routing, want in fb["policies"].items():
+        r = measured_fleet(torch, f"12 fleet {routing}", cfg,
+                           lambda: serve_fleet(
+                               cfg, params, fscfg, farr,
+                               replicas=fw["replicas"], routing=routing,
+                               device="cuda"), per)
+        fm = FleetMetrics()
+        for n, hub in r["result"].hubs.items():
+            fm.add(n, hub)
+        s = json.loads(json.dumps(fm.summary()))
+        got = dict(requests=s["requests"]["arrived"],
+                   tokens=s["requests"]["tokens_generated"],
+                   **{k: s[k] for k in ("ttft_ticks", "tpot_ticks",
+                                        "queue_wait_ticks")})
+        out[f"fleet {routing}"] = dict(logged(r), ttft_ticks=s["ttft_ticks"])
+        log(f"fleet 12 fleet {routing} " + json.dumps(out[f"fleet {routing}"]))
+        if got != {k: want[k] for k in got}:
+            fail(f"12 fleet {routing}: {got} against the baseline {want}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_fleet(torch) -> dict:
+    """Phase 12b: ``SERVING_FLEET``, a fleet at phase 3's serving shape
+    (full llama3.2-1b, bf16), fault-free, crashed from zero and crashed
+    with mirrored snapshots: goodput 1.0, a restore, saved + paid equal to
+    the from-zero cost; the card's numbers logged (ms per fleet tick and
+    per decode round of each node, the KV exports' bytes, ms and GB/s to
+    the host, each restore's ms, the device ms of the steps that re-prefill
+    recovered requests, p50/p99 TTFT/TPOT in ticks, peak memory)."""
+    from repro_torch.chaos import FaultPlan, serve_fleet_chaos
+    from repro_torch.configs import get_arch
+    from repro_torch.fleet import FleetMetrics, serve_fleet
+
+    cfg = get_arch("llama3.2-1b")
+    params, _ = weights(torch, cfg, cfg.name)
+    f = SERVING_FLEET
+    scfg, arrivals = fleet_inputs(f["serve"], f["workload"],
+                                  cfg.vocab_size)
+    plan = FaultPlan.from_spec(f["crash"])
+    kw = dict(replicas=f["replicas"], routing=f["routing"], device="cuda")
+    per = path_launches(cfg, packed=True)
+    runs = {}
+    for label, fn in (
+            ("fault-free", lambda: serve_fleet(cfg, params, scfg, arrivals,
+                                               **kw)),
+            ("from-zero", lambda: serve_fleet_chaos(
+                cfg, params, scfg, arrivals, plan, **kw)),
+            ("snapshot", lambda: serve_fleet_chaos(
+                cfg, params, scfg, arrivals, plan, **f["snapshot"], **kw))):
+        t0 = time.perf_counter()
+        runs[label] = measured_fleet(torch, f"12b {label}", cfg, fn, per)
+        log(f"phase 12b {label} took {time.perf_counter() - t0:.1f} s")
+    free, zero, snap = (runs[k]["result"] for k in runs)
+    sums = check_chaos("12b", free, zero, snap, kv_row_bytes(cfg))
+    out = {}
+    for label, r in runs.items():
+        fm = FleetMetrics()
+        for n, hub in r["result"].hubs.items():
+            fm.add(n, hub)
+        s = fm.summary()
+        out[label] = dict(logged(r), requests=len(arrivals), **{
+            m: {q: s[m][q] for q in ("p50", "p99", "mean", "count")}
+            for m in ("ttft_ticks", "tpot_ticks", "queue_wait_ticks")})
+        if label != "fault-free":
+            res = r["result"]
+            out[label]["recoveries"] = recovery_windows(r)
+            out[label]["bf16_token_agreement"] = agreement(res, free)
+            out[label]["chaos"] = {k: v for k, v in
+                                   sums["chaos" if label == "from-zero"
+                                        else "snapshot"].items()
+                                   if k not in ("mttr_ticks",)}
+        log(f"fleet 12b {label} " + json.dumps(out[label]))
+    log("12b re-prefill tokens paid from zero and with snapshots: "
+        + json.dumps([sums["chaos"]["reprefill_tokens"],
+                      sums["snapshot"]["reprefill_tokens"]]))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_parity(torch) -> None:
+    """Phase 12c: the chaos guard's fleet at full llama3.2-1b width, depth
+    2, float32: on the card the chaos and snapshot runs give the
+    fault-free run's tokens for every arrival, and the fault-free fleet
+    gives the same tokens, assignments, dispatches and host syncs as the
+    port's plain versions on the CPU."""
+    from repro_torch.chaos import FaultPlan, serve_fleet_chaos
+    from repro_torch.configs import get_arch
+    from repro_torch.fleet import serve_fleet
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"), num_layers=2,
+                              dtype="float32")
+    params = init_params(T.param_defs(cfg),
+                         torch.Generator(device="cuda").manual_seed(2),
+                         device="cuda")
+
+    def tree(fn, t):
+        return {k: tree(fn, v) for k, v in t.items()} \
+            if isinstance(t, dict) else fn(t)
+    params = {"cuda": tree(lambda a: a.float(), params)}
+    params["cpu"] = tree(lambda a: a.cpu(), params["cuda"])
+    base = bench_json("chaos_baseline.json")
+    w = base["workload"]
+    scfg, arrivals = fleet_inputs(w["serve"], w["workload"],
+                                  baseline_vocab())
+    plan = FaultPlan.from_dict(w["plan"])
+    kw = dict(replicas=w["replicas"], routing=w["routing"])
+
+    def facts(res):
+        return dict(tokens=res.tokens_by_gid(), assignments=res.assignments,
+                    dispatches={n: e.dispatch_counts
+                                for n, e in res.engines.items()},
+                    host_syncs={n: e.host_syncs
+                                for n, e in res.engines.items()})
+    free = {dev: facts(serve_fleet(cfg, params[dev], scfg, arrivals,
+                                   device=dev, **kw))
+            for dev in ("cuda", "cpu")}
+    if free["cuda"] != free["cpu"]:
+        diff = [k for k in free["cuda"] if free["cuda"][k] != free["cpu"][k]]
+        fail(f"12c fault-free fleet: card != CPU in {diff}")
+    for label, extra in (("chaos", {}), ("snapshot", w["snapshot"])):
+        res = serve_fleet_chaos(cfg, params["cuda"], scfg, arrivals, plan,
+                                device="cuda", **extra, **kw)
+        got = res.tokens_by_gid()
+        bad = [g for g, t in free["cuda"]["tokens"].items() if got.get(g) != t]
+        if bad or res.failed or res.rejected or not res.recoveries:
+            fail(f"12c {label}: tokens differ from the fault-free run's for "
+                 f"gids {bad}; {len(res.recoveries)} recoveries")
+        log(f"parity float32 depth 2, 12c {label}: {len(got)} arrivals give "
+            f"the fault-free tokens after {len(res.recoveries)} recoveries "
+            f"(restored tokens "
+            f"{[r['restored_tokens'] for r in res.recoveries]})")
+    log(f"parity float32 depth 2, 12c fault-free fleet: tokens, "
+        f"assignments, dispatches and host syncs identical on cuda and cpu")
+    del params
+    torch.cuda.empty_cache()
+
+
+FLEET_PHASES = {"12": chaos_fleet, "12b": serving_fleet, "12c": fleet_parity}
+
+
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated fleet phases (12, 12b, 12c) to run "
+                         "alone after the build, printing no result lines")
+    only = ap.parse_args().phases
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"the port's sources are not beside this script ({SRC})")
     import torch
@@ -1857,6 +2367,13 @@ def main() -> None:
                 log(f"ptxas {name}: " + json.dumps(entry))
                 if name in SPILL_GATED and entry["spill_stores"]:
                     fail(f"ptxas spills in {entry['kernel']}")
+        if only is not None:
+            for phase in only.split(","):
+                t0 = time.perf_counter()
+                FLEET_PHASES[phase](torch)
+                log(f"phase {phase} took {time.perf_counter() - t0:.1f} s")
+            log(f"partial run of phases {only}: no result lines")
+            return
 
         t0 = time.perf_counter()
         report = check_kernels(torch)
@@ -1895,6 +2412,10 @@ def main() -> None:
         gpt2 = gpt2_serves(torch)
         qwen = moe_serves(torch)
         kimi = kimi_step(torch)
+        for phase, fn in FLEET_PHASES.items():
+            t0 = time.perf_counter()
+            fn(torch)
+            log(f"phase {phase} took {time.perf_counter() - t0:.1f} s")
     except SystemExit:
         raise
     except Exception:  # any failed phase fails the run, with its traceback

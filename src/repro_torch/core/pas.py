@@ -30,11 +30,16 @@ def decode_uses_gemv(batch_per_device: int,
 
 def phase_log_entry(phase: str, n_tokens: int, active: int,
                     d_model: int, d_ff: int,
-                    hw: HardwareModel = TPU_V5E) -> dict:
+                    hw: HardwareModel = TPU_V5E,
+                    force_mu: bool = False) -> dict:
     """One serving-step record: ``phase`` is "summarization" (n_tokens =
     prompt tokens in the dispatch) or "generation" (n_tokens = active
-    slots)."""
+    slots). ``force_mu`` records a PIM-degraded node: every FC on the
+    matrix-engine path."""
     n = max(n_tokens, 1)
+    if force_mu:
+        return {"phase": phase, "tokens": n_tokens, "active": active,
+                "gemv_path": False, "ffn_route": "gemm"}
     return {"phase": phase, "tokens": n_tokens, "active": active,
             "gemv_path": decode_uses_gemv(n, hw),
             "ffn_route": route_fc_tpu(n, d_model, d_ff, hw)}

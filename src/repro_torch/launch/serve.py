@@ -8,6 +8,8 @@
   python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --smoke --device cpu
   python -m repro_torch.launch.serve --arch rwkv6-7b [--smoke --device cpu]
   python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke --device cpu
+  python -m repro_torch.launch.serve --smoke --device cpu \
+      --metrics-out metrics.json --timeline-out trace.json
 
 ``--arch`` takes any name of ``repro_torch.configs.ARCHS``: the ``dense``
 ones (llama3.2-1b, olmo-1b, granite-20b, phi3-medium-14b, and the paper's
@@ -29,10 +31,17 @@ dispatch counts (and with ``--superstep`` the supersteps), host syncs, the
 policy's step kinds and the launch count of each kernel. ``--profile`` (card only) traces the run with
 ``torch.profiler`` and prints the device's busy share of the wall time and
 the kernels that took the most device time.
+
+``--metrics-out`` attaches a live ``obs.MetricsHub`` to a ``TraceRecorder``
+(it only reads the recorder's events: no dispatch, no host sync) and
+writes its report (p50/p99 TTFT and TPOT in engine ticks, queue wait, the
+dispatch mix); ``--timeline-out`` writes the serve's Perfetto trace-event
+timeline, coverage-checked against the trace's summary.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from collections import defaultdict
 
@@ -41,9 +50,12 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.kernels import ops
+from repro_torch.launch.stats import check_coverage
 from repro_torch.models import transformer as T
 from repro_torch.models.params import init_params, resolve_device
+from repro_torch.obs import MetricsHub, engine_events, write_chrome_trace
 from repro_torch.serve import ServeConfig, ServeEngine
+from repro_torch.trace import TraceRecorder
 
 
 def main(argv=None):
@@ -83,6 +95,12 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace the run with torch.profiler (card only)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="attach a live MetricsHub and write its SLO "
+                         "report (JSON) here")
+    ap.add_argument("--timeline-out", default=None,
+                    help="write a Chrome/Perfetto trace.json of the serve "
+                         "here")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -108,7 +126,11 @@ def main(argv=None):
         warm.add_request(np.arange(plen) % cfg.vocab_size, max_new_tokens=2)
         warm.run_until_done()
         del warm
-    eng = ServeEngine(cfg, params, scfg, device=dev)
+    hub = rec = None
+    if args.metrics_out or args.timeline_out:
+        hub = MetricsHub()
+        rec = TraceRecorder(sinks=[hub])
+    eng = ServeEngine(cfg, params, scfg, recorder=rec, device=dev)
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         plen = args.prompt_len or int(rng.integers(2, 10))
@@ -166,7 +188,31 @@ def main(argv=None):
     print(f"[serve] kernel launches: {ops.launch_counts()}")
     if prof is not None:
         print_device_time(prof, dt)
+    if rec is not None:
+        write_reports(rec, hub, args.metrics_out, args.timeline_out)
     return results
+
+
+def write_reports(rec, hub, metrics_out, timeline_out) -> None:
+    """The recorder's trace closed (its summary reaches the hub), then the
+    hub's report and the coverage-checked timeline written."""
+    trace = rec.to_trace()
+    if metrics_out:
+        with open(metrics_out, "w") as f:
+            json.dump(hub.to_dict(), f, indent=2)
+        s = hub.summary()
+        print(f"[serve] SLO: ttft p50/p99 = {s['ttft_ticks']['p50']:.1f}/"
+              f"{s['ttft_ticks']['p99']:.1f} ticks, tpot p50/p99 = "
+              f"{s['tpot_ticks']['p50']:.1f}/{s['tpot_ticks']['p99']:.1f} "
+              f"ticks")
+        print(f"[serve] wrote metrics report -> {metrics_out}")
+    if timeline_out:
+        events = engine_events(trace)
+        problems = check_coverage(trace, events)
+        if problems:
+            raise RuntimeError("timeline coverage: " + "; ".join(problems))
+        write_chrome_trace(timeline_out, events)
+        print(f"[serve] wrote {len(events)} trace events -> {timeline_out}")
 
 
 def device_time(prof, top: int = 15):

@@ -212,15 +212,22 @@ class PimAwareScheduler(InterleavedScheduler):
         d_in, d_out = self.map_dims or (engine.cfg.d_model, engine.cfg.d_ff)
         n_prefill = job.next_valid_count()
         n_decode = len(engine.ready_slot_ids())
-        prefill_route = route_fc_tpu(max(n_prefill, 1), d_in, d_out, self.hw)
-        decode_route = route_fc_tpu(max(n_decode, 1), d_in, d_out, self.hw)
+        degraded = bool(getattr(engine, "degraded", False))
+        if degraded:
+            # a PIM-degraded node (chaos) maps both phases to the matrix
+            # engine: no overlap while the window lasts
+            prefill_route = decode_route = "gemm"
+        else:
+            prefill_route = route_fc_tpu(max(n_prefill, 1), d_in, d_out,
+                                         self.hw)
+            decode_route = route_fc_tpu(max(n_decode, 1), d_in, d_out,
+                                        self.hw)
         ok = prefill_route != decode_route
-        # "degraded" is the reference's PIM-degraded (chaos) node, which
-        # maps both phases to the matrix engine; the port has none yet
         self.decision_log.append({
             "step": engine.step_idx, "n_prefill": n_prefill,
             "n_decode": n_decode, "prefill_route": prefill_route,
-            "decode_route": decode_route, "overlap": ok, "degraded": False,
+            "decode_route": decode_route, "overlap": ok,
+            "degraded": degraded,
         })
         return ok
 

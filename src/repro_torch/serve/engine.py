@@ -49,14 +49,27 @@ fused and unfused, and superstep k and 1, sample the same tokens too.
 Counters: one call of ``prefill_chunk``, ``decode_and_sample``,
 ``decode_superstep`` or a fused step (or, on the sequential path, of
 ``decode_step``) is one dispatch; ``host_syncs`` counts blocking fetches,
-one per decode, superstep or fused dispatch. A ``repro.trace.TraceRecorder``
-(or anything with its hooks) can be attached; the port never imports one.
+one per decode, superstep or fused dispatch. A ``trace.TraceRecorder`` (or
+anything with its hooks) can be attached.
+
+Chaos and snapshots (``chaos``): ``set_degraded`` forces every route the
+engine records to the matrix-engine path (the numerics do not change),
+``halt`` crashes the engine, ``export_recovery_state`` lists its in-flight
+requests from host state. On an attention stack (every cache leaf has its
+slot axis at 1 and its kv_seq axis at 3: the bf16 and int8 caches, not
+SSM state) ``export_kv_snapshot`` copies the ready slots' new KV rows to
+the host -- one blocking transfer an export, the draw counter included,
+counted in ``export_transfers`` and, as in the reference, in
+``snapshot_stats`` but not in ``host_syncs`` -- and ``add_request(
+restore=...)`` queues a request whose admission scatters a checkpointed
+prefix into its slot (``import_kv_snapshot``, uploaded through pinned
+memory) so that only the suffix prefills. numpy has no bfloat16: a bf16
+leaf's rows travel as ``np.uint16`` bit patterns.
 
 A ``moe`` stack (attention mixers, MoE FFNs) prefills in chunks like a
 dense one; each chunk's MoE layers route its whole (B, C) tokens as one
 group, idle rows included, as in the reference. ``encdec`` and ``vlm``
-raise ``NotImplementedError`` at construction, KV-snapshot restores in
-``add_request``.
+raise ``NotImplementedError`` at construction.
 """
 from __future__ import annotations
 
@@ -67,6 +80,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import flatten_cache
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pas import phase_log_entry
 from repro_torch.models import transformer as T
@@ -84,6 +98,10 @@ class Request:
     done: bool = False
     deferred: int = 0             # admission waves this request was passed over
     gid: Optional[int] = None     # fleet-global id
+    # KV-snapshot failover: positions [0, prefill_start) are restored from
+    # ``restore`` (the pending payload) at admission, not prefilled
+    prefill_start: int = 0
+    restore: Optional[dict] = None
 
 
 @dataclass(frozen=True)
@@ -107,6 +125,14 @@ class ServeConfig:
     fuse: bool = False            # co-scheduled decode + chunk in one call
     superstep: int = 1            # most decode rounds a pure-decode step runs
     queue_cap: int = 0            # admission-queue capacity (0 = unbounded)
+
+
+# numpy's type for a cache leaf's rows on the host (a bf16 row crosses as
+# its 16-bit patterns)
+_HOST_DTYPE = {torch.bfloat16: np.dtype(np.uint16),
+               torch.float16: np.dtype(np.float16),
+               torch.float32: np.dtype(np.float32),
+               torch.int8: np.dtype(np.int8)}
 
 
 class AdmissionRejected(RuntimeError):
@@ -181,11 +207,22 @@ class ServeEngine:
         self._superstep_seq = 0       # superstep ordinal (trace)
         self.prefill_stats = {"token_slots": 0, "valid_tokens": 0,
                               "kv_cells": 0}
-        # read by TraceRecorder's summary; KV snapshots (not ported yet)
-        # move them
+        # KV snapshots, as the reference counts them (read by the trace's
+        # summary): ``export_syncs`` is one a leaf an entry, not in
+        # host_syncs. ``export_transfers`` counts the port's blocking
+        # transfers, one an export
         self.snapshot_stats = {"exports": 0, "export_bytes": 0,
                                "export_syncs": 0, "restores": 0,
                                "restored_tokens": 0, "restore_bytes": 0}
+        self.export_transfers = 0
+        self._snapshot_ok = self._batched_ok and all(
+            leaf.dim() in (4, 5) and leaf.shape[1] == B
+            and leaf.shape[3] == L for leaf in flatten_cache(
+                self.cache).values())
+        # chaos: a degraded engine records every route on the matrix-engine
+        # path; a halted one crashed and never steps again
+        self.degraded = False
+        self.halted = False
         self.step_idx = 0
         self.wave_count = 0
         self.admission_rejects = 0
@@ -226,16 +263,27 @@ class ServeEngine:
         if len(prompt) > self.scfg.max_len - 1:
             raise ValueError(f"prompt ({len(prompt)} tokens) exceeds "
                              f"max_len-1 ({self.scfg.max_len - 1})")
+        if self.halted:
+            raise RuntimeError("engine is halted (crashed node)")
         if restore is not None:
-            raise NotImplementedError("not ported yet: KV-snapshot restore "
-                                      "(ROADMAP queue 1, item 2)")
+            if not self.snapshot_supported:
+                raise ValueError("KV-snapshot restore needs the batched "
+                                 "attention prefill path")
+            P = int(restore["prefix_len"])
+            if not 0 < P <= len(prompt) - 1:
+                raise ValueError(f"restore prefix_len {P} outside "
+                                 f"(0, {len(prompt) - 1}]")
         if 0 < self.scfg.queue_cap <= len(self.queue):
             self.admission_rejects += 1
             raise AdmissionRejected(
                 f"admission queue at capacity ({self.scfg.queue_cap})")
         rid = self._next_rid
         self._next_rid += 1
-        self.queue.append(Request(rid, prompt, max_new_tokens, gid=gid))
+        req = Request(rid, prompt, max_new_tokens, gid=gid)
+        if restore is not None:
+            req.prefill_start = int(restore["prefix_len"])
+            req.restore = restore
+        self.queue.append(req)
         if self.recorder is not None:
             offset = 0 if arrival_step is None \
                 else max(self.step_idx - arrival_step, 0)
@@ -243,6 +291,130 @@ class ServeEngine:
                                      max_new_tokens, arrival_offset=offset,
                                      gid=gid)
         return rid
+
+    # ---- chaos hooks ------------------------------------------------------ #
+    def set_degraded(self, flag: bool) -> None:
+        """PIM-degraded mode: while set, every route the engine records
+        (``pas_log``, the trace, the ``pim_aware`` gate) is the matrix-
+        engine path. A routing record only: the kernels and the tokens do
+        not change."""
+        self.degraded = bool(flag)
+
+    def halt(self) -> None:
+        """Crash the engine: it never dispatches, completes or accepts a
+        request again. Host state (and the cache) stay for post-mortem
+        reads."""
+        self.halted = True
+
+    def export_recovery_state(self) -> List[dict]:
+        """Every in-flight request (queued and resident), from host state:
+        the prompt, the budget and the tokens generated so far."""
+        out = [{"rid": r.rid, "prompt": r.prompt, "max_new": r.max_new_tokens,
+                "generated": list(r.generated), "resident": False,
+                "slot": None} for r in self.queue]
+        for slot, r in enumerate(self.slot_req):
+            if r is not None and not r.done:
+                out.append({"rid": r.rid, "prompt": r.prompt,
+                            "max_new": r.max_new_tokens,
+                            "generated": list(r.generated),
+                            "resident": True, "slot": slot})
+        return sorted(out, key=lambda d: d["rid"])
+
+    # ---- incremental KV snapshots ----------------------------------------- #
+    @property
+    def snapshot_supported(self) -> bool:
+        """Every cache leaf is attention K/V (or an int8 scale) with its
+        slot axis at 1 and its kv_seq axis at 3, on the batched prefill
+        path."""
+        return self._snapshot_ok
+
+    def export_kv_snapshot(self, since: Optional[Dict[int, int]] = None
+                           ) -> List[dict]:
+        """The new KV rows [base, prefix_len) of every ready slot with a
+        gid, ``base`` from ``since`` (gid -> prefix already held), with
+        the request state a survivor needs, as the reference exports them.
+        All rows and the draw counter (the ``rng`` metadata, never
+        imported) cross in ONE blocking transfer, packed as bytes;
+        ``prefix_len`` comes from host state."""
+        if not self._snapshot_ok:
+            return []
+        since = since or {}
+        flat = flatten_cache(self.cache)
+        todo = []
+        for slot, req in enumerate(self.slot_req):
+            if req is None or req.done or not self.slot_ready[slot] \
+                    or req.gid is None:
+                continue
+            P = len(req.prompt) - 1 + len(req.generated)
+            base = int(since.get(req.gid, 0))
+            if P > base:
+                todo.append((slot, req, base, P))
+        if not todo:
+            return []
+        parts, layout = [], []
+        for slot, _req, base, P in todo:
+            for key, leaf in flat.items():
+                rows = leaf[:, slot, :, base:P].contiguous()
+                parts.append(rows.view(torch.uint8).reshape(-1))
+                layout.append((key, tuple(rows.shape), _HOST_DTYPE[
+                    leaf.dtype]))
+        parts.append(self._draw.reshape(1).view(torch.uint8))
+        host = torch.cat(parts).cpu().numpy()
+        self.export_transfers += 1
+        draw = int(host[-8:].copy().view(np.int64)[0])
+        entries, off = [], 0
+        for i, (slot, req, base, P) in enumerate(todo):
+            rows = {}
+            for key, shape, dt in layout[i * len(flat):(i + 1) * len(flat)]:
+                n = int(np.prod(shape)) * dt.itemsize
+                rows[key] = host[off:off + n].copy().view(dt).reshape(shape)
+                off += n
+            nbytes = int(sum(a.nbytes for a in rows.values()))
+            self.snapshot_stats["exports"] += 1
+            self.snapshot_stats["export_bytes"] += nbytes
+            self.snapshot_stats["export_syncs"] += len(rows)
+            last = int(req.generated[-1]) if req.generated \
+                else int(req.prompt[-1])
+            entries.append({
+                "gid": req.gid, "rid": req.rid, "slot": slot,
+                "base": base, "prefix_len": P, "bytes": nbytes,
+                "cache": rows, "plen": int(len(req.prompt)),
+                "generated": list(req.generated),
+                "max_new": req.max_new_tokens, "last_tok": last,
+                "lens": P, "rng": [draw]})
+        return entries
+
+    def import_kv_snapshot(self, slot: int, snapshot: dict, *,
+                           gid: Optional[int] = None,
+                           rid: Optional[int] = None) -> None:
+        """Write a checkpointed prefix's rows into positions
+        [0, prefix_len) of ``slot``, each leaf uploaded through pinned
+        memory (a bf16 leaf's uint16 rows reinterpreted). Called by
+        ``admit_wave`` after its reset; prefill and decode write only
+        above ``prefix_len``."""
+        P = int(snapshot["prefix_len"])
+        rows = snapshot["cache"]
+        for key, leaf in flatten_cache(self.cache).items():
+            a = np.array(rows[key])       # a writable copy for torch
+            if a.dtype == np.uint16:      # bf16 bits; torch's 16-bit int
+                a = a.view(np.int16)      # is signed
+            leaf[:, slot, :, :P].copy_(self._upload(a).view(leaf.dtype))
+        nbytes = int(snapshot.get("bytes", 0))
+        self.snapshot_stats["restores"] += 1
+        self.snapshot_stats["restored_tokens"] += P
+        self.snapshot_stats["restore_bytes"] += nbytes
+        if self.recorder is not None:
+            self.recorder.on_restore(
+                self.step_idx, gid=gid, rid=rid, prefix_len=P,
+                nbytes=nbytes,
+                snapshot_step=int(snapshot.get("snapshot_step", -1)))
+
+    def load_stats(self) -> Dict[str, int]:
+        """The router's load view, from host state only."""
+        busy = sum(r is not None for r in self.slot_req)
+        return {"queued": len(self.queue), "busy": busy,
+                "ready": sum(self.slot_ready),
+                "free": self.scfg.max_slots - busy}
 
     def free_slot_ids(self) -> List[int]:
         return [i for i, r in enumerate(self.slot_req) if r is None]
@@ -307,11 +479,21 @@ class ServeEngine:
         for slot, req in admitted:
             self.slot_req[slot] = req
             self.slot_ready[slot] = False
+        # checkpointed prefixes land after the reset, far below the parked
+        # cursor; the suffix prefill's writes never touch them
+        restores: List[Tuple[int, int, int]] = []
+        for slot, req in admitted:
+            if req.restore is not None:
+                self.import_kv_snapshot(slot, req.restore, gid=req.gid,
+                                        rid=req.rid)
+                restores.append((slot, req.rid, req.prefill_start))
+                req.restore = None
         self.wave_count += 1
         if self.recorder is not None:
             self.recorder.on_admit(
                 self.step_idx,
-                [(int(s), r.rid, int(len(r.prompt))) for s, r in admitted])
+                [(int(s), r.rid, int(len(r.prompt))) for s, r in admitted],
+                restores=restores)
         return admitted
 
     def build_prefill_job(self, wave) -> Optional[PrefillJob]:
@@ -332,7 +514,10 @@ class ServeEngine:
         for slot, req in wave:
             p = req.prompt[:-1]
             tokens[slot, :len(p)] = p
-            valid[slot, :len(p)] = True
+            # a restored prefix stays invalid: only the suffix prefills
+            valid[slot, req.prefill_start:len(p)] = True
+        if not valid.any():
+            return None        # every wave member was fully restored
         return PrefillJob(wave=wave, tokens=tokens, valid=valid, chunk=C,
                           n_chunks=n_chunks, sub_batch=self.wave_count - 1)
 
@@ -480,7 +665,8 @@ class ServeEngine:
     # ---- generation phase: one decode call across ready slots -------------- #
     def _phase_entry(self, phase: str, n_tokens: int, active: int) -> dict:
         return phase_log_entry(phase, n_tokens, active,
-                               self.cfg.d_model, self.cfg.d_ff)
+                               self.cfg.d_model, self.cfg.d_ff,
+                               force_mu=self.degraded)
 
     def _ready_active(self) -> Tuple[Optional[np.ndarray], int]:
         """(active mask, count) over the ready slots; (None, 0) when none
@@ -672,6 +858,9 @@ class ServeEngine:
 
     # ---- step: composition delegated to the scheduling policy --------------- #
     def step(self) -> List[Tuple[int, int]]:
+        if self.halted:
+            raise RuntimeError("engine is halted (crashed node); a crashed "
+                               "replica must never dispatch again")
         out = self.scheduler.step(self)
         self.step_idx += 1
         return out

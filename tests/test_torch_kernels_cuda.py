@@ -883,3 +883,80 @@ def test_sampled_steps_on_the_card_issue_no_sync(card, dtype):
     torch.testing.assert_close(noise.cpu(), T.gumbel_noise(
         5, cpu_draw, (4, cfg.vocab_size), "cpu"), rtol=4 * 2.0 ** -23,
         atol=4 * 2.0 ** -23)
+
+
+# --------------------------------------------------------------------------- #
+# KV snapshots on the card
+# --------------------------------------------------------------------------- #
+def _snapshot_engine(kv_dtype="bfloat16"):
+    cfg = dataclasses.replace(get_arch("llama3.2-1b").reduced(),
+                              kv_dtype=kv_dtype)
+    params = init_params(T.param_defs(cfg), device="cuda", seed=0)
+    scfg = ServeConfig(max_slots=4, max_len=64, prefill_chunk=8)
+    return cfg, params, scfg
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_snapshot_round_trip_through_disk_is_bitwise(card, tmp_path,
+                                                     kv_dtype):
+    """A ready slot's KV rows exported from the card, published to a
+    disk-backed ``SnapshotStore``, reloaded after the owner's crash and
+    restored into another engine's slot come back bit for bit."""
+    from repro_torch.chaos import SnapshotStore
+    from repro_torch.checkpoint import flatten_cache
+
+    cfg, params, scfg = _snapshot_engine(kv_dtype)
+    src = ServeEngine(cfg, params, scfg, device=card)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, 21)
+    src.add_request(prompt, 20, gid=5)
+    for _ in range(5):
+        src.step()
+    entries = src.export_kv_snapshot()
+    assert [e["gid"] for e in entries] == [5] and src.export_transfers == 1
+    store = SnapshotStore(root=str(tmp_path))
+    store.put(0, entries, tick=4)
+    store.drop_node(0)
+    rec = store.lookup(5)
+    assert store.stats["disk_loads"] == 1
+    P, slot = rec["prefix_len"], entries[0]["slot"]
+    dst = ServeEngine(cfg, params, scfg, device=card)
+    dst.add_request(np.concatenate([prompt, entries[0]["generated"]]), 3,
+                    gid=5, restore={"prefix_len": P, "cache": rec["cache"],
+                                    "bytes": rec["bytes"]})
+    dst.admit_wave()
+    got, want = flatten_cache(dst.cache), flatten_cache(src.cache)
+    for key in want:
+        assert torch.equal(got[key][:, 0, :, :P].cpu(),
+                           want[key][:, slot, :, :P].cpu()), key
+
+
+def test_snapshot_export_adds_one_blocking_transfer(card):
+    """Under CUDA's sync debug mode a serve with one export makes exactly
+    its decode fetches' host syncs plus the export's one blocking
+    transfer; the reference's ``export_syncs`` still counts a leaf an
+    entry."""
+    import warnings
+
+    cfg, params, scfg = _snapshot_engine()
+    eng = ServeEngine(cfg, params, scfg, device=card)
+    rng = np.random.default_rng(4)
+    for gid in range(3):
+        eng.add_request(rng.integers(0, cfg.vocab_size, 9 + gid), 12,
+                        gid=gid)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(4):
+                eng.step()
+            entries = eng.export_kv_snapshot()
+            eng.run_until_done()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    hidden = [w for w in caught
+              if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(entries) == 3 and eng.export_transfers == 1
+    assert len(hidden) == 1
+    assert eng.snapshot_stats["export_syncs"] == 3 * 2
+    assert eng.host_syncs == eng.dispatch_counts["decode"]

@@ -165,8 +165,11 @@ def test_snapshot_restore_raises_and_queue_cap_rejects(params):
     _, cfg = _cfgs()
     _, tp = params
     eng = _engine(cfg, tp, queue_cap=1)
-    with pytest.raises(NotImplementedError):
-        eng.add_request([1, 2, 3], restore={"prefix_len": 1})
+    # restores are ported: a prefix outside (0, len(prompt) - 1] raises
+    # the reference's ValueError, and nothing is queued
+    with pytest.raises(ValueError, match="outside"):
+        eng.add_request([1, 2, 3], restore={"prefix_len": 3})
+    assert eng.queue == []
     eng.add_request([1, 2, 3])
     with pytest.raises(AdmissionRejected):
         eng.add_request([4, 5])
