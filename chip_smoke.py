@@ -99,12 +99,14 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      ran fused steps and supersteps. Logged against ``serial``: decode
      tok/s and ms per round of the pure-decode steps, decode rounds per
      host sync, prefill tok/s, TTFT in steps, and (one profiled serve
-     each) the device's busy share;
+     each) the device's busy share. Each measured serve is recorded with
+     ``repro_torch.trace.TraceRecorder`` beside its hooks, for phase 13;
   9b. the same workload at full width, depth 2, float32: ``interleaved``
      and ``pim_aware`` through the kernels on the card and the plain
      versions on the CPU give identical greedy tokens, dispatch counts,
-     host syncs, step kinds and (``pim_aware``) decision logs, and on the
-     card the tokens of the ``serial`` serve;
+     host syncs, step kinds, (``pim_aware``) decision logs and recorded
+     traces, event for event, and on the card the tokens of the
+     ``serial`` serve;
   10. serve phase 3's prompts through gpt2-xl (the paper's model: 48
      layers, d 1536, 24 heads of 64, layernorm with bias, gelu, tied) at
      full width and depth, unpacked and packed, each twice in turns: each
@@ -113,7 +115,7 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      of a step) and the GEMV 6 times a layer; then phase 9's arrivals
      under ``serial`` + pack and ``pim_aware`` + pack + fuse + superstep
      4, held to these launches a round and a chunk as phase 9 holds its
-     own, and one profiled short serve;
+     own and recorded as phase 9's, and one profiled short serve;
   10b. as 10 without the policies, through gpt2-2.5b (54 layers, d 1920,
      20 heads of 96): flash in both modes and decode attention at D 96;
   10c. gpt2-2.5b at full width and depth 2 in float32, unpacked and
@@ -156,14 +158,31 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      node, the KV exports' bytes, device ms and GB/s to the host, each
      restore's device ms, each recovered request's ticks and device ms
      to its first new token, p50/p99 TTFT/TPOT/queue wait in ticks
-     (``FleetMetrics``), peak memory;
+     (``FleetMetrics``), peak memory. The nodes' traces of every fleet
+     run of 12 and 12b go to phase 13;
   12c. phase 12's fleet at full llama3.2-1b width, depth 2, float32:
      the chaos and snapshot runs give the fault-free run's tokens for
      every arrival, and the fault-free fleet's tokens, assignments,
-     dispatches and host syncs on the card equal the port's on the CPU.
+     dispatches and host syncs on the card equal the port's on the CPU;
+  13. the port's own ``verify`` over every trace phases 9, 9b, 10, 12,
+     12b and 12c recorded, in worker processes after the measured phases: the
+     protocol lint (``lint_trace``), the span hazards of the lowered
+     steps (``analyze_lowered(trace_to_commands(trace))``), each lowered
+     step against its reference DAG (``verify_lowered_step``), and for
+     each fleet run ``check_exactly_once`` and
+     ``check_snapshot_provenance`` over its nodes' traces: any finding
+     fails the run; the host-sync lint over the port's ``serve``,
+     ``sched``, ``obs``, ``fleet`` and ``chaos`` with its allowlist must
+     find nothing; and phase 9's first ``pim_aware`` trace, lowered
+     against llama3.2-1b's full config, replays through ``TraceReplayer``
+     on the simulated IANUS and NPU-MEM machines (the paper's models, as
+     ``benchmarks/trace_replay.py`` replays): their makespans and splits
+     by tag, the FC routes' agreement, logged beside the card's measured
+     ms per decode round of the same serve.
 
 ``--phases 12,12b,12c`` builds the kernels and runs only the named fleet
-phases, printing no result lines (a development run).
+phases and phase 13's checks of their traces, printing no result lines
+(a development run).
 
 The last two lines of standard output are the kernel table as one JSON
 object (a row a kernel at its main-path shape, then flash at D 96 in both
@@ -899,7 +918,7 @@ def two_serves(a: dict, b: dict) -> dict:
                 same_tokens_both_runs=a["tokens"] == b["tokens"])
 
 
-def full_width_serves(torch) -> dict:
+def full_width_serves(torch, checks) -> dict:
     """Phases 3, 3b and 3c on one set of full-width bf16 weights, then 3d
     on the same weights (which it casts to float32)."""
     import numpy as np
@@ -956,7 +975,7 @@ def full_width_serves(torch) -> dict:
         saved_bytes=base["max_memory_allocated"]
         - i8["max_memory_allocated"])))
     t0 = time.perf_counter()
-    out["9 policies"] = policy_serves(torch, cfg, params, base, pk)
+    out["9 policies"] = policy_serves(torch, cfg, params, base, pk, checks)
     log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     tokens = torch.from_numpy(np.random.default_rng(8).integers(
@@ -1063,15 +1082,16 @@ def policy_serve(torch, cfg, params, name: str, kw: dict, per_round: dict,
     included) plus ``per_chunk`` times a prefill chunk (a fused step is a
     round and a chunk), the host synced once per decode, superstep and
     fused dispatch and at no other point, and an interleaving policy ran
-    fused steps and supersteps."""
+    fused steps and supersteps. The serve is recorded (``TraceRecorder``)
+    beside the tally; the result's ``trace`` is its trace."""
     import warnings
 
     from repro_torch.kernels import ops
-    from repro_torch.trace import drive
+    from repro_torch.trace import TraceRecorder, drive
 
     arrivals = policy_arrivals(cfg.vocab_size)
-    tally = StepTally(torch)
-    eng = policy_engine(cfg, params, recorder=tally, **kw)
+    tally, rec = StepTally(torch), TraceRecorder()
+    eng = policy_engine(cfg, params, recorder=Tee(tally, rec), **kw)
     tally.wrap(eng)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -1149,7 +1169,7 @@ def policy_serve(torch, cfg, params, name: str, kw: dict, per_round: dict,
                dispatch_counts=dc, host_syncs=eng.host_syncs,
                hidden_syncs=len(hidden), steps=stats,
                superstep_tokens=eng.superstep_tokens, launches=counts,
-               results=results)
+               results=results, trace=rec.to_trace())
     del eng
     return out
 
@@ -1158,7 +1178,8 @@ POLICY_TIMED = ("wall_s", "tok_s", "decode_tok_s", "ms_per_decode_round",
                 "prefill_s", "prefill_tok_s")
 
 
-def policy_serves(torch, cfg, params, unpacked: dict, packed: dict) -> dict:
+def policy_serves(torch, cfg, params, unpacked: dict, packed: dict,
+                  checks) -> dict:
     """Phase 9 on phase 3's bf16 weights: one unmeasured serve of each
     policy and of ``SAMPLED`` (new packed shapes, module loads), two
     measured ones in turns (serial, interleaved, sampled, pim_aware,
@@ -1179,8 +1200,12 @@ def policy_serves(torch, cfg, params, unpacked: dict, packed: dict) -> dict:
     runs = {name: [] for name, _ in serves}
     for name, kw in serves + serves[::-1]:
         t0 = time.perf_counter()
-        runs[name].append(policy_serve(torch, cfg, params, name, kw,
-                                       per_round, per_chunk))
+        r = policy_serve(torch, cfg, params, name, kw, per_round, per_chunk)
+        runs[name].append(r)
+        trace = r.pop("trace")
+        checks.add(f"9 {name} #{len(runs[name])}", [trace])
+        if name == "pim_aware" and checks.replay is None:
+            checks.replay = (f"9 {name} #1", trace, r["ms_per_decode_round"])
         log(f"phase 9 {name} took {time.perf_counter() - t0:.1f} s")
     out = {}
     for name, kw in serves:
@@ -1215,12 +1240,14 @@ def policy_serves(torch, cfg, params, unpacked: dict, packed: dict) -> dict:
     return out
 
 
-def policy_parity(torch) -> None:
-    """Phase 9b: phase 9's workload at full width, depth 2, float32."""
+def policy_parity(torch, checks) -> None:
+    """Phase 9b: phase 9's workload at full width, depth 2, float32. The
+    serves are recorded: the card's and the CPU's traces must be equal
+    event for event (so are their lowered commands and replays)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
-    from repro_torch.trace import drive
+    from repro_torch.trace import TraceRecorder, drive
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1239,11 +1266,15 @@ def policy_parity(torch) -> None:
     runs = {}
     for name, kw in POLICY_SERVES:
         for dev in ("cuda",) if name == "serial" else ("cuda", "cpu"):
-            eng = policy_engine(cfg, params[dev], **kw)
+            rec = TraceRecorder()
+            eng = policy_engine(cfg, params[dev], recorder=rec, **kw)
             runs[name, dev] = dict(
                 tokens=drive(eng, arrivals), dispatches=eng.dispatch_counts,
                 host_syncs=eng.host_syncs, steps=eng.scheduler.stats,
                 decisions=getattr(eng.scheduler, "decision_log", None))
+            tr = rec.to_trace()
+            runs[name, dev]["trace"] = [tr.header, tr.events, tr.summary]
+            checks.add(f"9b {name} {dev}", [tr])
         if name == "serial":
             continue
         if runs[name, "cuda"] != runs[name, "cpu"]:
@@ -1257,7 +1288,8 @@ def policy_parity(torch) -> None:
             f"{r['dispatches']}, {r['host_syncs']} host syncs, steps "
             f"{r['steps']}" + (f", {len(r['decisions'])} decisions"
                                if r["decisions"] else "")
-            + " identical on cuda and cpu; tokens == serial's")
+            + f", and a trace of {len(r['trace'][1])} events identical on "
+            "cuda and cpu; tokens == serial's")
     del params
     torch.cuda.empty_cache()
 
@@ -1751,7 +1783,7 @@ def attention_serves(torch, cfg, params, phase: str, name: str) -> dict:
     return out
 
 
-def gpt2_serves(torch) -> dict:
+def gpt2_serves(torch, checks) -> dict:
     """Phases 10 and 10b: gpt2-xl and gpt2-2.5b (the paper's Table 3) at
     full width and depth, bf16, unpacked and packed; gpt2-xl also under
     phase 9's arrivals with ``serial`` + pack and ``pim_aware`` + pack +
@@ -1778,6 +1810,7 @@ def gpt2_serves(torch) -> dict:
                 drive(policy_engine(cfg, params, **kw), arrivals)
                 r = policy_serve(torch, cfg, params, pname, kw, per_round,
                                  per_chunk, phase="10")
+                checks.add(f"10 {name} {pname}", [r.pop("trace")])
                 out[phase][pname] = {k: v for k, v in r.items()
                                      if k != "results"}
                 log(f"phase 10 {pname} took {time.perf_counter() - t0:.1f} "
@@ -2122,7 +2155,7 @@ def kv_row_bytes(cfg) -> int:
     return cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * 2
 
 
-def chaos_fleet(torch) -> dict:
+def chaos_fleet(torch, checks) -> dict:
     """Phase 12: the chaos guard's fleet (``benchmarks/data/
     chaos_baseline.json``'s serve, workload, plan and snapshot knobs) at
     full llama3.2-1b width and depth in bf16, fault-free, under the plan,
@@ -2157,6 +2190,8 @@ def chaos_fleet(torch) -> dict:
             ("snapshot", lambda: serve_fleet_chaos(
                 cfg, params, scfg, arrivals, plan, **w["snapshot"], **kw))):
         runs[label] = measured_fleet(torch, f"12 {label}", cfg, fn, per)
+        checks.add(f"12 {label}", runs[label]["result"].traces.values(),
+                   fleet=True)
         log(f"fleet 12 {label} " + json.dumps(logged(runs[label])))
     free, chaos, snap = (runs[k]["result"] for k in runs)
     sums = check_chaos("12", free, chaos, snap, kv_row_bytes(cfg))
@@ -2192,6 +2227,8 @@ def chaos_fleet(torch) -> dict:
                                cfg, params, fscfg, farr,
                                replicas=fw["replicas"], routing=routing,
                                device="cuda"), per)
+        checks.add(f"12 fleet {routing}", r["result"].traces.values(),
+                   fleet=True)
         fm = FleetMetrics()
         for n, hub in r["result"].hubs.items():
             fm.add(n, hub)
@@ -2209,7 +2246,7 @@ def chaos_fleet(torch) -> dict:
     return out
 
 
-def serving_fleet(torch) -> dict:
+def serving_fleet(torch, checks) -> dict:
     """Phase 12b: ``SERVING_FLEET``, a fleet at phase 3's serving shape
     (full llama3.2-1b, bf16), fault-free, crashed from zero and crashed
     with mirrored snapshots: goodput 1.0, a restore, saved + paid equal to
@@ -2239,6 +2276,8 @@ def serving_fleet(torch) -> dict:
                 cfg, params, scfg, arrivals, plan, **f["snapshot"], **kw))):
         t0 = time.perf_counter()
         runs[label] = measured_fleet(torch, f"12b {label}", cfg, fn, per)
+        checks.add(f"12b {label}", runs[label]["result"].traces.values(),
+                   fleet=True)
         log(f"phase 12b {label} took {time.perf_counter() - t0:.1f} s")
     free, zero, snap = (runs[k]["result"] for k in runs)
     sums = check_chaos("12b", free, zero, snap, kv_row_bytes(cfg))
@@ -2268,12 +2307,12 @@ def serving_fleet(torch) -> dict:
     return out
 
 
-def fleet_parity(torch) -> None:
+def fleet_parity(torch, checks) -> None:
     """Phase 12c: the chaos guard's fleet at full llama3.2-1b width, depth
     2, float32: on the card the chaos and snapshot runs give the
     fault-free run's tokens for every arrival, and the fault-free fleet
     gives the same tokens, assignments, dispatches and host syncs as the
-    port's plain versions on the CPU."""
+    port's plain versions on the CPU. The card's fleets go to phase 13."""
     from repro_torch.chaos import FaultPlan, serve_fleet_chaos
     from repro_torch.configs import get_arch
     from repro_torch.fleet import serve_fleet
@@ -2306,15 +2345,17 @@ def fleet_parity(torch) -> None:
                                 for n, e in res.engines.items()},
                     host_syncs={n: e.host_syncs
                                 for n, e in res.engines.items()})
-    free = {dev: facts(serve_fleet(cfg, params[dev], scfg, arrivals,
-                                   device=dev, **kw))
-            for dev in ("cuda", "cpu")}
+    runs = {dev: serve_fleet(cfg, params[dev], scfg, arrivals, device=dev,
+                             **kw) for dev in ("cuda", "cpu")}
+    checks.add("12c fault-free", runs["cuda"].traces.values(), fleet=True)
+    free = {dev: facts(res) for dev, res in runs.items()}
     if free["cuda"] != free["cpu"]:
         diff = [k for k in free["cuda"] if free["cuda"][k] != free["cpu"][k]]
         fail(f"12c fault-free fleet: card != CPU in {diff}")
     for label, extra in (("chaos", {}), ("snapshot", w["snapshot"])):
         res = serve_fleet_chaos(cfg, params["cuda"], scfg, arrivals, plan,
                                 device="cuda", **extra, **kw)
+        checks.add(f"12c {label}", res.traces.values(), fleet=True)
         got = res.tokens_by_gid()
         bad = [g for g, t in free["cuda"]["tokens"].items() if got.get(g) != t]
         if bad or res.failed or res.rejected or not res.recoveries:
@@ -2326,11 +2367,171 @@ def fleet_parity(torch) -> None:
             f"{[r['restored_tokens'] for r in res.recoveries]})")
     log(f"parity float32 depth 2, 12c fault-free fleet: tokens, "
         f"assignments, dispatches and host syncs identical on cuda and cpu")
-    del params
+    del params, runs, res
     torch.cuda.empty_cache()
 
 
 FLEET_PHASES = {"12": chaos_fleet, "12b": serving_fleet, "12c": fleet_parity}
+
+
+# --------------------------------------------------------------------------- #
+# phase 13: the port's verify over the card's traces, and their replay
+# --------------------------------------------------------------------------- #
+# the machines phase 13 replays phase 9's trace on (the paper's models)
+REPLAY_MACHINES = ("IANUS", "NPU-MEM")
+# the replay's breakdown tags (``benchmarks/trace_replay.py``'s)
+REPLAY_TAGS = ("fc_mha", "ffn", "self_attn", "norm_res", "lm_head")
+# the directories the host-sync lint scans (``benchmarks/hazard_guard.py``'s)
+LINTED = ("serve", "sched", "obs", "fleet", "chaos")
+
+
+class Tee:
+    """Hands each of the engine's recorder hooks to every recorder given,
+    in turn."""
+
+    def __init__(self, *recorders):
+        self.recorders = recorders
+
+    def __getattr__(self, hook):
+        def call(*a, **k):
+            for r in self.recorders:
+                getattr(r, hook)(*a, **k)
+        return call
+
+
+def verify_traces(label: str, traces, fleet: bool) -> dict:
+    """The port's verify passes over one serve's trace or one fleet's node
+    traces: the protocol lint, the span hazards of the lowered steps, each
+    step against its reference DAG, and (a fleet) the exactly-once and
+    snapshot-provenance audits. Runs in a worker process."""
+    from repro_torch.trace.lower import trace_to_commands
+    from repro_torch.trace.schema import model_config_from_header
+    from repro_torch.verify import (analyze_lowered, check_exactly_once,
+                                    check_snapshot_provenance, lint_trace,
+                                    verify_lowered_step)
+
+    t0 = time.perf_counter()
+    findings, steps = [], 0
+    for tr in traces:
+        findings += lint_trace(tr)
+        lowered = trace_to_commands(tr)
+        steps += len(lowered)
+        findings += analyze_lowered(lowered)
+        cfg = model_config_from_header(tr.header)
+        for ls in lowered:
+            findings += verify_lowered_step(ls, cfg)
+    if fleet:
+        findings += check_exactly_once(traces)
+        findings += check_snapshot_provenance(traces)
+    return dict(label=label, traces=len(traces), lowered_steps=steps,
+                findings=[f.to_dict() for f in findings],
+                seconds=time.perf_counter() - t0)
+
+
+def replay_trace(trace, machine: str) -> dict:
+    """``benchmarks/trace_replay.py``'s recipe on one recorded trace: lower
+    it against llama3.2-1b's full config for ``machine``'s model and
+    replay it through ``TraceReplayer``. Every time in the result is the
+    simulated machine's. Runs in a worker process."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import IANUS_HW, NPU_MEM_HW
+    from repro_torch.sim import SimConfig, Simulator
+    from repro_torch.trace import TraceReplayer, trace_to_commands
+
+    hw = {"IANUS": IANUS_HW, "NPU-MEM": NPU_MEM_HW}[machine]
+    t0 = time.perf_counter()
+    lowered = trace_to_commands(trace, cfg=get_arch("llama3.2-1b"), hw=hw)
+    rep = TraceReplayer(Simulator(SimConfig(
+        hw=hw, issue_overhead=0.1e-6, trace=True))).replay(lowered)
+    agree = sum(r["agree"] for r in rep.divergence)
+    total = sum(r["n"] for r in rep.divergence)
+    return dict(
+        machine=machine, lowered_steps=len(lowered),
+        simulated_makespan_s=rep.makespan,
+        simulated_exposed_s_by_tag={t: rep.exposed_tags.get(t, 0.0)
+                                    for t in REPLAY_TAGS},
+        simulated_phase_s=dict(rep.phase_time),
+        simulated_mu_util=rep.result.group_utilization("MU"),
+        simulated_pim_util=rep.result.group_utilization("PIM"),
+        overlap_stats=dict(rep.overlap_stats),
+        superstep_stats=dict(rep.superstep_stats),
+        route_agreement=agree / total if total else None,
+        seconds=time.perf_counter() - t0)
+
+
+class TraceChecks:
+    """What the card's serves recorded, for phase 13: the traces of phases
+    9, 9b, 10, 12, 12b and 12c, each to go through the port's verify, and
+    phase 9's ``pim_aware`` trace to replay. ``run`` does it all at the
+    end, in worker processes, so that it times nothing of the phases that
+    measure the card."""
+
+    def __init__(self):
+        self.jobs = []            # (label, traces, fleet)
+        self.replay = None        # (label, trace, measured ms per round)
+
+    def add(self, label: str, traces, fleet: bool = False) -> None:
+        self.jobs.append((label, list(traces), fleet))
+
+    def run(self, card: str) -> dict:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        from repro_torch.verify import lint_host_syncs, load_allowlist
+
+        t0 = time.perf_counter()
+        port = os.path.join(SRC, "repro_torch")
+        found = lint_host_syncs(
+            [os.path.join(port, d) for d in LINTED],
+            load_allowlist(os.path.join(port, "verify",
+                                        "sync_allowlist.txt")), root=port)
+        if found:
+            fail(f"13: host-sync lint: {[f.to_dict() for f in found]}")
+        log(f"13 host-sync lint over {list(LINTED)}: no finding "
+            f"({time.perf_counter() - t0:.2f} s)")
+        replays = REPLAY_MACHINES if self.replay is not None else ()
+        workers = max(1, min(len(self.jobs) + len(replays),
+                             (os.cpu_count() or 2) - 1, 7))
+        with ProcessPoolExecutor(
+                workers, mp_context=multiprocessing.get_context("spawn")
+                ) as pool:
+            rep = {m: pool.submit(replay_trace, self.replay[1], m)
+                   for m in replays}
+            ver = [pool.submit(verify_traces, *job) for job in self.jobs]
+            checked = [f.result() for f in ver]
+            replayed = {m: f.result() for m, f in rep.items()}
+        bad = [c for c in checked if c["findings"]]
+        for c in checked:
+            log(f"13 verify {c['label']}: {c['traces']} trace(s), "
+                f"{c['lowered_steps']} lowered steps, "
+                f"{len(c['findings'])} finding(s), {c['seconds']:.2f} s")
+        if bad:
+            fail("13: the port's verify found "
+                 + json.dumps([(c["label"], c["findings"][:3])
+                               for c in bad]))
+        out = dict(verify={c["label"]: {k: v for k, v in c.items()
+                                        if k != "findings"}
+                           for c in checked},
+                   verify_cpu_s=sum(c["seconds"] for c in checked))
+        if replays:
+            label, _, ms = self.replay
+            for m, r in replayed.items():
+                if not r["simulated_makespan_s"] > 0:
+                    fail(f"13: the {m} replay of {label} gave {r}")
+                log(f"13 replay of {label} on simulated {m} (a model's "
+                    "output, not the card's time): " + json.dumps(r))
+            out["replay"] = dict(
+                trace=label,
+                simulated_makespan_s={m: r["simulated_makespan_s"]
+                                      for m, r in replayed.items()},
+                route_agreement=replayed["IANUS"]["route_agreement"],
+                measured_h100_ms_per_decode_round=ms, card=card)
+            log("13 simulated IANUS / NPU-MEM beside the measured H100 ("
+                f"{card}), the same serve: " + json.dumps(out["replay"]))
+        log(f"13 verify: {len(checked)} job(s) in {workers} worker(s), "
+            f"{out['verify_cpu_s']:.1f} CPU s; phase 13 took "
+            f"{time.perf_counter() - t0:.1f} s")
+        return out
 
 
 def main() -> None:
@@ -2361,6 +2562,7 @@ def main() -> None:
             f"{torch.cuda.get_device_name(0)}")
         t0 = time.perf_counter()
         built = _build.build_all()
+        checks = TraceChecks()
         log(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
         for name, info in built.items():
             for entry in ptxas_entries(info["ptxas"]):
@@ -2370,8 +2572,9 @@ def main() -> None:
         if only is not None:
             for phase in only.split(","):
                 t0 = time.perf_counter()
-                FLEET_PHASES[phase](torch)
+                FLEET_PHASES[phase](torch, checks)
                 log(f"phase {phase} took {time.perf_counter() - t0:.1f} s")
+            checks.run(card)
             log(f"partial run of phases {only}: no result lines")
             return
 
@@ -2380,12 +2583,12 @@ def main() -> None:
         log("timing floor " + json.dumps(timing_floor(torch)))
         path = softmax_path(torch)
         log(f"phase 2 took {time.perf_counter() - t0:.1f} s")
-        serves = full_width_serves(torch)
+        serves = full_width_serves(torch, checks)
         t0 = time.perf_counter()
         parity_serve(torch)
         log(f"phase 4 took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        policy_parity(torch)
+        policy_parity(torch, checks)
         log(f"phase 9b took {time.perf_counter() - t0:.1f} s")
         rwkv_cfg = get_arch("rwkv6-7b")
         rwkv = recurrent_full_width(
@@ -2409,13 +2612,14 @@ def main() -> None:
             jamba_cfg, num_layers=2, attn_period=2, attn_offset=1,
             dtype="float32"), "jamba")
         log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
-        gpt2 = gpt2_serves(torch)
+        gpt2 = gpt2_serves(torch, checks)
         qwen = moe_serves(torch)
         kimi = kimi_step(torch)
         for phase, fn in FLEET_PHASES.items():
             t0 = time.perf_counter()
-            fn(torch)
+            fn(torch, checks)
             log(f"phase {phase} took {time.perf_counter() - t0:.1f} s")
+        checks.run(card)
     except SystemExit:
         raise
     except Exception:  # any failed phase fails the run, with its traceback

@@ -177,10 +177,9 @@ class FaultPlan:
                         pim_refresh_threshold: float = 0.5,
                         thermal_threshold: float = 40.0) -> "FaultPlan":
         """Derive a fault schedule from a SIMULATED cost model instead of
-        hand-writing one: ``sim_result`` is a simulator ``SimResult``
-        (or its ``to_dict()`` export; the reference's ``repro.sim`` makes
-        them until the port has its own). Two physical failure modes map to
-        fault windows:
+        hand-writing one: ``sim_result`` is a ``sim.SimResult`` (or its
+        ``to_dict()`` export). Two physical failure modes map to fault
+        windows:
 
         * PIM refresh storms — PIM-array utilization above
           ``pim_refresh_threshold`` means refresh windows can no longer

@@ -33,7 +33,7 @@ Recovery protocol (per crashed node, at the crash tick):
    retry budget bounds the loop; prompt+prefix overflowing the KV cache
    is a terminal ``failed`` too (re-prefill cannot represent it).
 
-The reference's ``verify.exactly_once`` audits all three guarantees from
+``verify.check_exactly_once`` audits all three guarantees from
 the recorded traces alone.
 
 The engines share one ``params`` object and each owns its cache;

@@ -18,8 +18,7 @@ On top of the merged registry:
                  with ``makespan`` and ``result.group_utilization``)
                  rolled up into per-node and fleet NPU (MU) / PIM
                  utilization, weighted by each node's simulated makespan;
-                 None until a replay is added (the port's simulator is
-                 still to come)
+                 None until a replay is added
 
 Feeding is symmetric with single-node observability: ``add`` takes a live
 hub straight from a ``serve_fleet`` run; ``from_traces`` ingests recorded

@@ -2,7 +2,8 @@
 policy (the counterpart of ``repro/launch/fleet.py``).
 
   python -m repro_torch.launch.fleet --replicas 2 --routing least_loaded \\
-      --metrics-out fleet_metrics.json --timeline-out fleet_trace.json
+      --metrics-out fleet_metrics.json --timeline-out fleet_trace.json \\
+      --replay
   python -m repro_torch.launch.fleet --device cpu --replicas 3 \\
       --fault-plan "node_crash,node=1,step=10" --snapshot-interval 4
 
@@ -20,17 +21,19 @@ reports:
                   imbalance, and every node's full per-replica report
   --timeline-out  ONE Perfetto trace.json with a process group per node
                   (dispatch/fetch/slot lanes side by side) under a
-                  fleet-level queue-depth counter
+                  fleet-level queue-depth counter; with ``--replay``, each
+                  node's simulator NPU/PIM tracks join its group
   --traces-out    directory for the per-node trace JSONL files (each
-                  passes the reference's protocol lint on its own)
+                  passes ``verify.lint_trace`` on its own)
 
 The per-node timelines are coverage-checked before writing: each node's
 dispatch-slice count must equal its trace summary's dispatch total
 (``launch.stats.check_coverage``).
 
 Runs on the card unless ``--device cpu`` is given; weights are random,
-from seed 0 (``init_params``). The reference's ``--replay`` (each
-node's trace through the simulator) waits for the port's simulator.
+from seed 0 (``init_params``). ``--replay`` runs each node's trace
+through the IANUS simulator: its utilizations are the simulated
+machine's, not the card's.
 """
 from __future__ import annotations
 
@@ -48,6 +51,8 @@ from repro_torch.models.params import init_params, resolve_device
 from repro_torch.obs import fleet_events, fleet_node_pids, write_chrome_trace
 from repro_torch.serve import ServeConfig
 from repro_torch.trace.arrivals import bursty_arrivals
+from repro_torch.trace.lower import trace_to_commands
+from repro_torch.trace.replay import TraceReplayer
 
 
 def main(argv=None):
@@ -83,6 +88,9 @@ def main(argv=None):
                     help="write the multi-node Perfetto trace.json here")
     ap.add_argument("--traces-out", default=None,
                     help="directory for per-node trace JSONL files")
+    ap.add_argument("--replay", action="store_true",
+                    help="replay each node's trace through the simulator "
+                         "for per-node + fleet NPU/PIM utilization")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     # chaos serving (chaos)
@@ -175,6 +183,14 @@ def main(argv=None):
     for node, hub in fleet.hubs.items():
         fm.add(node, hub)
 
+    replays = None
+    if args.replay:
+        replays = {}
+        for node, trace in fleet.traces.items():
+            rep = TraceReplayer().replay(trace_to_commands(trace))
+            replays[node] = rep
+            fm.add_replay(node, rep)
+
     problems = []
     for node in fleet.traces:
         s = fleet.hubs[node].summary()
@@ -185,8 +201,15 @@ def main(argv=None):
                 f"{mix['total']} dispatches, {mix['host_syncs']} syncs, "
                 f"ttft p50/p99 = {s['ttft_ticks']['p50']:.1f}/"
                 f"{s['ttft_ticks']['p99']:.1f} ticks")
+        if replays is not None:
+            r = replays[node]
+            line += (f", simulated IANUS MU "
+                     f"{r.result.group_utilization('MU'):.1%} / "
+                     f"PIM {r.result.group_utilization('PIM'):.1%}")
         print(line)
-    events = fleet_events(fleet.traces)
+    events = fleet_events(fleet.traces,
+                          replays={n: r.result for n, r in replays.items()}
+                          if replays else None)
     for node, trace in fleet.traces.items():
         pid_engine, _slots, _sim = fleet_node_pids(node)
         for p in check_coverage(trace, events, pid=pid_engine):
@@ -202,6 +225,10 @@ def main(argv=None):
           + "/".join(f"{fs['imbalance']['request_share'][n]:.2f}"
                      for n in fs["imbalance"]["request_share"])
           + f", queue-depth spread {fs['imbalance']['queue_depth_spread']:g}")
+    if fs["utilization"]:
+        u = fs["utilization"]["fleet"]
+        print(f"[fleet] simulated IANUS fleet utilization: MU {u['mu']:.1%} "
+              f"/ PIM {u['pim']:.1%}")
     if fs.get("chaos"):
         c = fs["chaos"]
         print(f"[fleet] chaos: goodput {c['goodput']:.2f} "

@@ -423,6 +423,9 @@ class ServeEngine:
         return [i for i, r in enumerate(self.slot_req)
                 if r is not None and self.slot_ready[i]]
 
+    def has_ready_slots(self) -> bool:
+        return bool(self.ready_slot_ids())
+
     @property
     def effective_prefill_mode(self) -> str:
         if self._batched_ok and self.scfg.prefill_mode == "batched":

@@ -130,7 +130,7 @@ Version history:
          {"type": "restore", "step", "gid", "rid", "prefix_len", "bytes",
              "snapshot_step"} — this node seeded a recovered request's slot
              with a checkpointed prefix taken at ``snapshot_step``
-       the reference's ``check_snapshot_provenance`` audits that every
+       ``verify.check_snapshot_provenance`` audits that every
        restored prefix is covered by durable snapshot events that
        happened-before the crash. Loading a v1-v7 trace upgrades in place:
        restores=[], restored_tokens=0 (pre-snapshot recovery re-prefilled

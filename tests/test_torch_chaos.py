@@ -32,6 +32,7 @@ from repro.trace.arrivals import bursty_arrivals as ref_bursty
 from repro.trace.schema import Trace as RefTrace
 from repro.verify import (check_exactly_once, check_snapshot_provenance,
                           lint_trace)
+from repro_torch import verify
 from repro_torch.checkpoint import atomic_save_arrays, load_arrays
 from repro_torch.chaos import (FAULT_KINDS, FaultEvent, FaultPlan,
                                FleetHealth, SnapshotStore,
@@ -396,6 +397,7 @@ def test_chaos_traces_equal_the_reference_and_lint_clean(chaos_pair, node):
     assert Trace.load(d / f"node{node}.jsonl").events == got.events
     if node != 1:                       # node 1 crashed mid-serve
         assert lint_trace(RefTrace.loads(got.dumps())) == []
+        assert verify.lint_trace(got) == []
 
 
 @pytest.mark.parametrize("policy,pack,fuse,superstep", [
@@ -431,6 +433,9 @@ def test_port_traces_pass_exactly_once_and_snapshot_provenance(chaos_pair):
     traces = [RefTrace.loads(t.dumps()) for t in port.traces.values()]
     assert check_exactly_once(traces) == []
     assert check_snapshot_provenance(traces) == []
+    own = list(port.traces.values())
+    assert verify.check_exactly_once(own) == []
+    assert verify.check_snapshot_provenance(own) == []
     assert any(e["type"] == "restore" for t in traces for e in t.events)
 
 
@@ -499,6 +504,9 @@ def test_port_reproduces_the_chaos_baseline(tmp_path):
         traces = [RefTrace.loads(t.dumps()) for t in run.traces.values()]
         assert check_exactly_once(traces) == []
         assert check_snapshot_provenance(traces) == []
+        own = list(run.traces.values())
+        assert verify.check_exactly_once(own) == []
+        assert verify.check_snapshot_provenance(own) == []
     assert disk.snapshots["disk_loads"] >= 1
     assert [r["restored_tokens"] for r in disk.recoveries] \
         == [r["restored_tokens"] for r in snap.recoveries]

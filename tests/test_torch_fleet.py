@@ -30,6 +30,7 @@ from repro.serve import ServeConfig as RefServeConfig
 from repro.trace.arrivals import bursty_arrivals as ref_bursty
 from repro.trace.schema import Trace as RefTrace
 from repro.verify import lint_trace
+from repro_torch import verify
 from repro_torch.chaos import FaultEvent, FleetHealth
 from repro_torch.configs import get_arch
 from repro_torch.fleet import (ROUTING_POLICIES, FleetMetrics, make_router,
@@ -40,6 +41,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.params import from_jax_tree, init_params
 from repro_torch.obs import fleet_events, fleet_node_pids
 from repro_torch.serve import ServeConfig
+from repro_torch.trace import Trace
 from repro_torch.trace.arrivals import bursty_arrivals
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -146,13 +148,14 @@ def test_tokens_and_routing_match_the_reference(fleets):
 def test_node_traces_equal_the_reference_and_lint_clean(fleets, node):
     """Each node's trace (schema v6 header with its node id and the
     fleet) equals the reference node's, and the reference's protocol lint
-    finds nothing in it."""
+    and the port's find nothing in it."""
     ref, port = fleets
     got = port.traces[node]
     assert got.header["node_id"] == node
     assert got.header["fleet"] == {"replicas": 2, "routing": "least_loaded"}
     assert got.dumps() == ref.traces[node].dumps()
     assert lint_trace(RefTrace.loads(got.dumps())) == []
+    assert verify.lint_trace(got) == []
 
 
 def test_fleet_metrics_equal_the_reference(fleets):
@@ -230,5 +233,7 @@ def test_fleet_launcher_runs_on_the_cpu(tmp_path, capsys):
     for n in range(2):
         tr = RefTrace.load(tmp_path / "traces" / f"node{n}.jsonl")
         assert lint_trace(tr) == []
+        assert verify.lint_trace(
+            Trace.load(tmp_path / "traces" / f"node{n}.jsonl")) == []
     assert launch_fleet.main(["--device", "cpu", "--routing", "nope"]) == 1
     assert "COVERAGE FAIL" not in capsys.readouterr().out

@@ -21,6 +21,7 @@ from repro.trace import TraceRecorder as RefRecorder
 from repro.trace import schema as ref_schema
 from repro.trace.schema import Trace as RefTrace
 from repro.verify import lint_trace
+from repro_torch import verify
 from repro_torch.configs import get_arch
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch.stats import check_coverage
@@ -109,11 +110,12 @@ def test_recorders_write_identical_streams(served, policy):
     """The port's recorder and the reference's, each bound to the port's
     engine on the same workload, write the same JSONL byte for byte
     (header, every event, the summary with its snapshot counters), and
-    the reference's protocol lint finds nothing in it."""
+    the reference's protocol lint and the port's find nothing in it."""
     s = served[policy]
     assert s["trace"].dumps() == s["ref"].dumps()
     assert s["trace"].summary["host_syncs"] == s["eng"].host_syncs
     assert lint_trace(RefTrace.loads(s["trace"].dumps())) == []
+    assert verify.lint_trace(s["trace"]) == []
 
 
 @pytest.mark.parametrize("policy", POLICIES)
