@@ -20,8 +20,14 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      ``is_causal``; both prefill steps' norms; flash in both modes at the
      head dims that are no multiple of 64: gpt2-2.5b's prefill chunk (D
      96), kimi-k2's and pixtral-12b's prefill steps (D 112 and 160, S
-     1024 causal); gpt2-xl's and gpt2-2.5b's decode FCs and norms,
-     qwen3-moe's k/v FC and kimi-k2's prefill norm) plus ragged cases, in
+     1024 causal); flash's non-causal mode at whisper-medium's encoder (B 2,
+     16 heads, 1,500 frames) and cross-attention (448 queries against the
+     frames) shapes and a ragged one, beside SDPA without a mask, where
+     the plain version with one KV tile dropped must fail the bound;
+     decode attention at whisper's cross cache (B 8, 1,500 frames, G 1) and
+     pixtral's (D 160); gpt2-xl's, gpt2-2.5b's, whisper's and pixtral's
+     decode FCs and norms, qwen3-moe's k/v FC, kimi-k2's prefill norm and
+     whisper's and pixtral's prefill-step norms) plus ragged cases, in
      float32 and bfloat16 (tolerances of the reference's kernel tests:
      1e-4, 2e-3 for the chunked wkv (in bf16 too where y is f32), and
      5e-2; flash, decode_attention, pim_matvec and rwkv_chunk's bf16 y in
@@ -164,8 +170,9 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      the chaos and snapshot runs give the fault-free run's tokens for
      every arrival, and the fault-free fleet's tokens, assignments,
      dispatches and host syncs on the card equal the port's on the CPU;
-  13. the port's own ``verify`` over every trace phases 9, 9b, 10, 12,
-     12b and 12c recorded, in worker processes after the measured phases: the
+  13. (run last, after 15b) the port's own ``verify`` over every trace
+     phases 9, 9b, 10, 12, 12b, 12c, 14c and 15 recorded, in worker
+     processes after the measured phases: the
      protocol lint (``lint_trace``), the span hazards of the lowered
      steps (``analyze_lowered(trace_to_commands(trace))``), each lowered
      step against its reference DAG (``verify_lowered_step``), and for
@@ -178,15 +185,53 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      on the simulated IANUS and NPU-MEM machines (the paper's models, as
      ``benchmarks/trace_replay.py`` replays): their makespans and splits
      by tag, the FC routes' agreement, logged beside the card's measured
-     ms per decode round of the same serve.
+     ms per decode round of the same serve. The lint's
+     ``gather_before_scatter`` findings on the packed dispatches after an
+     unaligned KV-snapshot restore (phase 12b), where the re-derived plan
+     reads no row that was neither restored nor scattered, are the
+     reference's known false alarm: they are counted and printed, and any
+     other finding fails;
+  14. whisper-medium at full width and depth (24 encoder and 24 decoder
+     layers, bf16, weights from a seed, frames from ``batch_for``; the
+     earlier phases' garbage collected first, so that its peak memory is
+     its own, as 15's): (a) its
+     prefill step at B 2, 1,500 frames, 448 decoder tokens, launching flash
+     exactly 72 times (24 non-causal in the encoder, 24 causal, 24
+     non-causal cross) and the norm 122 times, its ms and peak memory
+     logged, then profiled; (b) ``prefill_with_cache`` for 8 rows of 16
+     tokens with frames, then 32 greedy decode steps against the filled
+     cross cache,
+     twice, identical tokens, each step launching decode attention 48
+     times (self and cross), the GEMV 192 and the norm 73; (c) the engine
+     serves 8 requests (prompts of 4-32 tokens, 16 new, ``max_len`` 448)
+     twice: identical tokens, sequential prefill (a dispatch a prompt
+     token but the last), those launches in every dispatch, one host sync
+     a decode step and no hidden one; the bf16 bound of 3d on the prefill
+     step and a decode step;
+  14b. whisper-medium at full width, depth 2, float32, card against CPU:
+     prefill-step logits within 1e-4, (b)'s and (c)'s tokens, dispatches
+     and host syncs identical;
+  15. pixtral-12b at full width and depth (40 layers, 25.5 GB in bf16):
+     (a) its prefill step at B 2 with 256 patches and 768 text tokens,
+     flash at D 160 40 times and the norm 81 times; (b) phase 3's serve
+     unpacked and packed, each twice, with exactly ``path_launches``'s
+     kernels a decode step and a prefill chunk (decode attention 40, the
+     GEMV 280, the norm 81; flash or its segmented mode 40), tokens
+     repeated; a profiled short serve;
+  15b. pixtral-12b at full width, depth 2, float32, card against CPU: the
+     prefill step with patches within 1e-4, unpacked and packed serves
+     identical; the bf16 bound of 3d at depth 2.
 
-``--phases 12,12b,12c`` builds the kernels and runs only the named fleet
-phases and phase 13's checks of their traces, printing no result lines
-(a development run).
+``--phases 2,12,12b,12c,14,15`` (any of them) builds the kernels and runs
+only the named phases (14 with 14b, 15 with 15b) and phase 13's checks of
+their traces, printing no result lines (a development run).
 
 The last two lines of standard output are the kernel table as one JSON
 object (a row a kernel at its main-path shape, then flash at D 96 in both
-modes, launched by phase 10b, and at D 112, by phase 11c), then
+modes, launched by phase 10b, at D 112, by phase 11c, and at D 160 in
+both modes and decode attention at D 160, by phase 15, then flash's
+non-causal mode at whisper's encoder and cross shapes and decode
+attention at its cross cache, by phase 14), then
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when there is no CUDA device, when the port's sources are missing,
 or when any phase fails.
@@ -262,13 +307,18 @@ def time_ms(torch, fn, iters: int = 21, warmup: int = 3) -> float:
 # (B 2 x S 2048) at d 4096
 # (B 2 x S 2048) at d 4096; gpt2-xl's and gpt2-2.5b's (layernorm with
 # bias, d 1536 and 1920) prefill and decode rows; kimi-k2's prefill-step
-# rows (B 2 x S 1024, d 7168)
+# rows (B 2 x S 1024, d 7168); whisper-medium's encoder rows in its prefill
+# step (B 2 x 1500 frames) and decode rows (layernorm with bias, d 1024);
+# pixtral-12b's prefill-step rows (B 2 x 1024) and decode rows (rmsnorm,
+# d 5120)
 NORM_SHAPES = (("rmsnorm", 1024, 2048), ("rmsnorm", 8, 2048),
                ("layernorm", 8, 4096), ("rmsnorm", 8, 4096),
                ("layernorm", 4096, 4096), ("rmsnorm", 4096, 4096),
                ("layernorm", 1024, 1536), ("layernorm", 8, 1536),
                ("layernorm", 1024, 1920), ("layernorm", 8, 1920),
-               ("rmsnorm", 2048, 7168))
+               ("rmsnorm", 2048, 7168), ("layernorm", 3000, 1024),
+               ("layernorm", 8, 1024), ("rmsnorm", 2048, 5120),
+               ("rmsnorm", 8, 5120))
 # the flash shapes at the reference's head dims that are no multiple of 64,
 # as (B, S, cache L, offset, H, KH, D): gpt2-2.5b's prefill chunk (MHA, 20
 # heads of 96), kimi-k2's prefill step (S 1024 causal, 64 / 8 heads of
@@ -276,6 +326,12 @@ NORM_SHAPES = (("rmsnorm", 1024, 2048), ("rmsnorm", 8, 2048),
 WIDE_FLASH = ((8, 128, 1024, 512, 20, 20, 96), (2, 37, 300, 128, 20, 20, 96),
               (2, 1024, 1024, 0, 64, 8, 112), (2, 37, 300, 128, 64, 8, 112),
               (2, 1024, 1024, 0, 32, 8, 160), (2, 37, 300, 128, 32, 8, 160))
+# the non-causal static mode, as (B, Sq, Skv, H, KH, D): whisper-medium's
+# encoder (1,500 frames, 16 / 16 heads of 64) and its decoder's cross
+# attention in the prefill step (448 queries against the 1,500 frames),
+# and a small ragged case
+NON_CAUSAL_FLASH = ((2, 1500, 1500, 16, 16, 64), (2, 448, 1500, 16, 16, 64),
+                    (2, 100, 300, 16, 16, 64))
 
 
 def kernel_cases(torch, dtype):
@@ -331,6 +387,26 @@ def kernel_cases(torch, dtype):
             library=library,
             bytes=(2 * q.numel() + 2 * B * kh * span * hd) * es,
             flops=4.0 * B * h * pairs * hd))
+    # non-causal flash, beside SDPA without a mask; the plain version with
+    # the second 64-key tile dropped must fail the tolerance (the bound
+    # sees a lost tile at 1,500 keys too)
+    for B, Sq, Skv, h, kh, hd in NON_CAUSAL_FLASH:
+        q = rn(B, h, Sq, hd)
+        k, v = rn(B, kh, Skv, hd), rn(B, kh, Skv, hd)
+        kept = torch.cat([torch.arange(64), torch.arange(128, Skv)]).cuda()
+        cases.append(dict(
+            kernel="flash_attention", tol=TIGHT_TOL,
+            label=f"B{B} Sq{Sq} Skv{Skv} non-causal"
+            + heads_label(h, kh, hd),
+            run=lambda q=q, k=k, v=v: flash_attention(q, k, v, causal=False),
+            plain=lambda q=q, k=k, v=v: ref.flash_attention_ref(
+                q, k, v, causal=False),
+            broken=lambda q=q, k=k, v=v, i=kept: ref.flash_attention_ref(
+                q, k[:, :, i], v[:, :, i], causal=False),
+            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, enable_gqa=True),
+            bytes=(2 * q.numel() + 2 * B * kh * Skv * hd) * es,
+            flops=4.0 * B * h * Sq * Skv * hd))
     # segmented flash: the packed layouts the planner gives -- the packed
     # serve's widest dispatch (phase 3b's prompts), and a ragged one with
     # padding columns, lanes without a prefix and Skv off the 32-key tile;
@@ -361,32 +437,40 @@ def kernel_cases(torch, dtype):
             + 4 * 2 * R * (C + Skv),
             flops=4.0 * h * hd * float(mask.sum())))
     # decode: llama's cache (lengths of 1 and off every tile) and a ragged
-    # one; jamba's (head dim 128, max_len 256, lengths off every tile)
-    for B, L, lens, hd in ((8, 1024, (1, 77, 700, 1023, 1024, 5, 333, 512), D),
-                           (3, 300, (1, 299, 130), D),
-                           (8, 256, (3, 67, 130, 200, 255, 19, 101, 250), 128)):
-        q, k, v = rn(B, H, hd), rn(B, KH, L, hd), rn(B, KH, L, hd)
+    # one; jamba's (head dim 128, max_len 256, lengths off every tile);
+    # whisper-medium's cross cache (16 / 16 heads, every length the 1,500
+    # frames) and pixtral-12b's cache (32 / 8 heads of 160)
+    for B, L, lens, h, kh, hd in (
+            (8, 1024, (1, 77, 700, 1023, 1024, 5, 333, 512), H, KH, D),
+            (3, 300, (1, 299, 130), H, KH, D),
+            (8, 256, (3, 67, 130, 200, 255, 19, 101, 250), H, KH, 128),
+            (8, 1500, (1500,) * 8, 16, 16, D),
+            (8, 1024, (1, 77, 700, 1023, 1024, 5, 333, 512), 32, 8, 160)):
+        q, k, v = rn(B, h, hd), rn(B, kh, L, hd), rn(B, kh, L, hd)
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         mask = (torch.arange(L, device="cuda")[None, :]
                 < lengths[:, None])[:, None, None, :]
         cases.append(dict(
             kernel="decode_attention", tol=TIGHT_TOL, deterministic=True,
-            label=f"B{B} L{L}" + ("" if hd == D else f" D{hd}"),
+            label=f"B{B} L{L}" + heads_label(h, kh, hd),
             run=lambda q=q, k=k, v=v, n=lengths: decode_attention(q, k, v, n),
             plain=lambda q=q, k=k, v=v, n=lengths:
                 ref.decode_attention_ref(q, k, v, n),
             library=lambda q=q, k=k, v=v, m=mask:
                 F.scaled_dot_product_attention(
                     q[:, :, None], k, v, attn_mask=m, enable_gqa=True),
-            bytes=(2 * q.numel() + 2 * KH * hd * sum(lens)) * es + 4 * B,
-            flops=4.0 * H * hd * sum(lens)))
+            bytes=(2 * q.numel() + 2 * kh * hd * sum(lens)) * es + 4 * B,
+            flops=4.0 * h * hd * sum(lens)))
     # matvec: llama's decode FCs -- wg/wi (d -> f), wo of the MLP (f -> d),
     # wq/wo of attention (d -> d), wk/wv (d -> KH*D) -- at n in {1, 3, 8}
     # slot rows; then rwkv6-7b's (4096 -> 4096, 4096 -> 14336, 14336 ->
     # 4096) and jamba-v0.1-52b's (4096 -> 8192, 8192 -> 4096, 4096 -> 1024);
     # gpt2-xl's and gpt2-2.5b's (d -> d for q, k, v and o; d -> 4d gelu and
-    # 4d -> d, the non-gated MLP) and qwen3-moe-30b-a3b's k and v (2048 ->
-    # 256), at the 8 rows the engine decodes
+    # 4d -> d, the non-gated MLP), qwen3-moe-30b-a3b's k and v (2048 ->
+    # 256), whisper-medium's (1024 -> 1024 for q, k, v, o and the cross
+    # attention's q and o; 1024 -> 4096 gelu, 4096 -> 1024) and
+    # pixtral-12b's (5120 -> 5120 for q and o, 5120 -> 1280 for k and v,
+    # 5120 -> 14336 silu, 14336 -> 5120), at the 8 rows the engine decodes
     shapes = [(n, d, f, "silu") for n in (1, 3, 8)] \
         + [(n, f, d, "none") for n in (1, 3, 8)] \
         + [(8, d, d, "none"), (8, d, KH * D, "none")] \
@@ -395,7 +479,11 @@ def kernel_cases(torch, dtype):
            (8, 8192, 4096, "none"), (8, 4096, 1024, "none")] \
         + [s for dm in (1536, 1920) for s in (
             (8, dm, dm, "none"), (8, dm, 4 * dm, "gelu"),
-            (8, 4 * dm, dm, "none"))] + [(8, d, 256, "none")]
+            (8, 4 * dm, dm, "none"))] + [(8, d, 256, "none")] \
+        + [(8, 1024, 1024, "none"), (8, 1024, 4096, "gelu"),
+           (8, 4096, 1024, "none"), (8, 5120, 5120, "none"),
+           (8, 5120, 1280, "none"), (8, 5120, 14336, "silu"),
+           (8, 14336, 5120, "none")]
     for n, din, dout, act in shapes:
         x, w = rn(n, din), rn(din, dout, scale=din ** -0.5)
         lib_act = {"silu": F.silu, "none": lambda t: t,
@@ -740,11 +828,21 @@ def check_kernels(torch) -> dict:
                 fail(f"{c['kernel']} [{dname} {c['label']}] disagrees with "
                      f"its plain version: max |err| {max_err:.3g}, tol "
                      f"{atol} + {rtol} |want|")
+            broken_share = None
+            if "broken" in c:     # a known-wrong output must fail the bound
+                wrong = (c["broken"]().float() - want.float()).abs()
+                broken_share = float((wrong / limit).max())
+                if broken_share <= 1:
+                    fail(f"{c['kernel']} [{dname} {c['label']}]: the bound "
+                         f"passes the plain version with a KV tile dropped "
+                         f"(share {broken_share:.3g})")
             # the largest share of its bound that an element's error takes
             row = dict(kernel=c["kernel"], dtype=dname, label=c["label"],
                        max_abs_err=max_err,
                        tol_share=float((err / limit).max()),
                        deterministic=bool(c.get("deterministic")))
+            if broken_share is not None:
+                row["dropped_tile_tol_share"] = broken_share
             if dname == c.get("timed", "bfloat16"):
                 row["ms"] = time_ms(torch, c["run"])
                 row["plain_ms"] = time_ms(torch, c["plain"])
@@ -823,19 +921,24 @@ def serve_engine(cfg, params, recorder=None, prompts=None, max_new=32,
     return eng
 
 
-def full_width_serve(torch, cfg, params, name: str, required, **engine_kw
-                     ) -> dict:
+def full_width_serve(torch, cfg, params, name: str, required,
+                     record: bool = False, **engine_kw) -> dict:
     """One measured serve of ``serve_engine``'s requests. The kernels in
     ``required`` must launch. Launch counts are set to 0 just before the
     run and read just after; CUDA's sync debug mode counts every
     synchronizing call the run makes besides the engine's own fetch, and
-    there must be none."""
+    there must be none. With ``record``, a ``TraceRecorder`` records the
+    serve beside the clock (its trace under ``"trace"``, for phase 13)."""
     import warnings
 
     from repro_torch.kernels import ops
+    from repro_torch.trace import TraceRecorder
 
     clock = PhaseClock(torch, ops)
-    eng = serve_engine(cfg, params, recorder=clock, **engine_kw)
+    rec = TraceRecorder() if record else None
+    eng = serve_engine(cfg, params,
+                       recorder=clock if rec is None else Tee(clock, rec),
+                       **engine_kw)
     plens = [len(r.prompt) for r in eng.queue]
     n_req, n_new = len(plens), eng.queue[0].max_new_tokens
     torch.cuda.synchronize()
@@ -901,6 +1004,8 @@ def full_width_serve(torch, cfg, params, name: str, required, **engine_kw
                max_memory_allocated_prefill=clock.marks[last_prefill][3],
                launches=counts, launches_per_prefill_dispatch=per_chunk,
                launches_per_decode_step=per_step, tokens=results)
+    if rec is not None:
+        out["trace"] = rec.to_trace()
     del eng
     torch.cuda.empty_cache()
     return out
@@ -913,6 +1018,7 @@ TIMED = ("wall_s", "prefill_s", "prefill_tok_s", "decode_s", "decode_tok_s",
 def two_serves(a: dict, b: dict) -> dict:
     """Two measured serves of one kind as one record: the first's counts,
     the means and both runs of the times, whether the tokens repeated."""
+    a = {k: v for k, v in a.items() if k != "trace"}
     return dict(a, **{k: (a[k] + b[k]) / 2 for k in TIMED},
                 **{f"{k}_runs": [a[k], b[k]] for k in TIMED},
                 same_tokens_both_runs=a["tokens"] == b["tokens"])
@@ -981,8 +1087,8 @@ def full_width_serves(torch, checks) -> dict:
     tokens = torch.from_numpy(np.random.default_rng(8).integers(
         0, cfg.vocab_size, (2, 1024))).to("cuda")
     out["3d bf16 steps"] = bf16_steps(torch, cfg, params, "llama",
-                                      serve_prompts(cfg.vocab_size), tokens,
-                                      pack=True)
+                                      serve_prompts(cfg.vocab_size),
+                                      {"tokens": tokens}, pack=True)
     log(f"phase 3d took {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
@@ -1310,7 +1416,7 @@ def plain_path(ops):
         ops._use_kernel = routed
 
 
-def bf16_steps(torch, cfg, params, name: str, prompts, step_tokens,
+def bf16_steps(torch, cfg, params, name: str, prompts, step_batch,
                pack: bool, **engine_kw) -> dict:
     """A decode step and a prefill step of ``cfg`` in bf16, through the
     kernels and through the plain versions, both on the card, each against
@@ -1318,7 +1424,8 @@ def bf16_steps(torch, cfg, params, name: str, prompts, step_tokens,
     one after a wave's prefill (``prompts``, through the engine's own
     prefill: flash chunks, or sequential decode steps for the recurrent
     stacks); the prefill step is ``step_fn_for(cfg, "prefill")`` on
-    ``step_tokens``. The kernel path's max |error| may be at most twice
+    ``step_batch`` (its stub embeddings cast to float32 for the float32
+    pass). The kernel path's max |error| may be at most twice
     the bf16 plain path's own. With ``pack``, the packed prefill's first
     step is held to the same bound and set beside the unpacked one. The
     float32 pass casts ``params`` in place, leaf by leaf (a float32 copy of
@@ -1330,7 +1437,6 @@ def bf16_steps(torch, cfg, params, name: str, prompts, step_tokens,
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    batch = {"tokens": step_tokens}
 
     def first_step(c, p, **kw):
         eng = serve_engine(c, p, prompts=prompts, max_new=1,
@@ -1341,6 +1447,9 @@ def bf16_steps(torch, cfg, params, name: str, prompts, step_tokens,
         return logits.float()
 
     def both(c, p, plain: bool, **kw):
+        batch = {k: v.float() if c.dtype == "float32"
+                 and v.is_floating_point() else v
+                 for k, v in step_batch.items()}
         with plain_path(ops) if plain else contextlib.nullcontext():
             out = {"decode": first_step(c, p, **kw),
                    "prefill": step_fn_for(c, "prefill")(p, batch).float()}
@@ -1497,18 +1606,20 @@ def recurrent_prompts(vocab: int):
 
 
 def prefill_step_run(torch, cfg, params, phase: str, expect: dict, B: int,
-                     S: int, runs: int = 2) -> dict:
+                     S: int, runs: int = 2, batch=None) -> dict:
     """The full-sequence prefill step (``step_fn_for(cfg, "prefill")``,
-    ``forward_full(last_only=True)``) on (B, S) tokens: one unmeasured
-    call, then ``runs`` measured ones by CUDA events. Each kernel of
-    ``expect`` must launch exactly that many times in each."""
+    ``forward_full(last_only=True)``) on (B, S) tokens from a seed, or on
+    ``batch`` (tokens and a family's stub embeddings, on the card): one
+    unmeasured call, then ``runs`` measured ones by CUDA events. Each
+    kernel of ``expect`` must launch exactly that many times in each."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import step_fn_for
 
     step = step_fn_for(cfg, "prefill")
-    batch = {"tokens": torch.from_numpy(np.random.default_rng(5).integers(
-        0, cfg.vocab_size, (B, S))).to("cuda")}
+    if batch is None:
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(
+            5).integers(0, cfg.vocab_size, (B, S))).to("cuda")}
     step(params, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1617,8 +1728,8 @@ def recurrent_full_width(torch, cfg, name: str, phases, required,
     if len(phases) > 2:
         t0 = time.perf_counter()
         steps = bf16_steps(torch, cfg, params, name,
-                           [p[:16] for p in prompts], tokens[:, :1024],
-                           pack=False, **kw)
+                           [p[:16] for p in prompts],
+                           {"tokens": tokens[:, :1024]}, pack=False, **kw)
         log(f"phase {phases[2]} took {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
@@ -1637,14 +1748,16 @@ def leaves(tree):
 # --------------------------------------------------------------------------- #
 # phases 6 and 8: kernel path == plain path, float32, depth 2
 # --------------------------------------------------------------------------- #
-def depth2_parity(torch, cfg, name: str, variants=({},)) -> None:
+def depth2_parity(torch, cfg, name: str, variants=({},), S: int = 256,
+                  stub=None) -> None:
     """``cfg`` (full width, depth 2) in float32, through the kernels on the
     card and the plain versions on the CPU: the serve with 4 slots and
     short prompts gives identical greedy tokens, dispatch counts and host
     syncs under each of ``variants`` (``ServeConfig`` changes: packed
-    prefill for the attention stacks); the prefill step at S 256 gives
-    logits within 1e-4 (the plain scans are the sequential oracles), and,
-    with MoE, the full-sequence forward's aux loss within 1e-4."""
+    prefill for the attention stacks); the prefill step at S tokens (and
+    ``stub``, a family's stub embeddings as numpy arrays) gives logits
+    within 1e-4 (the plain scans are the sequential oracles), and, with
+    MoE, the full-sequence forward's aux loss within 1e-4."""
     import numpy as np
     from repro_torch.launch.steps import step_fn_for
     from repro_torch.models import transformer as T
@@ -1664,7 +1777,7 @@ def depth2_parity(torch, cfg, name: str, variants=({},)) -> None:
     params["cpu"] = tree(lambda a: a.cpu(), params["cuda"])
     rng = np.random.default_rng(6)
     prompts = [rng.integers(0, cfg.vocab_size, p) for p in (3, 9, 17, 6)]
-    tokens = rng.integers(0, cfg.vocab_size, (2, 256))
+    tokens = rng.integers(0, cfg.vocab_size, (2, S))
     runs, logits, aux = {}, {}, {}
     for dev in ("cuda", "cpu"):
         runs[dev] = []
@@ -1676,7 +1789,7 @@ def depth2_parity(torch, cfg, name: str, variants=({},)) -> None:
             runs[dev].append((eng.run_until_done(),
                               dict(eng.dispatch_counts), eng.host_syncs))
         logits[dev] = step_fn_for(cfg, "prefill", device=dev)(
-            params[dev], {"tokens": tokens}).cpu()
+            params[dev], {"tokens": tokens, **(stub or {})}).cpu()
         if cfg.is_moe:
             aux[dev] = float(T.forward_full(
                 cfg, params[dev], torch.from_numpy(tokens).to(dev),
@@ -1696,7 +1809,7 @@ def depth2_parity(torch, cfg, name: str, variants=({},)) -> None:
     log(f"parity float32 depth 2, {name} {list(variants)}: tokens, "
         f"dispatches {[r[1] for r in runs['cuda']]} and host syncs "
         f"{[r[2] for r in runs['cuda']]} identical on cuda and cpu; prefill "
-        f"step S 256 logits max |err| "
+        f"step S {S} logits max |err| "
         f"{float(err.max()):.3g} (relative {worst:.3g})"
         + (f"; aux loss {aux['cuda']!r} against {aux['cpu']!r}" if aux
            else ""))
@@ -1751,11 +1864,13 @@ def weights(torch, cfg, name: str):
     return params, n_bytes
 
 
-def attention_serves(torch, cfg, params, phase: str, name: str) -> dict:
+def attention_serves(torch, cfg, params, phase: str, name: str,
+                     checks=None) -> dict:
     """Phase 3's serve and 3b's packed one on ``cfg``: one unmeasured serve
     of each, then two measured ones in turns (unpacked, packed, packed,
     unpacked), each with exactly ``path_launches``'s kernels; the two
-    serves of a kind must give the same tokens."""
+    serves of a kind must give the same tokens. With ``checks``, each
+    measured serve is recorded for phase 13."""
     decode = ["decode_attention", "pim_matvec", "layernorm"]
     variants = (("unpacked", ["flash_attention"] + decode, {}),
                 ("packed", ["flash_attention_segmented"] + decode,
@@ -1768,7 +1883,10 @@ def attention_serves(torch, cfg, params, phase: str, name: str) -> dict:
     for v, required, kw in variants + variants[::-1]:
         t0 = time.perf_counter()
         r = full_width_serve(torch, cfg, params, f"{phase} {name} {v}",
-                             required, **kw)
+                             required, record=checks is not None, **kw)
+        if checks is not None:
+            checks.add(f"{phase} {name} {v} {len(runs[v]) + 1}",
+                       [r.pop("trace")])
         check_launches(r, cfg, packed=bool(kw))
         runs[v].append(r)
         log(f"phase {phase} {v} took {time.perf_counter() - t0:.1f} s")
@@ -1864,18 +1982,25 @@ def moe_serves(torch) -> dict:
     return out
 
 
+def empty_card(torch) -> int:
+    """Collect the earlier phases' garbage (an engine in a reference cycle
+    with its recorder holds its cache until a collection) and hand the
+    cached blocks back; returns the bytes still allocated."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
 def kimi_step(torch) -> dict:
     """Phase 11c: kimi-k2-1t-a32b's prefill step at its published widths
     (d 7168, 64 / 8 heads of 112, 384 experts), cut to 1 of 61 layers, on
     B 2 x S 1024: flash at D 112 once, logits finite. It runs on an empty
     card: every earlier phase's tensors must be gone first."""
-    import gc
-
     from repro_torch.configs import get_arch
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated()
+    held = empty_card(torch)
     if held > 2**30:
         fail(f"11c: {held} bytes still allocated before kimi-k2's weights")
     full = get_arch("kimi-k2-1t-a32b")
@@ -2375,6 +2500,383 @@ FLEET_PHASES = {"12": chaos_fleet, "12b": serving_fleet, "12c": fleet_parity}
 
 
 # --------------------------------------------------------------------------- #
+# phases 14-15b: whisper-medium's encoder-decoder, pixtral-12b's patches
+# --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def attention_shapes(ops):
+    """Within it, each launch of the static flash kernel is tallied by
+    ("flash", causal, Sq, Skv, D) and each of the decode kernel by
+    ("decode", S, D): the kernels count their launches, this says in which
+    mode and at which shape they ran. The port has no such hook; this test
+    wraps the dispatch layer's two kernels and restores them after."""
+    import collections
+
+    tally = collections.Counter()
+    flash, decode = ops._flash, ops._decode
+
+    def counted_flash(q, k, v, *, causal=True, q_offset=0):
+        tally["flash", bool(causal), q.shape[2], k.shape[2], q.shape[3]] += 1
+        return flash(q, k, v, causal=causal, q_offset=q_offset)
+
+    def counted_decode(q, k, v, lengths):
+        tally["decode", k.shape[2], q.shape[2]] += 1
+        return decode(q, k, v, lengths)
+    ops._flash, ops._decode = counted_flash, counted_decode
+    try:
+        yield tally
+    finally:
+        ops._flash, ops._decode = flash, decode
+
+
+def shape_counts(tally) -> dict:
+    """``attention_shapes``'s tally as JSON-ready {key: count}."""
+    return {" ".join(str(x) for x in k): n for k, n in sorted(tally.items())}
+
+
+# what whisper-medium's steps launch: the prefill step runs flash once an
+# encoder layer (non-causal, 1,500 frames) and twice a decoder layer (its
+# causal self attention; its cross attention, non-causal, against the
+# frames), the norm twice an encoder layer and three times a decoder layer
+# and once after each stack; a decode step runs decode attention twice a
+# layer (self, cross), the GEMV 8 times a layer (q, k, v, o; the cross
+# attention's q and o; the MLP's two) and the norm 3 L + 1 times
+NO_LAUNCH = {"flash_attention": 0, "flash_attention_segmented": 0,
+             "decode_attention": 0, "pim_matvec": 0, "layernorm": 0,
+             "rwkv_chunk": 0, "masked_softmax": 0, "mamba_chunk": 0}
+
+
+def whisper_launches(cfg) -> tuple:
+    L, E = cfg.num_layers, cfg.encoder_layers
+    step = dict(NO_LAUNCH, flash_attention=E + 2 * L,
+                layernorm=2 * E + 1 + 3 * L + 1)
+    decode = dict(NO_LAUNCH, decode_attention=2 * L, pim_matvec=8 * L,
+                  layernorm=3 * L + 1)
+    return step, decode
+
+
+def whisper_prompts(vocab: int):
+    """The 8 prompts of the whisper serves, lengths from a seed in 4-32."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    return [rng.integers(0, vocab, int(p)) for p in rng.integers(4, 33, 8)]
+
+
+def whisper_generate(torch, cfg, params, dev: str, frames, prompt,
+                     n_steps: int) -> dict:
+    """``prefill_with_cache`` of ``prompt`` (B, S) with ``frames`` (the
+    encoder, each layer's cross cache filled once, S teacher-forced decode
+    steps), then ``n_steps`` greedy ``decode_step``s against the filled
+    cross cache, the next token chosen on the device. On the card: the
+    launches of the prefill and of each decode step, and the decode's ms
+    a step by CUDA events."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    B = prompt.shape[0]
+    cache = init_params(T.cache_defs(cfg, B, 448), device=dev)
+    prompt, frames = prompt.to(dev), frames.to(dev)
+    on_card = dev == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+    logits, cache, lens = T.prefill_with_cache(cfg, params, prompt, cache,
+                                               frame_embeds=frames)
+    tok = logits.argmax(-1)
+    out = {}
+    if on_card:
+        out["prefill_launches"] = ops.launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ev[0].record()
+    toks = [tok]
+    for _ in range(n_steps):
+        logits, cache = T.decode_step(cfg, params, tok[:, None], cache, lens)
+        tok = logits.argmax(-1)
+        lens = lens + 1
+        toks.append(tok)
+    if on_card:
+        ev[1].record()
+        torch.cuda.synchronize()
+        out["decode_launches"] = ops.launch_counts()
+        out["ms_per_decode_step"] = ev[0].elapsed_time(ev[1]) / n_steps
+    if float(cache["pos0"]["ck"].float().abs().amax()) == 0:
+        fail(f"whisper generate on {dev}: the cross cache was not filled")
+    out["tokens"] = torch.stack(toks, 1).cpu().tolist()
+    return out
+
+
+def whisper_batch(torch, cfg, B: int, S: int, seed: int, dtype):
+    """``batch_for``'s tokens and frames (in ``dtype``) on the card."""
+    from repro_torch.data import batch_for
+    b = batch_for(cfg, B, S, seed=seed)
+    return {"tokens": torch.from_numpy(b["tokens"]).to("cuda"),
+            "frame_embeds": torch.from_numpy(b["frame_embeds"]).to(
+                "cuda", dtype)}
+
+
+def whisper_phases(torch, checks) -> dict:
+    """Phase 14: whisper-medium at full width and depth (24 encoder and 24
+    decoder layers), bf16, weights from a seed, frames from ``batch_for``
+    in bf16: (a) the prefill step at B 2, 1,500 frames and 448 decoder
+    tokens, each call launching exactly ``whisper_launches``'s kernels,
+    flash 48 times non-causal and 24 times causal, then one profiled
+    call; (b) ``prefill_with_cache``
+    for 8 rows of 16 tokens with frames, then 32 greedy decode steps
+    against the filled cross cache, twice, with identical tokens and each
+    step's launches exact (decode attention over the 1,500 frames once a
+    layer); (c) the engine serves 8 requests (prompts of 4-32 tokens, 16
+    new, ``max_len`` 448) twice after an unmeasured serve: identical
+    tokens, sequential prefill (one dispatch a prompt token but the last),
+    one host sync a decode step and no hidden one, the launches of a
+    decode step in every dispatch, each serve recorded for phase 13; then
+    the bf16 bound of 3d on the prefill step and on the first decode step
+    after a wave of the prompts cut to 8 tokens (last: it casts the
+    weights to float32). Phase 14b: ``whisper_parity``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import step_fn_for
+
+    cfg = get_arch("whisper-medium")
+    t_phase = time.perf_counter()
+    held = empty_card(torch)
+    params, n_bytes = weights(torch, cfg, cfg.name)
+    step_launch, decode_launch = whisper_launches(cfg)
+    out = {"weight_bytes": n_bytes, "allocated_before": held}
+    log(f"phase 14: {held} bytes allocated before whisper's weights")
+    # (a) the prefill step
+    t0 = time.perf_counter()
+    batch = whisper_batch(torch, cfg, 2, 448, 5, torch.bfloat16)
+    runs = 2
+    with attention_shapes(ops) as tally:
+        step = prefill_step_run(torch, cfg, params, "14a whisper prefill "
+                                "step", step_launch, B=2, S=448, runs=runs,
+                                batch=batch)
+    S_enc, L, E = cfg.encoder_seq, cfg.num_layers, cfg.encoder_layers
+    want = {("flash", False, S_enc, S_enc, 64): E * (runs + 1),
+            ("flash", True, 448, 448, 64): L * (runs + 1),
+            ("flash", False, 448, S_enc, 64): L * (runs + 1)}
+    if dict(tally) != want:
+        fail(f"14a: flash ran {shape_counts(tally)}, expected "
+             f"{shape_counts(want)}")
+    step["flash_by_shape_per_step"] = {k: n // (runs + 1) for k, n in
+                                       shape_counts(tally).items()}
+    out["14a"] = step
+    log(f"phase 14a took {time.perf_counter() - t0:.1f} s; step "
+        + json.dumps(step))
+    out["14a profile"] = device_profile(
+        torch, lambda: step_fn_for(cfg, "prefill")(params, batch))
+    log("profile 14a whisper-medium prefill step "
+        + json.dumps(out["14a profile"]))
+    # (b) prefill_with_cache, then greedy decode against the cross cache
+    t0 = time.perf_counter()
+    gen_in = whisper_batch(torch, cfg, 8, 16, 9, torch.bfloat16)
+    gens = []
+    for _ in range(2):
+        with attention_shapes(ops) as tally:
+            g = whisper_generate(torch, cfg, params, "cuda",
+                                 gen_in["frame_embeds"], gen_in["tokens"],
+                                 32)
+        g["attention_by_shape"] = shape_counts(tally)
+        gens.append(g)
+    g = gens[0]
+    if g["decode_launches"] != {k: 32 * n for k, n in decode_launch.items()}:
+        fail(f"14b: 32 decode steps launched {g['decode_launches']}, "
+             f"expected 32 x {decode_launch}")
+    pre = g["prefill_launches"]
+    if pre["flash_attention"] != E or pre["decode_attention"] != 16 * 2 * L:
+        fail(f"14b: prefill_with_cache launched {pre}")
+    if tally["decode", S_enc, 64] != (16 + 32) * L:
+        fail(f"14b: decode attention over the frames {shape_counts(tally)}")
+    if gens[0]["tokens"] != gens[1]["tokens"]:
+        fail("14b: two runs of the same greedy decode gave other tokens")
+    out["14b generate"] = dict(
+        rows=8, prompt=16, steps=32, prefill_launches=pre,
+        decode_launches_per_step={k: n // 32 for k, n in
+                                  g["decode_launches"].items()},
+        ms_per_decode_step=[x["ms_per_decode_step"] for x in gens],
+        attention_by_shape=g["attention_by_shape"],
+        cross_launches=tally["decode", S_enc, 64], same_tokens_both_runs=True)
+    log(f"phase 14b took {time.perf_counter() - t0:.1f} s; generate "
+        + json.dumps(out["14b generate"]))
+    # (c) the engine
+    prompts = whisper_prompts(cfg.vocab_size)
+    kw = dict(prompts=prompts, max_new=16, max_slots=8, max_len=448)
+    t0 = time.perf_counter()
+    serve_engine(cfg, params, **kw).run_until_done()
+    log(f"phase 14c warm-up took {time.perf_counter() - t0:.1f} s")
+    serves = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        r = full_width_serve(torch, cfg, params, "14c whisper serve",
+                             ["decode_attention", "pim_matvec", "layernorm"],
+                             record=True, **kw)
+        checks.add(f"14c whisper-medium serve {i + 1}", [r.pop("trace")])
+        nonzero = {k: v for k, v in decode_launch.items() if v}
+        for what in ("launches_per_decode_step",
+                     "launches_per_prefill_dispatch"):
+            if {k: v for k, v in r[what].items() if v} != nonzero:
+                fail(f"14c: {what} {r[what]}, expected {nonzero}")
+        if r["dispatch_counts"]["prefill"] != sum(len(p) - 1
+                                                   for p in prompts):
+            fail(f"14c: {r['dispatch_counts']} for prompts "
+                 f"{[len(p) for p in prompts]}")
+        serves.append(r)
+        log(f"phase 14c took {time.perf_counter() - t0:.1f} s")
+    out["14c"] = two_serves(*serves)
+    if not out["14c"]["same_tokens_both_runs"]:
+        fail("14c: two serves of the same requests gave other tokens")
+    log("serve 14c whisper-medium " + json.dumps(
+        {k: v for k, v in out["14c"].items() if k != "tokens"}))
+    # the bf16 bound (casts the weights to float32 in place)
+    t0 = time.perf_counter()
+    out["14a bf16 steps"] = bf16_steps(
+        torch, cfg, params, "whisper-medium", [p[:8] for p in prompts],
+        batch, pack=False, max_slots=8, max_len=448)
+    log(f"phase 14a bf16 bound took {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    out["14b parity"] = whisper_parity(torch)
+    log(f"phase 14b took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def whisper_parity(torch) -> dict:
+    """Phase 14b: whisper-medium at full width, depth 2 (2 encoder and 2
+    decoder layers), 1,500 frames, float32, through the kernels on the
+    card and the plain versions on the CPU: the prefill step (B 2, 448
+    tokens) logits within 1e-4, phase 14's greedy decode and its serve
+    with identical tokens, dispatch counts and host syncs."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.data import batch_for
+    from repro_torch.launch.steps import step_fn_for
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("whisper-medium"), num_layers=2,
+                              encoder_layers=2, dtype="float32")
+    params = init_params(T.param_defs(cfg),
+                         torch.Generator(device="cuda").manual_seed(2),
+                         device="cuda")
+
+    def tree(fn, t):
+        return {k: tree(fn, v) for k, v in t.items()} \
+            if isinstance(t, dict) else fn(t)
+    params = {"cuda": tree(lambda a: a.float(), params)}
+    params["cpu"] = tree(lambda a: a.cpu(), params["cuda"])
+    step_in = batch_for(cfg, 2, 448, seed=5)
+    gen_in = batch_for(cfg, 8, 16, seed=9)
+    prompts = whisper_prompts(cfg.vocab_size)
+    logits, gens, serves = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        logits[dev] = step_fn_for(cfg, "prefill", device=dev)(
+            params[dev], step_in).cpu()
+        gens[dev] = whisper_generate(
+            torch, cfg, params[dev], dev,
+            torch.from_numpy(gen_in["frame_embeds"]),
+            torch.from_numpy(gen_in["tokens"]), 32)["tokens"]
+        eng = ServeEngine(cfg, params[dev], ServeConfig(
+            max_slots=8, max_len=448), device=dev)
+        for pr in prompts:
+            eng.add_request(pr, max_new_tokens=16)
+        serves[dev] = (eng.run_until_done(), dict(eng.dispatch_counts),
+                       eng.host_syncs)
+    err = (logits["cuda"] - logits["cpu"]).abs()
+    worst = float((err / (1 + logits["cpu"].abs())).max())
+    if worst > 1e-4:
+        fail(f"14b whisper prefill step: kernel path != plain path, max "
+             f"|err| / (1 + |plain|) {worst:.3g} > 1e-4")
+    if gens["cuda"] != gens["cpu"]:
+        fail("14b whisper greedy decode: kernel path != plain path")
+    if serves["cuda"] != serves["cpu"]:
+        fail(f"14b whisper serve: kernel path != plain path: "
+             f"{serves['cuda'][1:]} != {serves['cpu'][1:]}")
+    out = dict(prefill_step_max_abs_err=float(err.max()),
+               prefill_step_relative_err=worst,
+               dispatches=serves["cuda"][1], host_syncs=serves["cuda"][2])
+    log("parity float32 depth 2, whisper-medium: prefill step logits within "
+        f"{worst:.3g} (relative), greedy decode tokens, serve tokens, "
+        f"dispatches and host syncs identical on cuda and cpu "
+        + json.dumps(out))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def pixtral_phases(torch, checks) -> dict:
+    """Phase 15: pixtral-12b at full width and depth (40 layers, 32 / 8
+    heads of 160), bf16, weights from a seed: (a) the prefill step at B 2
+    with 256 patches and 768 text tokens, flash (D 160, causal) 40 times
+    and the norm 81 times a call; (b) phase 3's serve, unpacked and
+    packed, each twice after an unmeasured serve (``attention_serves``:
+    each decode step and prefill chunk exactly ``path_launches``'s),
+    recorded for phase 13, then one profiled serve (8 new tokens each).
+    Phase 15b: depth 2, float32, card against CPU
+    (the prefill step with patches, both serves), then the bf16 bound of
+    3d at depth 2 (a float32 copy of the full depth does not fit beside
+    the bf16 one)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import batch_for
+    from repro_torch.kernels import ops
+
+    cfg = get_arch("pixtral-12b")
+    t_phase = time.perf_counter()
+    held = empty_card(torch)
+    params, n_bytes = weights(torch, cfg, cfg.name)
+    out = {"weight_bytes": n_bytes, "allocated_before": held}
+    log(f"phase 15: {held} bytes allocated before pixtral's weights")
+    t0 = time.perf_counter()
+    b = batch_for(cfg, 2, 1024, seed=5)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in b.items()
+             if k in ("tokens", "patch_embeds")}
+    L, runs = cfg.num_layers, 2
+    with attention_shapes(ops) as tally:
+        step = prefill_step_run(
+            torch, cfg, params, "15a pixtral prefill step",
+            dict(NO_LAUNCH, flash_attention=L, layernorm=2 * L + 1), B=2,
+            S=1024, runs=runs, batch=batch)
+    if dict(tally) != {("flash", True, 1024, 1024, 160): L * (runs + 1)}:
+        fail(f"15a: flash ran {shape_counts(tally)}")
+    out["15a"] = step
+    log(f"phase 15a took {time.perf_counter() - t0:.1f} s; step "
+        + json.dumps(step))
+    out.update(attention_serves(torch, cfg, params, "15", cfg.name, checks))
+    t0 = time.perf_counter()
+    eng = serve_engine(cfg, params, max_new=8)
+    out["profile"] = device_profile(torch, eng.run_until_done)
+    del eng
+    log(f"profile 15 {cfg.name} (8 new tokens each; took "
+        f"{time.perf_counter() - t0:.1f} s) " + json.dumps(out["profile"]))
+    del params
+    torch.cuda.empty_cache()
+    log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    d2 = dataclasses.replace(cfg, num_layers=2)
+    stub = {"patch_embeds": batch_for(d2, 2, cfg.num_patches + 32,
+                                      seed=6)["patch_embeds"]}
+    depth2_parity(torch, dataclasses.replace(d2, dtype="float32"), cfg.name,
+                  variants=({}, dict(pack=True)), S=32, stub=stub)
+    params, _ = weights(torch, d2, f"{cfg.name} depth 2")
+    b = batch_for(d2, 2, 1024, seed=5)
+    out["15b bf16 steps"] = bf16_steps(
+        torch, d2, params, "pixtral-12b depth 2",
+        serve_prompts(cfg.vocab_size),
+        {k: torch.from_numpy(v).to("cuda") for k, v in b.items()
+         if k in ("tokens", "patch_embeds")}, pack=True)
+    del params
+    torch.cuda.empty_cache()
+    log(f"phase 15b took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # phase 13: the port's verify over the card's traces, and their replay
 # --------------------------------------------------------------------------- #
 # the machines phase 13 replays phase 9's trace on (the paper's models)
@@ -2399,11 +2901,59 @@ class Tee:
         return call
 
 
+def restore_false_alarms(trace) -> set:
+    """The locations of the packed dispatches after a KV-snapshot restore
+    at which the protocol lint's ``gather_before_scatter`` compares the
+    padded prefix span with the rows restored and scattered so far, and
+    the re-derived plan shows that the gather reads, unmasked, no more
+    than those rows (its lanes' largest ``prefix_len``): the reference's
+    rule, which the port's lint keeps, flags a restored prefix that is no
+    chunk multiple although nothing unwritten is read."""
+    import numpy as np
+    from repro_torch.sched.packing import plan_packed_job
+
+    class Req:
+        def __init__(self, plen, start):
+            self.prompt = np.zeros(plen, np.int32)
+            self.prefill_start = start
+
+    serve = trace.header.get("serve", {})
+    jobs, admits, alarms = {}, -1, set()
+    for ei, ev in enumerate(trace.events):
+        if ev["type"] == "admit":
+            admits += 1
+            restored = {int(s): int(p) for s, _r, p in ev.get("restores", [])}
+            if restored:
+                plan = plan_packed_job(
+                    [(int(s), Req(int(p), restored.get(int(s), 0)))
+                     for s, _r, p in ev["wave"]],
+                    max_slots=serve["max_slots"],
+                    chunk=serve["prefill_chunk"], sub_batch=admits)
+                if plan is not None:
+                    jobs[admits] = [plan.dispatches, 0,
+                                    sum(restored.values())]
+        elif ev["type"] == "prefill" and ev.get("packed", False):
+            job = jobs.get(int(ev.get("sub_batch", -1)))
+            if job is None:
+                continue
+            dispatches, j, scattered = job
+            scattered += int(ev["valid"])
+            span = int(ev["kv"]) - int(ev["chunk"])
+            if j < len(dispatches) and span > scattered >= int(
+                    dispatches[j].prefix_len.max(initial=0)):
+                alarms.add(f"event#{ei}@step{ev.get('step', '?')}")
+            job[1:] = [j + 1, scattered]
+    return alarms
+
+
 def verify_traces(label: str, traces, fleet: bool) -> dict:
     """The port's verify passes over one serve's trace or one fleet's node
     traces: the protocol lint, the span hazards of the lowered steps, each
     step against its reference DAG, and (a fleet) the exactly-once and
-    snapshot-provenance audits. Runs in a worker process."""
+    snapshot-provenance audits. The lint's ``gather_before_scatter``
+    findings that ``restore_false_alarms`` explains are counted apart
+    (accepted); every other finding fails the run. Runs in a worker
+    process."""
     from repro_torch.trace.lower import trace_to_commands
     from repro_torch.trace.schema import model_config_from_header
     from repro_torch.verify import (analyze_lowered, check_exactly_once,
@@ -2411,9 +2961,14 @@ def verify_traces(label: str, traces, fleet: bool) -> dict:
                                     verify_lowered_step)
 
     t0 = time.perf_counter()
-    findings, steps = [], 0
+    findings, steps, accepted = [], 0, 0
     for tr in traces:
-        findings += lint_trace(tr)
+        alarms = restore_false_alarms(tr)
+        for f in lint_trace(tr):
+            if f.klass == "gather_before_scatter" and f.location in alarms:
+                accepted += 1
+            else:
+                findings.append(f)
         lowered = trace_to_commands(tr)
         steps += len(lowered)
         findings += analyze_lowered(lowered)
@@ -2425,6 +2980,7 @@ def verify_traces(label: str, traces, fleet: bool) -> dict:
         findings += check_snapshot_provenance(traces)
     return dict(label=label, traces=len(traces), lowered_steps=steps,
                 findings=[f.to_dict() for f in findings],
+                accepted_restore_alarms=accepted,
                 seconds=time.perf_counter() - t0)
 
 
@@ -2504,7 +3060,10 @@ class TraceChecks:
         for c in checked:
             log(f"13 verify {c['label']}: {c['traces']} trace(s), "
                 f"{c['lowered_steps']} lowered steps, "
-                f"{len(c['findings'])} finding(s), {c['seconds']:.2f} s")
+                f"{len(c['findings'])} finding(s), "
+                f"{c['accepted_restore_alarms']} accepted restore alarm(s) "
+                f"(gather_before_scatter, the plan reads no unwritten row), "
+                f"{c['seconds']:.2f} s")
         if bad:
             fail("13: the port's verify found "
                  + json.dumps([(c["label"], c["findings"][:3])
@@ -2512,7 +3071,11 @@ class TraceChecks:
         out = dict(verify={c["label"]: {k: v for k, v in c.items()
                                         if k != "findings"}
                            for c in checked},
-                   verify_cpu_s=sum(c["seconds"] for c in checked))
+                   verify_cpu_s=sum(c["seconds"] for c in checked),
+                   accepted_restore_alarms=sum(
+                       c["accepted_restore_alarms"] for c in checked))
+        log(f"13 accepted restore alarms in all: "
+            f"{out['accepted_restore_alarms']}")
         if replays:
             label, _, ms = self.replay
             for m, r in replayed.items():
@@ -2539,8 +3102,9 @@ def main() -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=None,
-                    help="comma-separated fleet phases (12, 12b, 12c) to run "
-                         "alone after the build, printing no result lines")
+                    help="comma-separated phases (2, 12, 12b, 12c, 14, 15) "
+                         "to run alone after the build, printing no result "
+                         "lines")
     only = ap.parse_args().phases
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -2570,9 +3134,12 @@ def main() -> None:
                 if name in SPILL_GATED and entry["spill_stores"]:
                     fail(f"ptxas spills in {entry['kernel']}")
         if only is not None:
+            alone = dict(FLEET_PHASES, **{
+                "2": lambda torch, checks: check_kernels(torch),
+                "14": whisper_phases, "15": pixtral_phases})
             for phase in only.split(","):
                 t0 = time.perf_counter()
-                FLEET_PHASES[phase](torch, checks)
+                alone[phase](torch, checks)
                 log(f"phase {phase} took {time.perf_counter() - t0:.1f} s")
             checks.run(card)
             log(f"partial run of phases {only}: no result lines")
@@ -2619,6 +3186,8 @@ def main() -> None:
             t0 = time.perf_counter()
             fn(torch, checks)
             log(f"phase {phase} took {time.perf_counter() - t0:.1f} s")
+        whisper = whisper_phases(torch, checks)
+        pixtral = pixtral_phases(torch, checks)
         checks.run(card)
     except SystemExit:
         raise
@@ -2627,8 +3196,16 @@ def main() -> None:
         fail("a phase raised")
 
     # each kernel's row at its main-path shape, its launches from the run
-    # of its own path; then flash at the head dims of gpt2-2.5b (its serves)
-    # and kimi-k2 (its prefill step)
+    # of its own path; then flash at the head dims of gpt2-2.5b (its
+    # serves), kimi-k2 (its prefill step) and pixtral-12b (its prefill step
+    # and packed serve; decode attention from its unpacked serve), and
+    # whisper-medium's non-causal flash (one prefill step's launches at
+    # each shape) and cross decode attention (a run of phase 14b:
+    # prefill_with_cache's 16 steps and 32 decode steps)
+    per_step = whisper["14a"]["flash_by_shape_per_step"]
+
+    def launched(kernel, n):
+        return {"launches": {kernel: n}}
     rows = [(name, name, REPORTED[name],
              {"flash_attention_segmented": serves["3b packed"],
               "rwkv_chunk": rwkv["step"], "mamba_chunk": jamba["step"],
@@ -2640,7 +3217,23 @@ def main() -> None:
          REPORTED["flash_attention_segmented"] + " D96 H20/20",
          gpt2["10b"]["packed"]),
         ("flash_attention D112", "flash_attention",
-         "B2 S1024 span1024 off0 D112 H64/8", kimi)]
+         "B2 S1024 span1024 off0 D112 H64/8", kimi),
+        ("flash_attention D160", "flash_attention",
+         "B2 S1024 span1024 off0 D160", pixtral["15a"]),
+        ("flash_attention_segmented D160", "flash_attention_segmented",
+         REPORTED["flash_attention_segmented"] + " D160",
+         pixtral["packed"]),
+        ("decode_attention D160", "decode_attention", "B8 L1024 D160",
+         pixtral["unpacked"]),
+        ("flash_attention non-causal encoder", "flash_attention",
+         "B2 Sq1500 Skv1500 non-causal H16/16",
+         launched("flash_attention", per_step["flash False 1500 1500 64"])),
+        ("flash_attention non-causal cross", "flash_attention",
+         "B2 Sq448 Skv1500 non-causal H16/16",
+         launched("flash_attention", per_step["flash False 448 1500 64"])),
+        ("decode_attention cross", "decode_attention", "B8 L1500 H16/16",
+         launched("decode_attention",
+                  whisper["14b generate"]["cross_launches"]))]
     kernels = []
     for name, kernel, label, run in rows:
         route, source, replaces = SOURCES[kernel]

@@ -2,9 +2,8 @@
 
 Same fields, defaults and derived quantities as the reference package's
 config, so a configuration means the same model on both sides. The port
-serves the ``dense``, ``moe``, ``ssm`` and ``hybrid`` families; ``encdec``
-and ``vlm`` are described here so that a later slice can serve them
-without changing the config.
+serves every family: ``dense``, ``moe``, ``ssm``, ``hybrid``, ``encdec``
+and ``vlm``.
 """
 from __future__ import annotations
 

@@ -2,12 +2,13 @@
 
 Counterpart of ``repro/launch/steps.py``: ``"prefill"`` is the
 full-sequence forward with last-position logits (the serving prefill of a
-whole prompt batch from a zero state), for every family the port serves
-(MoE FFNs route the whole (B, S) batch as one group). ``"train"`` is not
+whole prompt batch from a zero state), for every family (MoE FFNs route
+the whole (B, S) batch as one group; a ``vlm`` batch carries
+``patch_embeds``, an ``encdec`` one ``frame_embeds``). ``"train"`` is not
 ported yet (ROADMAP queue 1 item 6); the engine runs its decode step itself
 (``serve/engine.py``). The step runs on the card unless ``device="cpu"``
-is given; it moves the tokens there, and the params must already be
-there.
+is given; it moves the tokens and the stub embeddings there (in their own
+dtypes), and the params must already be there.
 """
 from __future__ import annotations
 
@@ -20,12 +21,19 @@ from repro_torch.models.params import resolve_device
 
 def make_prefill_step_fn(cfg: ModelConfig, device=None):
     """Full-sequence forward, last-position logits (serving prefill):
-    ``prefill_step(params, {"tokens": (B, S)}) -> (B, V)``."""
+    ``prefill_step(params, {"tokens": (B, S)[, "patch_embeds": (B, P, d)]
+    [, "frame_embeds": (B, S_enc, d)]}) -> (B, V)``."""
     dev = resolve_device(device)
 
+    def on_dev(a):
+        return None if a is None else torch.as_tensor(a).to(dev)
+
     def prefill_step(params, batch):
-        tokens = torch.as_tensor(batch["tokens"]).to(dev)
-        logits, _aux = T.forward_full(cfg, params, tokens, last_only=True)
+        logits, _aux = T.forward_full(
+            cfg, params, on_dev(batch["tokens"]),
+            patch_embeds=on_dev(batch.get("patch_embeds")),
+            frame_embeds=on_dev(batch.get("frame_embeds")),
+            last_only=True)
         return logits[:, -1, :]
     return prefill_step
 

@@ -1,12 +1,14 @@
 """Attention: GQA prefill against the slot cache (chunked and packed),
-flash-decode serving, and the int8 KV cache.
+flash-decode serving, the int8 KV cache, and whisper's cross attention.
 
 Counterpart of ``repro/models/attention.py``, with its layouts: q is
 (B, H, S, hd), a cache leaf (B, KH, L, hd), an int8 cache's scales
 (B, KH, L). Prefill attention goes through the flash kernel (every chunk
-shape, ragged ones included; packed rows through its segmented mode) and
-decode attention through the decode kernel (layout A: heads unsharded);
-the decode step's projections go through the GEMV kernel. An int8 cache is
+shape, ragged ones included; packed rows through its segmented mode;
+whisper's encoder and the full-sequence cross attention through its
+non-causal mode) and decode attention through the decode kernel (layout
+A: heads unsharded; the cross attention at every encoder position); the
+decode step's projections go through the GEMV kernel. An int8 cache is
 dequantized to bf16 in plain PyTorch before the kernels, as the reference
 does it outside its kernels.
 
@@ -30,7 +32,10 @@ from repro_torch.models.layers import apply_rope, mm
 from repro_torch.models.params import ParamDef
 
 
-def attn_defs(cfg: ModelConfig, stacked: Optional[int] = None) -> dict:
+def attn_defs(cfg: ModelConfig, stacked: Optional[int] = None,
+              cross: bool = False) -> dict:
+    """The projections of a self-attention (or, ``cross=True``, a
+    cross-attention: the same leaves) block."""
     d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lead = () if stacked is None else (stacked,)
     la = () if stacked is None else ("layers",)
@@ -129,12 +134,14 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                      positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal attention (``forward_full``): x (B, S, d) at
-    ``positions`` (B, S) -> (B, S, d), through the flash kernel's static
-    mode (the reference's ``flash_attention_xla`` on this path)."""
+                      positions: torch.Tensor, *,
+                      causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention (``forward_full``; ``causal=False`` in
+    whisper's encoder): x (B, S, d) at ``positions`` (B, S) -> (B, S, d),
+    through the flash kernel's static mode (the reference's
+    ``flash_attention_xla`` on this path)."""
     q, k, v = qkv_project(cfg, p, x, positions)
-    return out_project(p, ops.flash_attention(q, k, v, causal=True))
+    return out_project(p, ops.flash_attention(q, k, v, causal=causal))
 
 
 # --------------------------------------------------------------------------- #
@@ -350,6 +357,49 @@ def attention_prefill_packed(cfg: ModelConfig, p: dict, x: torch.Tensor,
     info = packed_segment_info(seg_pos, seg_ids, tok_valid, prefix_len, span)
     o = ops.flash_attention(q, k_att, v_att, segment_info=info)
     return out_project(p, o), new_cache
+
+
+# --------------------------------------------------------------------------- #
+# Cross attention (whisper's decoder)
+# --------------------------------------------------------------------------- #
+def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    enc_kv) -> torch.Tensor:
+    """x: (B, S, d) decoder states against ``enc_kv`` = (k, v), each
+    (B, KH, S_enc, hd): q projected without RoPE, every encoder position
+    attended, no mask, through the flash kernel's non-causal static mode
+    (Sq = S, Skv = S_enc). -> (B, S, d)."""
+    d = x.shape[-1]
+    q = _heads(mm(x, p["wq"].reshape(d, -1)), p["wq"].shape[1])
+    k, v = enc_kv
+    return out_project(p, ops.flash_attention(q, k, v, causal=False))
+
+
+def cross_attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                           enc_kv) -> torch.Tensor:
+    """``cross_attention`` for one decode token a row: x (B, 1, d) against
+    a layer's view of the cross cache ``enc_kv`` = (ck, cv), each
+    (B, KH, S_enc, hd). The q and out projections run as GEMVs over the B
+    rows and the attention through the decode kernel with every length
+    S_enc. -> (B, 1, d)."""
+    B, _, d = x.shape
+    ck, cv = enc_kv
+    H, hd = cfg.num_heads, cfg.head_dim
+    q = _project_rows(p, x.reshape(B, d), "wq").reshape(B, H, hd)
+    lengths = torch.full((B,), ck.shape[2], dtype=torch.int32,
+                         device=x.device)
+    o = ops.decode_attention(q, ck, cv, lengths)
+    wo = p["wo"]
+    out = ops.fused_matvec(o.reshape(B, H * hd), wo.reshape(H * hd, -1))
+    return out.reshape(B, 1, -1)
+
+
+def encoder_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor):
+    """The cross-attention keys and values of encoder states enc_out
+    (B, S_enc, d): each (B, KH, S_enc, hd), plain products."""
+    d = enc_out.shape[-1]
+    k = _heads(mm(enc_out, p["wk"].reshape(d, -1)), p["wk"].shape[1])
+    v = _heads(mm(enc_out, p["wv"].reshape(d, -1)), p["wv"].shape[1])
+    return k, v
 
 
 # --------------------------------------------------------------------------- #

@@ -1,13 +1,18 @@
 """The model of the port: parameter and cache trees, the one-token decode
-step, the full-sequence forward, batched chunked prefill, the one-call
-decode + sample + terminate step, decode supersteps and fused overlapped
-steps.
+step, the full-sequence forward, whisper's encoder, batched chunked
+prefill, the teacher-forced ``prefill_with_cache``, the one-call decode +
+sample + terminate step, decode supersteps and fused overlapped steps.
 
-Counterpart of ``repro/models/transformer.py`` for the ``dense``, ``moe``
-(attention mixers, MoE FFNs), ``ssm`` (RWKV6) and ``hybrid`` (Jamba: Mamba
-and attention mixers, dense and MoE FFNs) families; ``vlm`` and ``encdec``
-raise ``NotImplementedError``. The trees keep the reference's superblock
-nesting: parameters of position j of the superblock stacked with a leading
+Counterpart of ``repro/models/transformer.py`` for every family: ``dense``,
+``moe`` (attention mixers, MoE FFNs), ``ssm`` (RWKV6), ``hybrid`` (Jamba:
+Mamba and attention mixers, dense and MoE FFNs), ``vlm`` (pixtral: a dense
+stack whose full-sequence forward takes a prefix of patch embeddings) and
+``encdec`` (whisper: a bidirectional encoder over frame embeddings under
+``encoder``, and decoder blocks with a cross attention, ``norm_cross`` and
+``cross``, whose cache holds each layer's encoder keys and values ``ck``,
+``cv`` (n_super, B, KH, encoder_seq, hd) in ``cfg.dtype``). The trees
+keep the reference's superblock nesting: parameters of position j of the
+superblock stacked with a leading
 axis of n_super = n_layers / period under ``blocks/pos{j}`` (dense and ssm
 stacks have period 1, so ``pos0``; jamba's is 8, its ``.reduced()`` 2). The
 cache of an attention position is ``{k, v}`` of shape (n_super, B, KH, L,
@@ -32,18 +37,6 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.params import ParamDef
 
-_UNPORTED = {"encdec": "ROADMAP queue 1 item 5",
-             "vlm": "ROADMAP queue 1 item 5"}
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the port serves the dense, moe, ssm and hybrid families; "
-            f"{cfg.family!r} stacks are "
-            f"{_UNPORTED.get(cfg.family, 'not ported')}")
-
-
 # --------------------------------------------------------------------------- #
 # superblock structure
 # --------------------------------------------------------------------------- #
@@ -64,10 +57,13 @@ def _position_kinds(cfg: ModelConfig):
 # --------------------------------------------------------------------------- #
 # parameter and cache defs
 # --------------------------------------------------------------------------- #
-def _block_defs(cfg: ModelConfig, mixer: str, ffn: str, n_super: int
-                ) -> dict:
+def _block_defs(cfg: ModelConfig, mixer: str, ffn: str, n_super: int,
+                cross: bool = False) -> dict:
     d = {"norm1": L.norm_defs(cfg, stacked=n_super),
          "norm2": L.norm_defs(cfg, stacked=n_super)}
+    if cross and mixer == "attn":
+        d["norm_cross"] = L.norm_defs(cfg, stacked=n_super)
+        d["cross"] = A.attn_defs(cfg, stacked=n_super, cross=True)
     if mixer == "rwkv":
         # time mix (mixer) + channel mix (its own FFN); norm2 separates them
         d["rwkv"] = S.rwkv_defs(cfg, stacked=n_super)
@@ -80,14 +76,20 @@ def _block_defs(cfg: ModelConfig, mixer: str, ffn: str, n_super: int
 
 
 def param_defs(cfg: ModelConfig) -> dict:
-    _require_ported(cfg)
     n_super = cfg.num_layers // superblock_period(cfg)
-    return {
+    cross = cfg.family == "encdec"
+    defs = {
         "embed": L.embed_defs(cfg),
-        "blocks": {f"pos{j}": _block_defs(cfg, mixer, ffn, n_super)
+        "blocks": {f"pos{j}": _block_defs(cfg, mixer, ffn, n_super, cross)
                    for j, (mixer, ffn) in enumerate(_position_kinds(cfg))},
         "final_norm": L.norm_defs(cfg),
     }
+    if cross:
+        defs["encoder"] = {
+            "blocks": {"pos0": _block_defs(cfg, "attn", "dense",
+                                           cfg.encoder_layers)},
+            "final_norm": L.norm_defs(cfg)}
+    return defs
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
@@ -96,8 +98,9 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     and each (slot, head, position) carries a float32 scale. RWKV: the wkv
     state in float32 and the two token-shift carries in ``cfg.dtype``.
     Mamba: the conv history in ``cfg.dtype`` and the ssm state in
-    float32."""
-    _require_ported(cfg)
+    float32. An encdec attention layer also holds its cross keys and
+    values ``ck``/``cv`` over the ``encoder_seq`` frames, in
+    ``cfg.dtype``."""
     n_super = cfg.num_layers // superblock_period(cfg)
     out = {}
     for j, (mixer, _ffn) in enumerate(_position_kinds(cfg)):
@@ -113,6 +116,12 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
                                         dtype="float32")
                 c["v_scale"] = ParamDef(s_shape, s_axes, "zeros",
                                         dtype="float32")
+            if cfg.family == "encdec":
+                xshape = (n_super, batch, cfg.num_kv_heads, cfg.encoder_seq,
+                          cfg.head_dim)
+                xaxes = ("layers", "batch", "kv_heads", None, "head_dim")
+                c["ck"] = ParamDef(xshape, xaxes, "zeros", dtype=cfg.dtype)
+                c["cv"] = ParamDef(xshape, xaxes, "zeros", dtype=cfg.dtype)
         elif mixer == "mamba":
             c = {"conv": ParamDef((n_super, batch, cfg.ssm_conv - 1,
                                    cfg.d_inner),
@@ -165,9 +174,12 @@ def _apply_ffn(cfg: ModelConfig, ffn: str, p: dict, h: torch.Tensor,
 
 
 def _apply_block_full(cfg: ModelConfig, kind: Tuple[str, str], p: dict,
-                      x: torch.Tensor, positions: torch.Tensor):
-    """Full-sequence (prefill) block from a zero state. x: (B, S, d).
-    Returns (x, aux loss or None)."""
+                      x: torch.Tensor, positions: torch.Tensor,
+                      enc_kv=None, causal: bool = True):
+    """Full-sequence (prefill) block from a zero state. x: (B, S, d);
+    ``enc_kv`` (an encdec decoder block's encoder keys and values) adds
+    the cross attention after the self attention; ``causal=False`` is the
+    encoder's. Returns (x, aux loss or None)."""
     mixer, ffn = kind
     h = L.apply_norm(cfg, p["norm1"], x)
     if mixer == "rwkv":
@@ -177,7 +189,11 @@ def _apply_block_full(cfg: ModelConfig, kind: Tuple[str, str], p: dict,
         y, _ = S.rwkv_channel_mix(cfg, p["rwkv"], h)
         return x + y, None
     if mixer == "attn":
-        x = x + A.attention_prefill(cfg, p["attn"], h, positions)
+        x = x + A.attention_prefill(cfg, p["attn"], h, positions,
+                                    causal=causal)
+        if enc_kv is not None:
+            h = L.apply_norm(cfg, p["norm_cross"], x)
+            x = x + A.cross_attention(cfg, p["cross"], h, enc_kv)
     else:
         x = x + S.mamba_mix(cfg, p["mamba"], h)[0]
     h = L.apply_norm(cfg, p["norm2"], x)
@@ -205,6 +221,11 @@ def _apply_block_decode(cfg: ModelConfig, kind: Tuple[str, str], p: dict,
         return x + y
     if mixer == "attn":
         y, _ = A.attention_decode(cfg, p["attn"], h, cache, cur_len)
+        if "ck" in cache:
+            x = x + y
+            h = L.apply_norm(cfg, p["norm_cross"], x)
+            y = A.cross_attention_decode(cfg, p["cross"], h,
+                                         (cache["ck"], cache["cv"]))
     else:
         y, st = S.mamba_mix(cfg, p["mamba"], h, state={
             "conv": cache["conv"], "ssm": cache["ssm"]})
@@ -217,19 +238,53 @@ def _apply_block_decode(cfg: ModelConfig, kind: Tuple[str, str], p: dict,
 
 
 # --------------------------------------------------------------------------- #
+# encoder (whisper)
+# --------------------------------------------------------------------------- #
+def encode(cfg: ModelConfig, params: dict,
+           frame_embeds: torch.Tensor) -> torch.Tensor:
+    """frame_embeds (B, S_enc, d), the stub frontend's output, taken in
+    its own dtype as the reference takes it -> encoder states (B, S_enc,
+    d): ``encoder_layers`` bidirectional blocks (the flash kernel's
+    non-causal mode) and the encoder's final norm."""
+    x = frame_embeds
+    positions = torch.arange(x.shape[1], device=x.device)[None].expand(
+        x.shape[0], x.shape[1])
+    enc = params["encoder"]
+    for i in range(cfg.encoder_layers):
+        x, _ = _apply_block_full(cfg, ("attn", "dense"),
+                                 _layer(enc["blocks"]["pos0"], i), x,
+                                 positions, causal=False)
+    return L.apply_norm(cfg, enc["final_norm"], x)
+
+
+# --------------------------------------------------------------------------- #
 # full-sequence forward (the serving prefill step)
 # --------------------------------------------------------------------------- #
 def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+                 patch_embeds: Optional[torch.Tensor] = None,
+                 frame_embeds: Optional[torch.Tensor] = None,
                  last_only: bool = False):
-    """tokens (B, S) -> (logits (B, S, V), aux loss), every layer from a
-    zero state; ``last_only=True`` emits only the final position's logits
+    """tokens (B, S) -> (logits (B, S_tot, V), aux loss), every layer from
+    a zero state; ``last_only=True`` emits only the final position's logits
     (B, 1, V) (the serving prefill: a (B, S, V) tensor at a long S and a
-    large vocab does not fit). Attention runs through the flash kernel, the
-    RWKV time mix through the ``rwkv_chunk`` kernel and the Mamba scan
-    through the ``mamba_chunk`` kernel. The aux loss is the sum of the MoE
-    layers' balance terms (0 without MoE)."""
-    _require_ported(cfg)
+    large vocab does not fit). A ``vlm`` stack takes ``patch_embeds``
+    (B, P, d), cast to the activations' dtype and prepended, so that
+    S_tot = P + S and positions run over both; an ``encdec`` stack takes
+    ``frame_embeds`` (B, S_enc, d), encodes them, and each decoder layer
+    attends its own keys and values of the encoder states. Attention runs
+    through the flash kernel, the RWKV time mix through the ``rwkv_chunk``
+    kernel and the Mamba scan through the ``mamba_chunk`` kernel. The aux
+    loss is the sum of the MoE layers' balance terms (0 without MoE)."""
     x = L.embed_tokens(params["embed"], tokens)
+    if cfg.family == "vlm":
+        if patch_embeds is None:
+            raise ValueError("a vlm forward takes patch_embeds")
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    enc_out = None
+    if cfg.family == "encdec":
+        if frame_embeds is None:
+            raise ValueError("an encdec forward takes frame_embeds")
+        enc_out = encode(cfg, params, frame_embeds)
     B, Stot = x.shape[0], x.shape[1]
     positions = torch.arange(Stot, device=x.device)[None].expand(B, Stot)
     kinds = _position_kinds(cfg)
@@ -237,9 +292,11 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_super):
         for j, kind in enumerate(kinds):
-            x, a = _apply_block_full(cfg, kind,
-                                     _layer(params["blocks"][f"pos{j}"], i),
-                                     x, positions)
+            p = _layer(params["blocks"][f"pos{j}"], i)
+            ekv = None
+            if enc_out is not None and kind[0] == "attn":
+                ekv = A.encoder_kv(cfg, p["cross"], enc_out)
+            x, a = _apply_block_full(cfg, kind, p, x, positions, enc_kv=ekv)
             if a is not None:
                 aux = aux + a
     if last_only:
@@ -247,6 +304,44 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.lm_logits(params["embed"], x, cfg.tie_embeddings)
     return logits, aux
+
+
+# --------------------------------------------------------------------------- #
+# prefill that also fills the cache (teacher-forced decode steps)
+# --------------------------------------------------------------------------- #
+def prefill_with_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                       cache: dict, *,
+                       patch_embeds: Optional[torch.Tensor] = None,
+                       frame_embeds: Optional[torch.Tensor] = None):
+    """Sequential prefill through ``decode_step`` (teacher-forced), one
+    call a token (a Python loop where the reference scans). With an encdec
+    stack and ``frame_embeds``, the frames are encoded first and each
+    layer's ``ck``/``cv`` filled once, in place and in the cache's dtype
+    (the reference's leaves take the encoder's: the same where the frames
+    come in ``cfg.dtype``). ``patch_embeds`` is taken and not read, as in
+    the reference. Returns (last logits (B, V) float32, cache, lengths
+    (B,) int32)."""
+    del patch_embeds
+    B, S = tokens.shape
+    dev = tokens.device
+    if cfg.family == "encdec" and frame_embeds is not None:
+        enc_out = encode(cfg, params, frame_embeds)
+        for j, (mixer, _ffn) in enumerate(_position_kinds(cfg)):
+            if mixer != "attn":
+                continue
+            cross, c = params["blocks"][f"pos{j}"]["cross"], cache[f"pos{j}"]
+            for i in range(c["ck"].shape[0]):
+                k, v = A.encoder_kv(cfg, _layer(cross, i), enc_out)
+                c["ck"][i].copy_(k)
+                c["cv"][i].copy_(v)
+    lens = torch.zeros((B,), dtype=torch.int32, device=dev)
+    logits = torch.zeros((B, cfg.vocab_size), dtype=torch.float32,
+                         device=dev)
+    for t in range(S):
+        out, cache = decode_step(cfg, params, tokens[:, t:t + 1], cache, lens)
+        logits = out.float()
+        lens = lens + 1
+    return logits, cache, lens
 
 
 # --------------------------------------------------------------------------- #

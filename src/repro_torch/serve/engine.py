@@ -68,8 +68,11 @@ leaf's rows travel as ``np.uint16`` bit patterns.
 
 A ``moe`` stack (attention mixers, MoE FFNs) prefills in chunks like a
 dense one; each chunk's MoE layers route its whole (B, C) tokens as one
-group, idle rows included, as in the reference. ``encdec`` and ``vlm``
-raise ``NotImplementedError`` at construction.
+group, idle rows included, as in the reference. A ``vlm`` stack serves
+like a dense one (the engine takes no patch prefix, as the reference's
+takes none). An ``encdec`` stack prefills sequentially under ``serial``,
+whatever the configuration asks, and its cross cache stays the zeros
+``cache_defs`` gives: as in the reference, the engine encodes no frames.
 """
 from __future__ import annotations
 

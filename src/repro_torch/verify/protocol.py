@@ -15,17 +15,7 @@ anything on device:
   gather_before_scatter  a packed continuation dispatch attends a cache
                        prefix larger than what its job has scattered up to
                        and including this dispatch — the planner's
-                       scatter-precedes-gather ordering was violated. The
-                       attended prefix is the dispatch's recorded span,
-                       except where the re-derived plan has a dispatch of
-                       that span at this position: then it is the plan's
-                       true extent (its lanes' largest ``prefix_len``).
-                       The two differ only for a slot seeded from a KV
-                       snapshot whose restored prefix is no chunk
-                       multiple: the planner pads the span up to the next
-                       chunk boundary and masks the gather past the true
-                       extent, so the span alone over-reports (where the
-                       reference's copy flags such a restore).
+                       scatter-precedes-gather ordering was violated
   superstep_refetch    the inner decode events of one superstep dispatch
                        are non-contiguous — the span's single (k, 3, B)
                        fetch would have had to happen more than once
@@ -49,8 +39,7 @@ arm mid-job are modeled exactly. Readiness tracking is deliberately an
 upper bound on the engine's (slots never arm *later* than the model
 believes), so every reported violation is a certain one.
 
-The port's own copy of ``repro/verify/protocol.py``; it differs in the
-attended extent of ``gather_before_scatter`` alone (above).
+The port's own copy of ``repro/verify/protocol.py``, rule for rule.
 """
 from __future__ import annotations
 
@@ -84,17 +73,11 @@ class _Slot:
 
 
 class _PackedJob:
-    __slots__ = ("completes", "spans", "extents", "n_dispatches",
-                 "events_seen", "cum_valid")
+    __slots__ = ("completes", "n_dispatches", "events_seen", "cum_valid")
 
     def __init__(self, plan):
         self.completes = [[int(s) for s, _ in d.completes]
                           for d in plan.dispatches]
-        # each dispatch's padded prefix span and the true extent it reads
-        # unmasked (equal unless a restored prefix is unaligned)
-        self.spans = [int(d.prefix_span) for d in plan.dispatches]
-        self.extents = [int(d.prefix_len.max(initial=0))
-                        for d in plan.dispatches]
         self.n_dispatches = len(plan.dispatches)
         self.events_seen = 0
         self.cum_valid = 0
@@ -185,10 +168,6 @@ def lint_trace(trace: Trace) -> List[Finding]:
                     # the job's cumulative scattered tokens INCLUDING its
                     # own
                     scattered = job.cum_valid + int(ev["valid"])
-                    j = job.events_seen
-                    if j < job.n_dispatches \
-                            and job.spans[j] == prefix_span:
-                        prefix_span = job.extents[j]
                     if prefix_span > 0 and prefix_span > scattered:
                         findings.append(Finding(
                             "error", "gather_before_scatter",
@@ -197,6 +176,7 @@ def lint_trace(trace: Trace) -> List[Finding]:
                             f"{scattered} tokens up to this dispatch",
                             location=loc))
                     job.cum_valid = scattered
+                    j = job.events_seen
                     job.events_seen += 1
                     if j < job.n_dispatches:
                         for s in job.completes[j]:

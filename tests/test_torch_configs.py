@@ -1,6 +1,7 @@
 """Port parity for the configuration registry and the families it adds, on
-the CPU: every ``dense`` and ``moe`` configuration of the reference (the
-assigned ones and the paper's GPT-2, BERT and GPT models) field for field,
+the CPU: every ``dense``, ``moe``, ``encdec`` and ``vlm`` configuration
+of the reference (the assigned ones and the paper's GPT-2, BERT and GPT
+models) field for field,
 and the engine of each distinct ``.reduced()`` stack against the reference
 engine in float32.
 
@@ -45,7 +46,7 @@ from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.trace import arrivals
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-SERVED = ("dense", "moe")
+SERVED = ("dense", "moe", "encdec", "vlm")
 # the distinct stacks that .reduced() gives
 DISTINCT = ("olmo-1b", "granite-20b", "phi3-medium-14b", "gpt2-xl",
             "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b")

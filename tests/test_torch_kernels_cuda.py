@@ -87,6 +87,31 @@ def test_flash_kernel_matches_plain(card, B, H, KH, S, L, offset, D, dtype):
     _close_tight(got, want, dtype)
 
 
+@pytest.mark.parametrize("B,H,KH,Sq,Skv,D", [
+    (1, 16, 16, 300, 1500, 64),     # whisper's encoder frames, no tile's
+    (2, 4, 4, 37, 165, 64),         # ragged Sq and Skv
+    (1, 8, 2, 130, 70, 64),         # Sq > Skv, GQA
+    (2, 4, 1, 100, 300, 160),       # MQA at pixtral's head dim
+    (1, 2, 2, 64, 64, 32),
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_non_causal(card, B, H, KH, Sq, Skv, D, dtype):
+    """The static mode with ``causal=False`` (whisper's encoder and cross
+    attention): every key attended, at Sq != Skv, a ragged tail tile of
+    queries and keys, and no diagonal skipping."""
+    q = _rand((B, H, Sq, D), 1, dtype)
+    k, v = _rand((B, KH, Skv, D), 2, dtype), _rand((B, KH, Skv, D), 3, dtype)
+    got = flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    _close_tight(got, want, dtype)
+    # the last key counts for the first query: causal would drop it
+    v2 = v.clone()
+    v2[:, :, -1] += 100.0
+    moved = flash_attention(q, k, v2, causal=False) - got
+    torch.cuda.synchronize()
+    assert bool((moved[:, :, 0].float().abs().amax(-1) > 0).all())
+
+
 def _segment_layout(R, C, prefix_lens, seed):
     """Packed lanes as the planner lays them out: a lane with a prefix
     starts with its continuation segment (id 0), then whole prompts (ids
@@ -268,6 +293,8 @@ def test_bf16_flash_refuses_unaligned_inputs(card):
     (2, 64, 8, 300, 112, (1, 300)),
     (2, 32, 8, 257, 160, (256, 257)),
     (2, 48, 1, 500, 128, (499, 3)),
+    # whisper's cross cache: G 1, every length the 1,500 frames
+    (8, 16, 16, 1500, 64, (1500,) * 8),
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_kernel_matches_plain(card, B, H, KH, L, D, lens, dtype):
@@ -635,6 +662,42 @@ def test_dense_forward_full_on_the_card_matches_the_cpu(card):
         if dev == "cuda":
             assert ops.launch_counts()["flash_attention"] == cfg.num_layers
     torch.testing.assert_close(out[0], out[1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["whisper-medium", "pixtral-12b"])
+def test_encdec_and_vlm_forward_on_the_card_match_the_cpu(card, name):
+    """The reduced whisper (the encoder's non-causal flash, the decoder's
+    cross attention against it) and pixtral (its patch prefix) in
+    float32: the full-sequence forward, ``prefill_with_cache`` and a
+    decode step against the filled cross cache on the card agree with the
+    plain path on the CPU."""
+    from repro_torch.data import batch_for
+    cfg = dataclasses.replace(get_arch(name).reduced(), dtype="float32",
+                              encoder_seq=24)
+    params = init_params(T.param_defs(cfg), device="cpu", seed=8)
+    b = batch_for(cfg, 2, 12 + cfg.num_patches, seed=9)
+    stub = {k: torch.from_numpy(v) for k, v in b.items()
+            if k in ("frame_embeds", "patch_embeds")}
+    tokens = torch.from_numpy(b["tokens"])
+    out = []
+    for dev in ("cuda", "cpu"):
+        p = _tree(lambda a: a.float().to(dev), params)
+        kw = {k: v.to(dev) for k, v in stub.items()}
+        ops.reset_launch_counts()
+        full = T.forward_full(cfg, p, tokens.to(dev), **kw)[0].cpu()
+        if dev == "cuda":
+            assert ops.launch_counts()["flash_attention"] == \
+                cfg.encoder_layers + cfg.num_layers * (
+                    2 if name == "whisper-medium" else 1)
+        cache = init_params(T.cache_defs(cfg, 2, 32), device=dev)
+        last, cache, lens = T.prefill_with_cache(
+            cfg, p, tokens.to(dev), cache,
+            frame_embeds=kw.get("frame_embeds"))
+        step, _ = T.decode_step(cfg, p, last.argmax(-1)[:, None], cache,
+                                lens)
+        out.append((full, last.cpu(), step.cpu()))
+    for got, want in zip(*out):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_moe_on_the_card_repeats_its_bits(card):

@@ -107,6 +107,46 @@ def test_flash_plain_full(B, H, KH, S, D, causal, dtype):
                                **_tol(dtype))
 
 
+@pytest.mark.parametrize("B,H,KH,Sq,Skv", [
+    (2, 4, 4, 32, 96),      # Sq < Skv: a decoder's cross attention
+    (1, 4, 2, 64, 32),      # Sq > Skv, GQA
+])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_flash_plain_non_causal_against_pallas(B, H, KH, Sq, Skv, dtype):
+    """The non-causal static mode at Sq != Skv (whisper's cross attention
+    and encoder) against the Pallas kernel in interpret mode, whose blocks
+    tile both lengths."""
+    D = 32
+    q = _rand((B, H, Sq, D), 1, dtype)
+    k = _rand((B, KH, Skv, D), 2, dtype)
+    v = _rand((B, KH, Skv, D), 3, dtype)
+    got = ref.flash_attention_ref(_t(q), _t(k), _t(v), causal=False)
+    want = pallas_flash(q, k, v, causal=False, block_q=16, block_kv=32,
+                        interpret=True)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **_tol(dtype))
+    via_ops = ops.flash_attention(_t(q), _t(k), _t(v), causal=False)
+    np.testing.assert_array_equal(_np(via_ops), _np(got))
+
+
+@pytest.mark.parametrize("Sq", [448, 100])
+def test_flash_plain_at_whisper_frames(Sq):
+    """Whisper's 1,500 encoder frames, which no flash tile divides:
+    queries of a decoder's length against them, non-causal, equal the
+    reference's blocked XLA path, whose blocks are the largest divisors of
+    the lengths (``_fit``: 750 keys a block here)."""
+    from repro.models.attention import flash_attention_xla
+    B, H, Skv, D = 1, 2, 1500, 64
+    q = _rand((B, H, Sq, D), 1)
+    k = _rand((B, H, Skv, D), 2)
+    v = _rand((B, H, Skv, D), 3)
+    got = ref.flash_attention_ref(_t(q), _t(k), _t(v), causal=False)
+    want = flash_attention_xla(q, k, v, causal=False, chunk_q=512,
+                               chunk_kv=1024)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
 def _two_lanes(C, span):
     """Packed segment ids of two lanes of C queries over [span ; chunk]
     keys: lane 0 two whole prompts (20 and C - 20 tokens, ids 1 and 2),
@@ -156,9 +196,9 @@ def test_flash_plain_at_the_configs_head_dims(D, dtype):
 
 
 def test_every_configs_head_dim_has_both_attention_kernels():
-    """Each head dim of the port's registry, and of the reference's
-    attention configs not ported yet (whisper-medium, pixtral-12b), is one
-    that the flash and decode attention kernels take."""
+    """Each head dim of the port's registry (whisper-medium's 64 and
+    pixtral-12b's 160 among them), and of every attention config of the
+    reference, is one that the flash and decode attention kernels take."""
     from repro.configs import ARCHS as JAX_ARCHS
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import decode_attention, flash_attention

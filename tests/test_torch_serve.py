@@ -145,20 +145,48 @@ def test_temperature_sampling_is_deterministic(params):
     assert all(len(v) == 4 for v in outs[0].values())
 
 
+def _outcome(fn):
+    """("ok", result) or (the exception's type name, None)."""
+    try:
+        return "ok", fn()
+    except Exception as e:  # noqa: BLE001  (compared across packages)
+        return type(e).__name__, None
+
+
 @pytest.mark.parametrize("change", [
     dict(family="encdec", encoder_layers=2, encoder_seq=16),
     dict(family="encdec"), dict(family="vlm"),
     dict(family="vlm", num_patches=4),
 ])
-def test_unported_model_configs_raise(params, change):
-    """The families the port does not serve yet, with and without their
-    own fields set; ``hybrid`` serves since the Mamba and MoE slice
-    (``tests/test_torch_hybrid.py``), ``moe`` since the configs slice
-    (``tests/test_torch_configs.py``)."""
-    _, cfg = _cfgs(**change)
-    _, tp = params
-    with pytest.raises(NotImplementedError):
-        _engine(cfg, tp)
+def test_model_configs_build_or_raise_as_the_reference(params, change):
+    """The encdec and vlm families on llama3.2-1b's reduced weights, with
+    and without their own fields set: both engines build (an encdec cache
+    holds zero cross keys and values over ``encoder_seq`` frames) and
+    serve, or raise, alike. A vlm engine takes no patches and serves the
+    dense weights to the reference's tokens; an encdec decode step reads
+    the cross-attention weights these dense trees lack, in both
+    packages."""
+    ref, cfg = _cfgs(**change)
+    p, tp = params
+    prompts = _prompts(cfg, (5, 1, 9), 4)
+
+    def serve(make):
+        eng = make()
+        for pr in prompts:
+            eng.add_request(pr, max_new_tokens=3)
+        return eng.run_until_done(), dict(eng.dispatch_counts)
+
+    scfg = dict(max_slots=3, max_len=32, prefill_chunk=8)
+    want = _outcome(lambda: serve(lambda: JaxServeEngine(
+        ref, p, JaxServeConfig(**scfg))))
+    got = _outcome(lambda: serve(lambda: ServeEngine(
+        cfg, tp, ServeConfig(**scfg), device="cpu")))
+    assert got == want
+    assert got[0] == ("ok" if cfg.family == "vlm" else "KeyError")
+    eng = _engine(cfg, tp)
+    if cfg.family == "encdec":
+        assert eng.cache["pos0"]["ck"].shape[3] == cfg.encoder_seq
+        assert eng.effective_prefill_mode == "sequential"
 
 
 def test_snapshot_restore_raises_and_queue_cap_rejects(params):

@@ -167,15 +167,40 @@ def test_temperature_sampling_is_seeded(params):
     np.testing.assert_array_equal(outs[0], outs[1])
 
 
-def test_non_dense_families_raise():
-    """The families the port does not serve yet (all but dense, moe, ssm
-    and hybrid) raise in every tree and entry point."""
+def _defs(tree):
+    """A ParamDef tree of either package as {path: (shape, axes, init,
+    scale, dtype)}."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        else:
+            out["/".join(path)] = (tuple(t.shape), tuple(t.logical_axes),
+                                   t.init, t.scale, t.dtype)
+    walk(tree, ())
+    return out
+
+
+def test_encdec_and_vlm_trees_as_the_reference():
+    """The encdec and vlm families on llama3.2-1b's reduced config build
+    the reference's parameter and cache trees, leaf for leaf (an encdec
+    tree adds ``norm_cross``/``cross`` to each decoder block, the
+    ``encoder`` tree, here of 0 layers, and ``ck``/``cv`` over 1,500
+    frames), and a forward without parameters raises in both packages."""
     for name in ("whisper-medium", "pixtral-12b"):
-        cfg = dataclasses.replace(get_arch("llama3.2-1b"),
-                                  family=jax_arch(name).family)
-        with pytest.raises(NotImplementedError):
-            T.param_defs(cfg)
-        with pytest.raises(NotImplementedError):
-            T.cache_defs(cfg, 1, 8)
-        with pytest.raises(NotImplementedError):
+        fam = jax_arch(name).family
+        ref = dataclasses.replace(jax_arch("llama3.2-1b").reduced(),
+                                  family=fam)
+        cfg = dataclasses.replace(get_arch("llama3.2-1b").reduced(),
+                                  family=fam)
+        assert _defs(T.param_defs(cfg)) == _defs(RT.param_defs(ref))
+        assert _defs(T.cache_defs(cfg, 1, 8)) == \
+            _defs(RT.cache_defs(ref, 1, 8))
+        assert ("encoder/final_norm/scale" in _defs(T.param_defs(cfg))) \
+            == (fam == "encdec")
+        with pytest.raises(KeyError):
+            RT.forward_full(ref, {}, jnp.zeros((1, 4), jnp.int32))
+        with pytest.raises(KeyError):
             T.forward_full(cfg, {}, torch.zeros((1, 4), dtype=torch.long))
