@@ -38,6 +38,14 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      same function where there is one (in bfloat16; ``mamba_chunk`` in
      float32, the type its path gives it), and what the timing gives for
      an empty kernel and for a device copy (the floor under the norm);
+     the training path's kernels: flash's static mode with its ``lse``
+     output at llama's training shape (B 4, S 1024 causal), the flash
+     backward there, at a ragged S 1000 and non-causal at whisper's
+     encoder shape (G 1), bitwise over two calls, where the plain backward
+     with one KV tile's dK and dV dropped must fail the bound, beside the
+     autograd backward of SDPA with ``is_causal``; the norm backward in
+     all three modes at rows 4096 x d 2048 and a ragged row count, beside
+     the autograd backward of ``F.rms_norm`` / ``F.layer_norm``;
   2b. call ``ops.masked_softmax`` on a llama prefill chunk's scores with
      the launch counts set to 0 just before: the kernel must launch, give
      exact zeros where masked and rows that sum to 1;
@@ -222,16 +230,36 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      prefill step with patches within 1e-4, unpacked and packed serves
      identical; the bf16 bound of 3d at depth 2.
 
-``--phases 2,12,12b,12c,14,15`` (any of them) builds the kernels and runs
-only the named phases (14 with 14b, 15 with 15b) and phase 13's checks of
-their traces, printing no result lines (a development run).
+  16. training llama3.2-1b at full width and depth (16 layers, d 2048,
+     vocab 128,256, bf16 weights from a seed, ``remat="full"``): AdamW
+     under ``linear_warmup_cosine``, ``SyntheticLM`` batches of 4 x 1024,
+     30 steps. Step 1's gradient has every leaf finite and nonzero; every
+     loss is finite and the last 5 average below the first 5; each step
+     launches flash 32 times (16, and 16 again in the remat's
+     recomputation), its backward 16, the norm 65 and its backward 33,
+     and no other kernel; ms a step, tokens/s, the share of 989 TFLOP/s
+     that 6 N tokens a step reach, peak memory and the busy share (a
+     profiled step) logged;
+  16b. the same at depth 2 in float32, card against CPU, 3 steps at a
+     constant rate: losses, every gradient leaf of step 1 and the
+     parameters after each step within 1e-4, the launches exact;
+  16c. ``python -m repro_torch.launch.train --arch llama3.2-1b --smoke
+     --steps 60 --ckpt-every 20 --fail-at-step 45`` on the card exits 17
+     after its checkpoint at step 40, and the rerun prints "resumed from
+     step 40" and "done:" and exits 0.
+
+``--phases 2,12,12b,12c,14,15,16`` (any of them) builds the kernels and
+runs only the named phases (14 with 14b, 15 with 15b, 16 with 16b and
+16c) and phase 13's checks of their traces, printing no result lines (a
+development run).
 
 The last two lines of standard output are the kernel table as one JSON
 object (a row a kernel at its main-path shape, then flash at D 96 in both
 modes, launched by phase 10b, at D 112, by phase 11c, and at D 160 in
 both modes and decode attention at D 160, by phase 15, then flash's
 non-causal mode at whisper's encoder and cross shapes and decode
-attention at its cross cache, by phase 14), then
+attention at its cross cache, by phase 14, then the training path's
+forward with ``lse``, flash backward and norm backward, by phase 16), then
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when there is no CUDA device, when the port's sources are missing,
 or when any phase fails.
@@ -332,6 +360,16 @@ WIDE_FLASH = ((8, 128, 1024, 512, 20, 20, 96), (2, 37, 300, 128, 20, 20, 96),
 # and a small ragged case
 NON_CAUSAL_FLASH = ((2, 1500, 1500, 16, 16, 64), (2, 448, 1500, 16, 16, 64),
                     (2, 100, 300, 16, 16, 64))
+# the flash backward, as (B, S, H, KH, D, causal): llama3.2-1b's training
+# shape (phase 16's batch of 4 x 1024), a ragged S, and the non-causal
+# mode at G 1 (whisper-medium's encoder shape)
+FLASH_BWD = ((4, 1024, 32, 8, 64, True), (4, 1000, 32, 8, 64, True),
+             (2, 1500, 16, 16, 64, False))
+# the norm backward, as (mode, rows, d): llama's training rows (4 x 1024)
+# and a ragged row count, in each mode
+NORM_BWD_SHAPES = tuple((m, r, 2048) for m in ("rmsnorm", "layernorm",
+                                               "np_layernorm")
+                        for r in (4096, 1027))
 
 
 def kernel_cases(torch, dtype):
@@ -358,11 +396,13 @@ def kernel_cases(torch, dtype):
     # flash: (B, chunk S, cache L, offset, heads, KV heads, head dim) --
     # llama's prefill chunks (the third overhangs L), jamba's prefill step
     # (S 2048 from 0, hd 128; its yardstick SDPA with is_causal, the same
-    # mask), and WIDE_FLASH
+    # mask), llama's training shape (B 4, S 1024: the forward without the
+    # lse that phase 16 writes), and WIDE_FLASH
     for B, S, L, off, h, kh, hd in ((8, 128, 1024, 512, H, KH, D),
                                     (4, 128, 300, 256, H, KH, D),
                                     (2, 37, 300, 128, H, KH, D),
-                                    (2, 2048, 2048, 0, H, KH, 128)) \
+                                    (2, 2048, 2048, 0, H, KH, 128),
+                                    (4, 1024, 1024, 0, H, KH, D)) \
             + WIDE_FLASH:
         q = rn(B, h, S, hd)
         kc, vc = rn(B, kh, L, hd), rn(B, kh, L, hd)
@@ -585,6 +625,91 @@ def kernel_cases(torch, dtype):
             library=library,
             bytes=(2 * x.numel() + dn * (1 if b is None else 2)) * es,
             flops=(4.0 if b is None else 7.0) * rows * dn))
+    return cases + training_cases(torch, dtype, rn)
+
+
+def training_cases(torch, dtype, rn):
+    """Phase 2's cases of the training path: the static flash mode with
+    its lse at llama's training shape; the flash backward (from the
+    kernel forward's o and lse: the same inputs for the kernel and the
+    plain version) at ``FLASH_BWD``'s shapes; the norm backward at
+    ``NORM_BWD_SHAPES``. The library calls are autograd backwards of
+    SDPA (its K and V repeated to the query heads outside the timed call)
+    and of ``F.rms_norm`` / ``F.layer_norm``, each on a graph built once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+    from repro_torch.kernels.layernorm import layernorm_bwd
+
+    es = torch.finfo(dtype).bits // 8
+    cases = []
+    B, S, H, KH, D = FLASH_BWD[0][:5]
+    q, k, v = rn(B, H, S, D), rn(B, KH, S, D), rn(B, KH, S, D)
+    pairs = B * H * S * (S + 1) // 2
+    cases.append(dict(
+        kernel="flash_attention", tol=TIGHT_TOL,
+        label=f"B{B} S{S} span{S} off0 lse",
+        run=lambda q=q, k=k, v=v: flash_attention(q, k, v, causal=True,
+                                                  return_lse=True),
+        plain=lambda q=q, k=k, v=v: ref.flash_attention_ref(
+            q, k, v, causal=True, return_lse=True),
+        library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+        bytes=(2 * q.numel() + 2 * k.numel()) * es + 4 * B * H * S,
+        flops=4.0 * pairs * D))
+    for B, S, H, KH, D, causal in FLASH_BWD:
+        q, k, v = rn(B, H, S, D), rn(B, KH, S, D), rn(B, KH, S, D)
+        do = rn(B, H, S, D)
+        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        lib_in = [t.detach().clone().requires_grad_() for t in (
+            q, k.repeat_interleave(H // KH, 1),
+            v.repeat_interleave(H // KH, 1))]
+        lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=causal)
+        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+
+        def dropped(q=q, k=k, v=v, o=o, lse=lse, do=do, c=causal):
+            # a kernel that lost keys 64-127 in its KV pass
+            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, c)
+            dk[:, :, 64:128], dv[:, :, 64:128] = 0, 0
+            return dq, dk, dv
+        cases.append(dict(
+            kernel="flash_attention_bwd", tol=TIGHT_TOL, deterministic=True,
+            label=f"B{B} S{S}" + ("" if causal else " non-causal")
+            + heads_label(H, KH, D),
+            run=lambda a=(q, k, v, o, lse, do), c=causal: flash_attention_bwd(
+                *a, causal=c),
+            plain=lambda a=(q, k, v, o, lse, do), c=causal:
+                ref.flash_attention_bwd_ref(*a, causal=c),
+            broken=dropped,
+            library=lambda y=lib_out, x=lib_in, g=do: torch.autograd.grad(
+                y, x, g, retain_graph=True),
+            bytes=(4 * q.numel() + 4 * k.numel()) * es + 4 * B * H * S,
+            flops=10.0 * pairs * D))
+    for mode, rows, dn in NORM_BWD_SHAPES:
+        x, dy = rn(rows, dn, scale=3.0), rn(rows, dn)
+        s = rn(dn) if mode != "np_layernorm" else None
+        b = rn(dn) if mode == "layernorm" else None
+        lib_in = [t.detach().clone().requires_grad_() for t in (x, s, b)
+                  if t is not None]
+        lib_out = (F.rms_norm(lib_in[0], (dn,), lib_in[1], 1e-6)
+                   if mode == "rmsnorm" else
+                   F.layer_norm(lib_in[0], (dn,), s if s is None
+                                else lib_in[1], b if b is None
+                                else lib_in[2], 1e-5))
+        n_affine = len(lib_in) - 1
+        cases.append(dict(
+            kernel="layernorm_bwd", label=f"{mode} rows{rows} d{dn}",
+            run=lambda x=x, s=s, b=b, dy=dy, m=mode: tuple(
+                t for t in layernorm_bwd(x, s, b, dy, mode=m)
+                if t is not None),
+            plain=lambda x=x, s=s, b=b, dy=dy, m=mode: tuple(
+                t for t in ref.norm_bwd_ref(x, s, b, dy, mode=m)
+                if t is not None),
+            library=lambda y=lib_out, i=lib_in, g=dy: torch.autograd.grad(
+                y, i, g, retain_graph=True),
+            bytes=(3 * x.numel() + 2 * n_affine * dn) * es,
+            flops=10.0 * rows * dn))
     return cases
 
 
@@ -730,6 +855,14 @@ SOURCES = {
                        "src/repro/kernels/masked_softmax.py:27"),
     "mamba_chunk": ("cuda", "src/repro_torch/kernels/csrc/mamba_chunk.cu",
                     "src/repro/kernels/mamba_chunk.py:51"),
+    # the training path's backward kernels replace the reference's XLA
+    # gradients: its custom VJP's _flash_bwd, autodiff of apply_norm
+    "flash_attention_bwd": (
+        "cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/attention.py:190 (_flash_bwd, XLA)"),
+    "layernorm_bwd": ("triton", "src/repro_torch/kernels/layernorm.py",
+                      "src/repro/models/layers.py:36 (apply_norm, XLA "
+                      "autodiff)"),
 }
 # the sources whose kernels may not spill (the tensor-core routes and the
 # redesigned decode kernels)
@@ -743,7 +876,9 @@ REPORTED = {"flash_attention": "B8 S128 span640 off512",
             "layernorm": "rmsnorm rows1024 d2048",
             "rwkv_chunk": "BH128 T2048 K64",
             "masked_softmax": "rows32768 n640",
-            "mamba_chunk": "B2 T2048 d8192 n16"}
+            "mamba_chunk": "B2 T2048 d8192 n16",
+            "flash_attention_bwd": "B4 S1024",
+            "layernorm_bwd": "rmsnorm rows4096 d2048"}
 
 
 def ptxas_entries(log_text: str):
@@ -788,7 +923,8 @@ def ptxas_entries(log_text: str):
 
 
 def flat(torch, out):
-    """A kernel's output as one tensor (rwkv_chunk returns y and S_T)."""
+    """A kernel's output as one tensor (rwkv_chunk returns y and S_T, the
+    flash backward dq, dk and dv)."""
     if isinstance(out, tuple):
         return torch.cat([t.float().flatten() for t in out])
     return out
@@ -830,7 +966,8 @@ def check_kernels(torch) -> dict:
                      f"{atol} + {rtol} |want|")
             broken_share = None
             if "broken" in c:     # a known-wrong output must fail the bound
-                wrong = (c["broken"]().float() - want.float()).abs()
+                wrong = (flat(torch, c["broken"]()).float()
+                         - want.float()).abs()
                 broken_share = float((wrong / limit).max())
                 if broken_share <= 1:
                     fail(f"{c['kernel']} [{dname} {c['label']}]: the bound "
@@ -1650,7 +1787,9 @@ def prefill_step_run(torch, cfg, params, phase: str, expect: dict, B: int,
 PORT_KERNELS = ("pim_matvec_kernel", "decode_attention_kernel",
                 "flash_attention_kernel", "wgmma_flash_kernel",
                 "rwkv_chunk_kernel", "rwkv_chunk_tc_kernel",
-                "mamba_chunk_kernel", "norm_kernel", "softmax_kernel")
+                "mamba_chunk_kernel", "norm_kernel", "softmax_kernel",
+                "bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
+                "bwd_dkdv_mma_kernel", "bwd_dq_mma_kernel", "norm_bwd_kernel")
 
 
 def device_profile(torch, fn, top: int = 8) -> dict:
@@ -2542,7 +2681,8 @@ def shape_counts(tally) -> dict:
 # attention's q and o; the MLP's two) and the norm 3 L + 1 times
 NO_LAUNCH = {"flash_attention": 0, "flash_attention_segmented": 0,
              "decode_attention": 0, "pim_matvec": 0, "layernorm": 0,
-             "rwkv_chunk": 0, "masked_softmax": 0, "mamba_chunk": 0}
+             "rwkv_chunk": 0, "masked_softmax": 0, "mamba_chunk": 0,
+             "flash_attention_bwd": 0, "layernorm_bwd": 0}
 
 
 def whisper_launches(cfg) -> tuple:
@@ -3097,6 +3237,204 @@ class TraceChecks:
         return out
 
 
+# --------------------------------------------------------------------------- #
+# phases 16-16c: training llama3.2-1b
+# --------------------------------------------------------------------------- #
+def train_launches(cfg) -> dict:
+    """What one train step launches at ``cfg.remat="full"``: flash and the
+    two in-block norms once in the forward and again in the block's
+    recomputation, the final norm once; each backward kernel once a
+    forward launch it differentiates."""
+    L = cfg.num_layers
+    return dict(NO_LAUNCH, flash_attention=2 * L, flash_attention_bwd=L,
+                layernorm=4 * L + 1, layernorm_bwd=2 * L + 1)
+
+
+def train_phase(torch) -> dict:
+    """Phase 16: llama3.2-1b at full width and depth, bf16, remat "full",
+    AdamW under a 5-step warmup to 1e-3 and cosine decay, 30 steps of
+    ``SyntheticLM`` 4 x 1024 (its rules change every step: what 30 steps
+    can learn is to shrink the initial logits' spread, about 0.4 nats
+    above log V)."""
+    from repro_torch.checkpoint import flatten_tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.optim import adamw_init, linear_warmup_cosine
+    from repro_torch.train import (TrainStepConfig, loss_and_grads,
+                                   make_train_step)
+
+    cfg = get_arch("llama3.2-1b")
+    if cfg.remat != "full" or cfg.dtype != "bfloat16":
+        fail(f"16: llama3.2-1b's config has remat {cfg.remat}, dtype "
+             f"{cfg.dtype}")
+    B, S, steps = 4, 1024, 30
+    n_params = param_count(T.param_defs(cfg))
+    params = init_params(T.param_defs(cfg), device="cuda", seed=0)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, TrainStepConfig(
+        learning_rate=linear_warmup_cosine(1e-3, 5, steps)))
+    data = SyntheticLM(cfg.vocab_size, S, B, seed=0)
+    batches = [data.batch(i) for i in range(steps + 1)]
+    # step 1's gradient: a leaf without one is a dead autograd path
+    _, _, grads = loss_and_grads(cfg, params, {
+        k: torch.from_numpy(v).cuda() for k, v in batches[0].items()})
+    named = flatten_tree(grads)
+    for name, g in named.items():
+        if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+            fail(f"16: gradient of {name} not finite and nonzero")
+    n_leaves = len(named)
+    del grads
+    want = train_launches(cfg)
+    losses, ms, total = [], [], dict.fromkeys(want, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ops.reset_launch_counts()
+        ev[0].record()
+        params, opt, m = step(params, opt, batches[i])
+        ev[1].record()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if counts != want:
+            fail(f"16: step {i} launched {counts}, expected {want}")
+        total = {k: total[k] + counts[k] for k in total}
+        losses.append(float(m["loss"]))
+        ms.append(ev[0].elapsed_time(ev[1]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        fail(f"16: losses {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not last < first:
+        fail(f"16: the last 5 losses average {last}, the first 5 {first}")
+    timed = ms[1:]                       # the first step builds Triton's
+    mean = sum(timed) / len(timed)
+    tokens = B * S
+    out = dict(phase="16 train", B=B, S=S, steps=steps, params=n_params,
+               grad_leaves=n_leaves, losses=losses, first5=first,
+               last5=last, ms_per_step=mean, ms_runs=ms,
+               tokens_per_s=tokens / (mean / 1e3),
+               flops_share=6.0 * n_params * tokens / (mean / 1e3)
+               / PEAK_FLOPS["bfloat16"],
+               max_memory_allocated=peak, launches_per_step=want,
+               launches=total)
+    out["profile"] = device_profile(
+        torch, lambda: step(params, opt, batches[steps]), top=12)
+    del params, opt
+    empty_card(torch)
+    return out
+
+
+def train_parity(torch) -> dict:
+    """Phase 16b: llama3.2-1b at full width, depth 2, float32, 3 AdamW
+    steps at a constant 1e-4 on the card (the kernels) and on the CPU (the
+    plain versions) from the same weights and batches (2 x 128)."""
+    from repro_torch.checkpoint import flatten_tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import (TrainStepConfig, loss_and_grads,
+                                   make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"), num_layers=2,
+                              dtype="float32")
+    params = init_params(T.param_defs(cfg), device="cuda", seed=4)
+
+    def tree(fn, t):
+        return {k: tree(fn, v) for k, v in t.items()} \
+            if isinstance(t, dict) else fn(t)
+    state = {"cuda": [tree(lambda a: a.float(), params)]}
+    del params
+    state["cpu"] = [tree(lambda a: a.cpu(), state["cuda"][0])]
+    data = SyntheticLM(cfg.vocab_size, 128, 2, seed=5)
+
+    def worst(a, b):
+        return max(float(((x.cpu() - y).abs() / (1 + y.abs())).max())
+                   for x, y in zip(flatten_tree(a).values(),
+                                   flatten_tree(b).values()))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        b0 = {k: torch.from_numpy(v).to(dev)
+              for k, v in data.batch(0).items()}
+        grads[dev] = loss_and_grads(cfg, state[dev][0], b0)[2]
+    out = dict(phase="16b train parity", grad_err=worst(grads["cuda"],
+                                                        grads["cpu"]))
+    del grads
+    want = train_launches(cfg)
+    out["losses"], out["param_err"] = [], []
+    for dev in ("cuda", "cpu"):
+        state[dev].append(adamw_init(state[dev][0]))
+        state[dev].append(make_train_step(cfg, TrainStepConfig(
+            learning_rate=lambda s: 1e-4), device=dev))
+    for i in range(3):
+        losses = []
+        for dev in ("cuda", "cpu"):
+            ops.reset_launch_counts()
+            p, o, step = state[dev]
+            p, o, m = step(p, o, data.batch(i))
+            state[dev][:2] = [p, o]
+            losses.append(float(m["loss"]))
+            if dev == "cuda" and ops.launch_counts() != want:
+                fail(f"16b: step {i} launched {ops.launch_counts()}, "
+                     f"expected {want}")
+        out["losses"].append(losses)
+        out["param_err"].append(worst(state["cuda"][0], state["cpu"][0]))
+    loss_err = max(abs(a - b) / (1 + abs(b)) for a, b in out["losses"])
+    if max([out["grad_err"], loss_err] + out["param_err"]) > 1e-4:
+        fail(f"16b: card != CPU beyond 1e-4: {out}")
+    del state
+    empty_card(torch)
+    return out
+
+
+def train_restart(torch) -> dict:
+    """Phase 16c: ``launch.train``'s crash/resume contract on the card."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=SRC)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        args = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                "llama3.2-1b", "--smoke", "--steps", "60", "--ckpt-dir", d,
+                "--ckpt-every", "20", "--log-every", "20"]
+        runs = []
+        for extra in (["--fail-at-step", "45"], []):
+            t0 = time.perf_counter()
+            r = subprocess.run(args + extra, capture_output=True, text=True,
+                               env=env, timeout=300)
+            runs.append((r, time.perf_counter() - t0))
+    (r1, t1), (r2, t2) = runs
+    if r1.returncode != 17 or "INJECTED FAILURE at step 45" not in r1.stdout:
+        fail(f"16c: the injected failure gave rc {r1.returncode}: "
+             f"{r1.stdout[-1500:]} {r1.stderr[-1500:]}")
+    if r2.returncode != 0 or "resumed from step 40" not in r2.stdout \
+            or "done:" not in r2.stdout:
+        fail(f"16c: the rerun gave rc {r2.returncode}: {r2.stdout[-1500:]} "
+             f"{r2.stderr[-1500:]}")
+    return dict(phase="16c restart", crash_s=t1, resume_s=t2,
+                tail=r2.stdout.strip().splitlines()[-2:])
+
+
+def train_phases(torch, checks=None) -> dict:
+    """Phases 16, 16b and 16c, each timed."""
+    out = {}
+    for key, fn in (("16", train_phase), ("16b", train_parity),
+                    ("16c", train_restart)):
+        t0 = time.perf_counter()
+        empty_card(torch)
+        out[key] = fn(torch)
+        log(f"phase {key} took {time.perf_counter() - t0:.1f} s: "
+            + json.dumps(out[key]))
+    return out
+
+
 def main() -> None:
     import argparse
 
@@ -3136,7 +3474,8 @@ def main() -> None:
         if only is not None:
             alone = dict(FLEET_PHASES, **{
                 "2": lambda torch, checks: check_kernels(torch),
-                "14": whisper_phases, "15": pixtral_phases})
+                "14": whisper_phases, "15": pixtral_phases,
+                "16": train_phases})
             for phase in only.split(","):
                 t0 = time.perf_counter()
                 alone[phase](torch, checks)
@@ -3188,6 +3527,7 @@ def main() -> None:
             log(f"phase {phase} took {time.perf_counter() - t0:.1f} s")
         whisper = whisper_phases(torch, checks)
         pixtral = pixtral_phases(torch, checks)
+        train = train_phases(torch)
         checks.run(card)
     except SystemExit:
         raise
@@ -3209,7 +3549,8 @@ def main() -> None:
     rows = [(name, name, REPORTED[name],
              {"flash_attention_segmented": serves["3b packed"],
               "rwkv_chunk": rwkv["step"], "mamba_chunk": jamba["step"],
-              "masked_softmax": path}.get(name, serves["3 unpacked"]))
+              "masked_softmax": path, "flash_attention_bwd": train["16"],
+              "layernorm_bwd": train["16"]}.get(name, serves["3 unpacked"]))
             for name in SOURCES] + [
         ("flash_attention D96", "flash_attention",
          "B8 S128 span640 off512 D96 H20/20", gpt2["10b"]["unpacked"]),
@@ -3233,7 +3574,9 @@ def main() -> None:
          launched("flash_attention", per_step["flash False 448 1500 64"])),
         ("decode_attention cross", "decode_attention", "B8 L1500 H16/16",
          launched("decode_attention",
-                  whisper["14b generate"]["cross_launches"]))]
+                  whisper["14b generate"]["cross_launches"])),
+        ("flash_attention lse", "flash_attention", "B4 S1024 span1024 off0 "
+         "lse", train["16"])]
     kernels = []
     for name, kernel, label, run in rows:
         route, source, replaces = SOURCES[kernel]

@@ -1,4 +1,5 @@
-"""Inputs of the port's models: the stub frontends' batches."""
-from repro_torch.data.pipeline import batch_for
+"""Inputs of the port's models: the training streams and the stub
+frontends' batches."""
+from repro_torch.data.pipeline import ByteCorpus, SyntheticLM, batch_for
 
-__all__ = ["batch_for"]
+__all__ = ["ByteCorpus", "SyntheticLM", "batch_for"]

@@ -21,15 +21,17 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention", "decode_attention", "pim_matvec", "rwkv_chunk",
-           "mamba_chunk")
+SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
+           "pim_matvec", "rwkv_chunk", "mamba_chunk")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 ARGTYPES = {
-    "flash_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _LL, _I, _I, _F, _I, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _LL, _I, _I, _F, _I, _P],
+    "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "decode_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                 _I, _I, _P],
     "pim_matvec_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

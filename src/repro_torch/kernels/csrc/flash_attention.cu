@@ -12,6 +12,11 @@
 // clamped at 1e-30, as in the TPU kernel, so a padded query row (segment
 // -2) stays finite.
 //
+// The static mode can also write each query row's log-sum-exp (B, H, S) f32
+// in natural-log units of the scaled scores, m + log(max(l, 1e-30)), which
+// the flash backward (flash_attention_bwd.cu) recomputes P from; a null
+// pointer writes nothing, and the serving path passes null.
+//
 // Bounds on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s):
 //  * the llama3.2-1b prefill chunk (B 8, S 128, Skv 640 at offset 512,
 //    H 32 / KH 8, D 64) and the packed one (R 8, C 128, Skv 640): 19 MB of
@@ -106,6 +111,7 @@ template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse,
                        const int* __restrict__ q_pos_ids,
                        const int* __restrict__ q_seg_ids,
                        const int* __restrict__ kv_pos_ids,
@@ -203,6 +209,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row_ok) {
     const float denom = fmaxf(l, 1e-30f);
+    // the row's log-sum-exp of the scaled scores (every thread of the row
+    // holds the same m and l)
+    if (lse != nullptr && part == 0)
+      lse[((size_t)b * H + h) * S + qi] = m + logf(denom);
     T* op = o + (((size_t)b * H + h) * S + qi) * D;
 #pragma unroll
     for (int i = 0; i < DT; ++i)
@@ -216,6 +226,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int kWgRows = 64;   // query rows a warpgroup: wgmma's M
 constexpr int kKeys = 64;     // keys a KV tile: the N of S = Q K^T
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // The bf16 route's CTA shape: two consumer warpgroups (each owns 64 of
 // the CTA's rows; both share each K/V tile, so a tile is read once for 128
@@ -396,6 +407,7 @@ template <int D, bool SEG>
 __global__ void __launch_bounds__(128 * kNWG<D, SEG> + 32, kMinBlocks<D>)
 wgmma_flash_kernel(const __grid_constant__ FlashMaps maps,
                    __nv_bfloat16* __restrict__ o,
+                   float* __restrict__ lse,
                    const int* __restrict__ q_pos_ids,
                    const int* __restrict__ q_seg_ids,
                    const int* __restrict__ kv_pos_ids,
@@ -713,11 +725,16 @@ wgmma_flash_kernel(const __grid_constant__ FlashMaps maps,
     if (lane == 0) mbar_arrive(empty_bar + 8 * s);   // this warp is done
   }
 
-  // the row sums of the four threads that share a row; then O / l
+  // the row sums of the four threads that share a row; then O / l. The
+  // log-sum-exp goes out in natural-log units of the scaled scores: m and
+  // log2(l) are in log2 units, so ln 2 (m + log2 l)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(RT_FULL_MASK, l[h], 1);
     l[h] += __shfl_xor_sync(RT_FULL_MASK, l[h], 2);
+    if (lse != nullptr && lane % 4 == 0 && rr[h] < n_wrows)
+      lse[qrow0 + r0w + rr[h]] =
+          (m[h] + log2f(fmaxf(l[h], 1e-30f))) * kLn2;
     l[h] = 1.f / fmaxf(l[h], 1e-30f);
   }
 #pragma unroll
@@ -775,7 +792,8 @@ bool encode_map(CUtensorMap* map, const void* base, int D, long long rows,
 
 template <int D, bool SEG>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* o, const int* const* ids, int B, int H, int KH,
+                         void* o, float* lse, const int* const* ids, int B,
+                         int H, int KH,
                          int S, int Skv, long long kv_head_stride,
                          int q_offset, int causal, float scale,
                          cudaStream_t stream) {
@@ -808,38 +826,42 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
   }
   kernel<<<static_cast<unsigned>(n_row_tiles * KH * B), 128 * NWG + 32, smem,
-           stream>>>(maps, static_cast<__nv_bfloat16*>(o), ids[0], ids[1],
-                     ids[2], ids[3], H, KH, S, Skv, q_offset, causal, scale);
+           stream>>>(maps, static_cast<__nv_bfloat16*>(o), lse, ids[0],
+                     ids[1], ids[2], ids[3], H, KH, S, Skv, q_offset, causal,
+                     scale);
   return cudaGetLastError();
 }
 
 template <int D, bool SEG>
 cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o,
-                        const int* const* ids, int B, int H, int KH, int S,
+                        float* lse, const int* const* ids, int B, int H,
+                        int KH, int S,
                         int Skv, long long kv_head_stride, int q_offset,
                         int causal, float scale, cudaStream_t stream) {
   const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
   flash_attention_kernel<float, D, SEG><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), ids[0], ids[1],
-      ids[2], ids[3], H, KH, S, Skv, kv_head_stride, q_offset, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, ids[0],
+      ids[1], ids[2], ids[3], H, KH, S, Skv, kv_head_stride, q_offset, causal,
+      scale);
   return cudaGetLastError();
 }
 
 template <bool SEG>
 cudaError_t launch_route(int dtype, const void* q, const void* k,
-                         const void* v, void* o, const int* const* ids, int B,
+                         const void* v, void* o, float* lse,
+                         const int* const* ids, int B,
                          int H, int KH, int S, int Skv, int D,
                          long long kv_head_stride, int q_offset, int causal,
                          float scale, cudaStream_t s) {
 #define RT_FLASH_CASE(DIM)                                                   \
   case DIM:                                                                  \
     if (dtype == RT_BF16)                                                    \
-      return launch_wgmma<DIM, SEG>(q, k, v, o, ids, B, H, KH, S, Skv,       \
+      return launch_wgmma<DIM, SEG>(q, k, v, o, lse, ids, B, H, KH, S, Skv,  \
                                     kv_head_stride, q_offset, causal, scale, \
                                     s);                                      \
     if (dtype == RT_F32)                                                     \
-      return launch_simt<DIM, SEG>(q, k, v, o, ids, B, H, KH, S, Skv,        \
+      return launch_simt<DIM, SEG>(q, k, v, o, lse, ids, B, H, KH, S, Skv,   \
                                    kv_head_stride, q_offset, causal, scale,  \
                                    s);                                       \
     return cudaErrorInvalidValue;
@@ -867,8 +889,10 @@ cudaError_t launch_route(int dtype, const void* q, const void* k,
 // With q_pos null the static mode runs (q_offset, causal); otherwise the
 // segmented mode, with q_pos/q_seg contiguous (B, S) and kv_pos/kv_seg
 // contiguous (B, Skv) int32 arrays (q_offset and causal are then ignored).
+// lse, when not null (static mode only), receives each query row's
+// log-sum-exp (B, H, S) f32, in natural-log units of the scaled scores.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o,
+                                      const void* v, void* o, float* lse,
                                       const int* q_pos, const int* q_seg,
                                       const int* kv_pos, const int* kv_seg,
                                       int B, int H, int KH, int S, int Skv,
@@ -879,14 +903,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool seg = q_pos != nullptr;
-  if (seg && (!q_seg || !kv_pos || !kv_seg))
+  if (seg && (!q_seg || !kv_pos || !kv_seg || lse))
     return static_cast<int>(cudaErrorInvalidValue);
   const int* ids[4] = {q_pos, q_seg, kv_pos, kv_seg};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      seg ? launch_route<true>(dtype, q, k, v, o, ids, B, H, KH, S, Skv, D,
-                               kv_head_stride, q_offset, causal, scale, s)
-          : launch_route<false>(dtype, q, k, v, o, ids, B, H, KH, S, Skv, D,
-                                kv_head_stride, q_offset, causal, scale, s);
+      seg ? launch_route<true>(dtype, q, k, v, o, lse, ids, B, H, KH, S, Skv,
+                               D, kv_head_stride, q_offset, causal, scale, s)
+          : launch_route<false>(dtype, q, k, v, o, lse, ids, B, H, KH, S,
+                                Skv, D, kv_head_stride, q_offset, causal,
+                                scale, s);
   return static_cast<int>(err);
 }

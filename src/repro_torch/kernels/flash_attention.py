@@ -101,7 +101,8 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     return head_stride
 
 
-def _launch(q, k, v, ids, *, q_offset: int, causal: bool) -> torch.Tensor:
+def _launch(q, k, v, ids, *, q_offset: int, causal: bool,
+            lse=None) -> torch.Tensor:
     code = dtype_code(q, k, v)
     head_stride = _check_qkv(q, k, v)
     B, H, S, D = q.shape
@@ -110,24 +111,32 @@ def _launch(q, k, v, ids, *, q_offset: int, causal: bool) -> torch.Tensor:
     lib = _build.load("flash_attention")
     ptrs = [None] * 4 if ids is None else [t.data_ptr() for t in ids]
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *ptrs, B, H,
-        KH, S, Skv, D, head_stride, q_offset, int(causal),
-        1.0 / math.sqrt(D), code, stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), *ptrs, B, H, KH, S, Skv, D,
+        head_stride, q_offset, int(causal), 1.0 / math.sqrt(D), code,
+        stream_of(q))
     _build.check(lib, err, "flash_attention")
     return o
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+                    causal: bool = True, q_offset: int = 0,
+                    return_lse: bool = False):
     """Static mode. q: (B, H, S, D) contiguous; k, v: (B, KH, Skv, D) with
     contiguous (Skv, D) rows per head (a prefix slice of a cache is fine)
-    -> (B, H, S, D) in q.dtype. Launches the CUDA kernel."""
+    -> (B, H, S, D) in q.dtype. ``return_lse=True`` also returns each
+    row's log-sum-exp (B, H, S) f32 (natural log of the scaled scores, as
+    ``ref.flash_attention_ref`` gives it), written by the same launch.
+    Launches the CUDA kernel."""
     on_cuda(q, k, v)
     if causal and q_offset < 0:
         raise ValueError(f"q_offset {q_offset} < 0")
-    o = _launch(q, k, v, None, q_offset=q_offset, causal=causal)
+    B, H, S, _ = q.shape
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    o = _launch(q, k, v, None, q_offset=q_offset, causal=causal, lse=lse)
     flash_attention.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 def flash_attention_segmented(q: torch.Tensor, k: torch.Tensor,

@@ -10,6 +10,14 @@ There is no fallback from a failed kernel to the plain version and no
 switch that picks one. Mixed operand dtypes promote first, as
 ``jnp.promote_types`` does in the reference, since the kernels take one
 dtype.
+
+Gradients: where an input requires one, the static flash mode (queries
+from position 0) goes through ``FlashAttentionFn`` and the norm through
+``NormFn``, whose backward follows the device as the forward does: the
+plain backward (``ref.flash_attention_bwd_ref``, ``ref.norm_bwd_ref``) on
+the CPU, the hand-written backward kernels on the card. Every other
+kernel has no backward on the card and raises there if asked for a
+gradient; on the CPU autograd runs through its plain version.
 """
 from __future__ import annotations
 
@@ -22,7 +30,10 @@ from repro_torch.kernels.decode_attention import decode_attention as _decode
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.flash_attention import \
     flash_attention_segmented as _flash_seg
+from repro_torch.kernels.flash_attention_bwd import \
+    flash_attention_bwd as _flash_bwd
 from repro_torch.kernels.layernorm import layernorm as _norm
+from repro_torch.kernels.layernorm import layernorm_bwd as _norm_bwd
 from repro_torch.kernels.mamba_chunk import mamba_chunk as _mamba_chunk
 from repro_torch.kernels.masked_softmax import masked_softmax as _msoftmax
 from repro_torch.kernels.pim_matvec import pim_matvec as _matvec
@@ -31,7 +42,8 @@ from repro_torch.kernels.rwkv_chunk import rwkv_chunk as _rwkv_chunk
 KERNELS = {"flash_attention": _flash, "flash_attention_segmented": _flash_seg,
            "decode_attention": _decode, "pim_matvec": _matvec,
            "layernorm": _norm, "rwkv_chunk": _rwkv_chunk,
-           "masked_softmax": _msoftmax, "mamba_chunk": _mamba_chunk}
+           "masked_softmax": _msoftmax, "mamba_chunk": _mamba_chunk,
+           "flash_attention_bwd": _flash_bwd, "layernorm_bwd": _norm_bwd}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -52,6 +64,87 @@ def _use_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel path for tensors on {t.device}")
 
 
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _no_backward_on_card(name: str, *ts) -> None:
+    """A kernel without a backward kernel refuses a gradient on the card
+    rather than return an output autograd cannot differentiate."""
+    if ts[0].is_cuda and _wants_grad(*ts):
+        raise NotImplementedError(
+            f"{name} has no backward kernel on the card: training through "
+            f"it is ROADMAP queue 1 item 6b")
+
+
+def _rows16(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and starting 16-byte aligned (the kernels' bf16 routes
+    read 16 bytes at a time); a copy only where it is neither."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The static flash mode (queries at positions [0, S)) with the
+    recomputing backward: the forward saves (q, k, v, o, lse) and the
+    backward recomputes P from them, as the reference's custom VJP
+    (``flash_attention_fused``) does. A CUDA tensor runs the flash kernel
+    (with its ``lse`` output) and the backward kernel; a CPU tensor the
+    plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        q, k, v = (_rows16(t) for t in (q, k, v))
+        if _use_kernel(q):
+            o, lse = _flash(q, k, v, causal=causal, return_lse=True)
+        else:
+            o, lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                             return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if _use_kernel(q):
+            dq, dk, dv = _flash_bwd(q, k, v, o, lse, _rows16(do),
+                                    causal=ctx.causal)
+        else:
+            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                     causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+class NormFn(torch.autograd.Function):
+    """The norm with its backward: statistics recomputed from x, nothing
+    saved but the inputs. A CUDA tensor runs the Triton forward and
+    backward kernels; a CPU tensor the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, mode: str, eps):
+        x = x.contiguous()
+        if _use_kernel(x):
+            y = _norm(x, scale, bias, mode=mode, eps=eps)
+        else:
+            y = ref.norm_ref(x, scale, bias, mode=mode, eps=eps)
+        ctx.save_for_backward(x, scale, bias)
+        ctx.mode, ctx.eps = mode, eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias = ctx.saved_tensors
+        if _use_kernel(x):
+            dx, ds, db = _norm_bwd(x, scale, bias, dy.contiguous(),
+                                   mode=ctx.mode, eps=ctx.eps)
+        else:
+            dx, ds, db = ref.norm_bwd_ref(x, scale, bias, dy, mode=ctx.mode,
+                                          eps=ctx.eps)
+        return dx, ds, db, None, None
+
+
 def _common(*ts: torch.Tensor):
     dt = ts[0].dtype
     for t in ts[1:]:
@@ -65,6 +158,7 @@ def fused_matvec(x, w, bias=None, activation: str = "none"):
         x, w = _common(x, w)
     else:
         x, w, bias = _common(x, w, bias)
+    _no_backward_on_card("pim_matvec", x, w, bias)
     if not _use_kernel(x):
         return ref.matvec_ref(x, w, bias, activation)
     return _matvec(x.contiguous(), w.contiguous(),
@@ -76,9 +170,14 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     """q: (B, H, S, D); k, v: (B, KH, Skv, D) -> (B, H, S, D) in q.dtype.
     ``segment_info`` = (q_pos, q_seg, kv_pos, kv_seg) int arrays of shape
     (B, S), (B, S), (B, Skv), (B, Skv) replaces ``q_offset``/``causal``
-    with the packed-prefill mask (the segmented kernel)."""
+    with the packed-prefill mask (the segmented kernel). Under a gradient
+    the static mode from position 0 runs through ``FlashAttentionFn``."""
     out_dtype = q.dtype
     q, k, v = _common(q, k, v)
+    if segment_info is None and q_offset == 0 and _wants_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal).to(out_dtype)
+    _no_backward_on_card("flash_attention" if segment_info is None
+                         else "flash_attention_segmented", q, k, v)
     if segment_info is not None:
         segment_info = [t.to(torch.int32) for t in segment_info]
     if not _use_kernel(q):
@@ -104,6 +203,7 @@ def decode_attention(q, k, v, lengths):
     """q: (B, H, D); k, v: (B, KH, S, D); lengths (B,) -> (B, H, D)."""
     out_dtype = q.dtype
     q, k, v = _common(q, k, v)
+    _no_backward_on_card("decode_attention", q, k, v)
     lengths = lengths.to(torch.int32)
     if not _use_kernel(q):
         o = ref.decode_attention_ref(q, k, v, lengths)
@@ -115,7 +215,10 @@ def decode_attention(q, k, v, lengths):
 
 def layernorm(x, scale=None, bias=None, *, mode: str = "layernorm",
               eps=None):
-    """x: (rows, d) -> (rows, d) in x.dtype; see ``ref.norm_ref``."""
+    """x: (rows, d) -> (rows, d) in x.dtype; see ``ref.norm_ref``. Under a
+    gradient it runs through ``NormFn``."""
+    if _wants_grad(x, scale, bias):
+        return NormFn.apply(x, scale, bias, mode, eps)
     if not _use_kernel(x):
         return ref.norm_ref(x, scale, bias, mode=mode, eps=eps)
     return _norm(x.contiguous(), scale, bias, mode=mode, eps=eps)
@@ -125,6 +228,7 @@ def masked_softmax(x, mask_bitmap):
     """x: (..., n) scores; mask_bitmap: (..., n), nonzero = keep (bool or
     int8) -> softmax over the last axis in x.dtype, masked entries exactly
     0; see ``ref.masked_softmax_ref``."""
+    _no_backward_on_card("masked_softmax", x)
     if not _use_kernel(x):
         return ref.masked_softmax_ref(x, mask_bitmap)
     if mask_bitmap.dtype not in (torch.bool, torch.int8):
@@ -143,6 +247,7 @@ def rwkv_chunk(r, k, v, w, u, *, out_dtype=None):
     default; S_T (BH, K, K) f32, k-major)."""
     r, k, v = _common(r, k, v)
     w, u = w.float(), u.float()
+    _no_backward_on_card("rwkv_chunk", r, k, v, w, u)
     if not _use_kernel(r):
         u = u.repeat(r.shape[0] // u.shape[0], 1)
         return ref.rwkv_chunk_ref(r, k, v, w, u, out_dtype=out_dtype)
@@ -155,6 +260,7 @@ def mamba_chunk(a, u, C):
     C: (B, T, n), promoted to one dtype. Returns (y (B, T, d) in that
     dtype, h_T (B, d, n) f32)."""
     a, u, C = _common(a, u, C)
+    _no_backward_on_card("mamba_chunk", a, u, C)
     if not _use_kernel(a):
         return ref.mamba_chunk_ref(a, u, C)
     return _mamba_chunk(a.contiguous(), u.contiguous(), C.contiguous())

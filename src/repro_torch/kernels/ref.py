@@ -38,22 +38,30 @@ def matvec_ref(x, w, bias=None, activation: str = "none") -> torch.Tensor:
     return activate(out, activation).to(x.dtype)
 
 
+def _static_mask(q, k, causal: bool, q_offset: int):
+    if not causal:
+        return None
+    q_pos = q_offset + torch.arange(q.shape[2], device=q.device)
+    kv_pos = torch.arange(k.shape[2], device=q.device)
+    return q_pos[:, None] >= kv_pos[None, :]
+
+
 def flash_attention_ref(q, k, v, causal: bool = True, q_offset: int = 0,
-                        segment_info=None) -> torch.Tensor:
+                        segment_info=None, return_lse: bool = False):
     """q: (B, H, S, D); k, v: (B, KH, Skv, D) -> (B, H, S, D). Queries sit
     at global positions [q_offset, q_offset + S) against keys [0, Skv).
     ``segment_info`` = (q_pos, q_seg, kv_pos, kv_seg) replaces
     ``q_offset``/``causal`` with the packed-prefill mask
-    (``segment_attention_ref``)."""
+    (``segment_attention_ref``). ``return_lse=True`` (static mode) also
+    returns each row's log-sum-exp (B, H, S) f32 in natural-log units of
+    the scaled scores, ``m + log(max(l, 1e-30))`` as the reference's
+    ``flash_attention_xla`` defines it."""
     if segment_info is not None:
+        if return_lse:
+            raise ValueError("return_lse is the static mode's")
         return segment_attention_ref(q, k, v, *segment_info)
-    S, Skv = q.shape[2], k.shape[2]
-    mask = None
-    if causal:
-        q_pos = q_offset + torch.arange(S, device=q.device)
-        kv_pos = torch.arange(Skv, device=q.device)
-        mask = q_pos[:, None] >= kv_pos[None, :]
-    return _masked_attention(q, k, v, mask)
+    return _masked_attention(q, k, v, _static_mask(q, k, causal, q_offset),
+                             return_lse=return_lse)
 
 
 def segment_attention_ref(q, k, v, q_pos, q_seg, kv_pos,
@@ -69,7 +77,7 @@ def segment_attention_ref(q, k, v, q_pos, q_seg, kv_pos,
     return _masked_attention(q, k, v, mask[:, None, None])
 
 
-def _masked_attention(q, k, v, mask) -> torch.Tensor:
+def _masked_attention(q, k, v, mask, return_lse: bool = False):
     """Softmax attention in f32 with masked scores at ``-1e30`` and the row
     sum clamped at 1e-30; ``mask`` broadcasts to (B, KH, G, S, Skv)."""
     B, H, S, D = q.shape
@@ -80,10 +88,43 @@ def _masked_attention(q, k, v, mask) -> torch.Tensor:
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float())
-    o = o / torch.clamp(l, min=1e-30)
-    return o.reshape(B, H, S, D).to(q.dtype)
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    o = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float()) / l
+    o = o.reshape(B, H, S, D).to(q.dtype)
+    if return_lse:
+        return o, (m + torch.log(l)).reshape(B, H, S)
+    return o
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True):
+    """The recomputing flash backward, a plain port of the reference's
+    ``_flash_bwd`` (``repro/models/attention.py``): from the forward's
+    inputs, its output o and its ``lse`` (B, H, S) f32, and the output's
+    gradient do (B, H, S, D) -> (dq, dk, dv) in the dtypes of q, k, v.
+    P = exp(s - lse) is recomputed from the scaled scores, D = rowsum(dO o)
+    in f32, dS = P (dP - D); a KV head's dk and dv sum over its G query
+    heads. Static mode, queries from position 0 (Sq = Skv when causal)."""
+    B, H, S, hd = q.shape
+    KH, Skv = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, KH, G, S, hd).float() * scale
+    dog = do.reshape(B, KH, G, S, hd).float()
+    og = o.reshape(B, KH, G, S, hd).float()
+    kf, vf = k.float(), v.float()
+    delta = (dog * og).sum(-1)                                # (B,KH,G,S)
+    s = torch.einsum("bkgqh,bkch->bkgqc", qg, kf)
+    mask = _static_mask(q, k, causal, 0)
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse.reshape(B, KH, G, S, 1).float())
+    dv = torch.einsum("bkgqc,bkgqh->bkch", p, dog)
+    dp = torch.einsum("bkgqh,bkch->bkgqc", dog, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bkgqc,bkch->bkgqh", ds, kf) * scale
+    dk = torch.einsum("bkgqc,bkgqh->bkch", ds, qg)           # qg has scale
+    return (dq.reshape(B, H, S, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention_ref(q, k, v, lengths) -> torch.Tensor:
@@ -122,6 +163,39 @@ def norm_ref(x, scale=None, bias=None, *, mode: str = "layernorm",
         if mode == "layernorm":
             y = y * scale.float() + bias.float()
     return y.to(x.dtype)
+
+
+def norm_bwd_ref(x, scale, bias, dy, *, mode: str = "layernorm",
+                 eps=None):
+    """The gradient of ``norm_ref``: x, dy (rows, d) -> (dx in x.dtype,
+    dscale and dbias in the dtypes of scale and bias, or None where the
+    mode has none). The statistics are recomputed from x in f32; the
+    column sums over rows are f32 before the cast."""
+    if mode not in NORM_EPS:
+        raise ValueError(f"unknown norm mode {mode!r}")
+    eps = NORM_EPS[mode] if eps is None else eps
+    xf, g = x.float(), dy.float()
+    d = x.shape[-1]
+    dscale = dbias = None
+    if mode == "rmsnorm":
+        r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        xhat = xf * r
+        dscale = (g * xhat).sum(0).to(scale.dtype)
+        gs = g * scale.float()
+        dx = r * (gs - xhat * (gs * xhat).sum(-1, keepdim=True) / d)
+    else:
+        mean = xf.mean(-1, keepdim=True)
+        xc = xf - mean
+        r = torch.rsqrt(xc.square().mean(-1, keepdim=True) + eps)
+        xhat = xc * r
+        gs = g
+        if mode == "layernorm":
+            dscale = (g * xhat).sum(0).to(scale.dtype)
+            dbias = g.sum(0).to(bias.dtype)
+            gs = g * scale.float()
+        dx = r * (gs - gs.mean(-1, keepdim=True)
+                  - xhat * (gs * xhat).mean(-1, keepdim=True))
+    return dx.to(x.dtype), dscale, dbias
 
 
 def masked_softmax_ref(x, mask_bitmap) -> torch.Tensor:

@@ -133,15 +133,33 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(blocks, dim=3).reshape(B, H, Sq, hd)
 
 
+def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool, chunk_q: int,
+                          chunk_kv: int) -> torch.Tensor:
+    """The reference's ``flash_attention_fused``: flash attention whose
+    backward recomputes the score blocks from (q, k, v, o, lse) instead of
+    saving them (``ops.FlashAttentionFn``: the flash kernel and its
+    backward kernel on the card, the plain versions on the CPU). The chunk
+    sizes block the reference's XLA loops; the kernels tile themselves,
+    so they take no part here."""
+    del chunk_q, chunk_kv
+    return ops.flash_attention(q, k, v, causal=causal)
+
+
 def attention_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
                       positions: torch.Tensor, *,
                       causal: bool = True) -> torch.Tensor:
     """Full-sequence attention (``forward_full``; ``causal=False`` in
     whisper's encoder): x (B, S, d) at ``positions`` (B, S) -> (B, S, d),
     through the flash kernel's static mode (the reference's
-    ``flash_attention_xla`` on this path)."""
+    ``flash_attention_xla`` on this path). Under a gradient it runs through
+    ``flash_attention_fused``: ``cfg.flash_vjp`` chooses, in the
+    reference, between autodiff through its blocked loops and that
+    recomputing backward; the port's backward is always the recomputing
+    one, so both values take one path."""
     q, k, v = qkv_project(cfg, p, x, positions)
-    return out_project(p, ops.flash_attention(q, k, v, causal=causal))
+    o = flash_attention_fused(q, k, v, causal, cfg.chunk_q, cfg.chunk_kv)
+    return out_project(p, o)
 
 
 # --------------------------------------------------------------------------- #

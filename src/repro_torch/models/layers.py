@@ -1,4 +1,4 @@
-"""Shared building blocks: norms, RoPE, dense MLP, embeddings.
+"""Shared building blocks: norms, RoPE, dense MLP, embeddings, loss.
 
 Counterpart of ``repro/models/layers.py``. Products follow the reference's
 dtype flow: the residual stream takes the embedding table's dtype, and a
@@ -133,3 +133,17 @@ def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def lm_logits(p: dict, x: torch.Tensor, tie: bool) -> torch.Tensor:
     return mm(x, p["tok"].t() if tie else p["lm_head"])
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean NLL in f32 over (..., V) logits and (...) integer labels; with
+    ``mask`` (nonzero = counted) the masked mean, its denominator at
+    least 1. Plain PyTorch, as the reference leaves it to XLA."""
+    lf = logits.float()
+    nll = torch.logsumexp(lf, dim=-1) \
+        - lf.gather(-1, labels.long()[..., None])[..., 0]
+    if mask is not None:
+        m = mask.float()
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return nll.mean()

@@ -79,11 +79,22 @@ def _materialize(pd: ParamDef, gen: torch.Generator,
                        dtype=torch.float32).mul_(std).to(dt)
 
 
-def _map_tree(fn, tree):
-    """Map the leaves of a nested dict, visiting keys in sorted order."""
+def tree_map(fn, tree, *rest):
+    """Map the leaves of a nested dict, visiting keys in sorted order (the
+    order of ``jax.tree.leaves`` over dicts). ``rest`` are trees of the
+    same nesting whose corresponding subtrees are passed beside each leaf
+    (an optimizer's per-leaf state dict, say)."""
     if isinstance(tree, dict):
-        return {k: _map_tree(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict in sorted-key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
 
 
 def init_params(defs, generator: Optional[torch.Generator] = None, *,
@@ -99,7 +110,7 @@ def init_params(defs, generator: Optional[torch.Generator] = None, *,
         generator = torch.Generator(device=dev).manual_seed(seed)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
-    return _map_tree(
+    return tree_map(
         lambda pd: _materialize(pd, generator, dev) if is_def(pd) else pd,
         defs)
 
@@ -118,5 +129,16 @@ def from_jax_tree(tree, device="cpu"):
     bf16 included) across as torch tensors with the same nesting, shapes
     and dtypes."""
     dev = torch.device(device)
-    return _map_tree(lambda a: _to_torch(a).to(dev), tree)
+    return tree_map(lambda a: _to_torch(a).to(dev), tree)
 
+
+def param_count(defs) -> int:
+    """The parameters of a ParamDef tree (the reference's count)."""
+    return sum(int(np.prod(pd.shape)) for pd in tree_leaves(defs)
+               if is_def(pd))
+
+
+def param_bytes(defs) -> int:
+    """The bytes of a ParamDef tree in each leaf's own dtype."""
+    return sum(int(np.prod(pd.shape)) * DTYPES[pd.dtype].itemsize
+               for pd in tree_leaves(defs) if is_def(pd))

@@ -1,7 +1,9 @@
 """The model of the port: parameter and cache trees, the one-token decode
-step, the full-sequence forward, whisper's encoder, batched chunked
-prefill, the teacher-forced ``prefill_with_cache``, the one-call decode +
-sample + terminate step, decode supersteps and fused overlapped steps.
+step, the full-sequence forward and the training loss (``loss_fn``;
+``cfg.remat`` checkpoints its superblock loop under a gradient), whisper's
+encoder, batched chunked prefill, the teacher-forced
+``prefill_with_cache``, the one-call decode + sample + terminate step,
+decode supersteps and fused overlapped steps.
 
 Counterpart of ``repro/models/transformer.py`` for every family: ``dense``,
 ``moe`` (attention mixers, MoE FFNs), ``ssm`` (RWKV6), ``hybrid`` (Jamba:
@@ -26,9 +28,11 @@ land in place in the stacked cache.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -151,6 +155,16 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def _layers(tree: dict, n: int) -> list:
+    """The n layers of a stacked tree, each leaf unbound once along its
+    leading axis. The same views as ``_layer``'s, but under a gradient the
+    layers' gradients meet in one stack a leaf, where indexing each layer
+    would add a stack-sized gradient a layer."""
+    cols = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
 def supports_batched_prefill(cfg: ModelConfig) -> bool:
     """Attention-mixer stacks only: an RWKV or Mamba prompt needs its state
     threaded token by token, so the engine prefills it sequentially."""
@@ -238,6 +252,37 @@ def _apply_block_decode(cfg: ModelConfig, kind: Tuple[str, str], p: dict,
 
 
 # --------------------------------------------------------------------------- #
+# activation checkpointing (cfg.remat), as the reference's _remat sets it
+# --------------------------------------------------------------------------- #
+# the matmuls whose outputs the "dots" policy saves: products without batch
+# dimensions, as jax's dots_with_no_batch_dims_saveable
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """The superblock body under ``cfg.remat`` when autograd records it:
+    ``"none"`` saves every activation, ``"full"`` only the superblock's
+    boundaries (the body runs again in the backward), ``"dots"`` the
+    matmul outputs too (``torch.utils.checkpoint``'s selective policy).
+    Without a gradient the body runs as it is."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                         **kw)
+
+
+# --------------------------------------------------------------------------- #
 # encoder (whisper)
 # --------------------------------------------------------------------------- #
 def encode(cfg: ModelConfig, params: dict,
@@ -290,13 +335,24 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     kinds = _position_kinds(cfg)
     n_super = cfg.num_layers // len(kinds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n_super):
+    stack = [_layers(params["blocks"][f"pos{j}"], n_super)
+             for j in range(len(kinds))]
+
+    def superblock(x, i):
+        auxes = []
         for j, kind in enumerate(kinds):
-            p = _layer(params["blocks"][f"pos{j}"], i)
+            p = stack[j][i]
             ekv = None
             if enc_out is not None and kind[0] == "attn":
                 ekv = A.encoder_kv(cfg, p["cross"], enc_out)
             x, a = _apply_block_full(cfg, kind, p, x, positions, enc_kv=ekv)
+            auxes.append(a)
+        return x, auxes
+
+    body = _remat(cfg, superblock)
+    for i in range(n_super):
+        x, auxes = body(x, i)
+        for a in auxes:
             if a is not None:
                 aux = aux + a
     if last_only:
@@ -304,6 +360,22 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.lm_logits(params["embed"], x, cfg.tie_embeddings)
     return logits, aux
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+    """batch: ``tokens`` (B, S), ``labels`` (B, S), an optional
+    ``loss_mask`` and the family's stub inputs, as tensors on the params'
+    device -> (loss, {"nll", "aux"}): the mean NLL (a ``vlm`` batch's over
+    its text positions only) plus 0.01 times the MoE balance loss."""
+    logits, aux = forward_full(
+        cfg, params, batch["tokens"],
+        patch_embeds=batch.get("patch_embeds"),
+        frame_embeds=batch.get("frame_embeds"))
+    if cfg.family == "vlm":
+        # logits cover [patches; text]; the loss only the text positions
+        logits = logits[:, cfg.num_patches:, :]
+    nll = L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
 
 # --------------------------------------------------------------------------- #

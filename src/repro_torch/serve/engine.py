@@ -83,7 +83,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.store import flatten_cache
+from repro_torch.checkpoint.store import flatten_tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pas import phase_log_entry
 from repro_torch.models import transformer as T
@@ -220,7 +220,7 @@ class ServeEngine:
         self.export_transfers = 0
         self._snapshot_ok = self._batched_ok and all(
             leaf.dim() in (4, 5) and leaf.shape[1] == B
-            and leaf.shape[3] == L for leaf in flatten_cache(
+            and leaf.shape[3] == L for leaf in flatten_tree(
                 self.cache).values())
         # chaos: a degraded engine records every route on the matrix-engine
         # path; a halted one crashed and never steps again
@@ -342,7 +342,7 @@ class ServeEngine:
         if not self._snapshot_ok:
             return []
         since = since or {}
-        flat = flatten_cache(self.cache)
+        flat = flatten_tree(self.cache)
         todo = []
         for slot, req in enumerate(self.slot_req):
             if req is None or req.done or not self.slot_ready[slot] \
@@ -397,7 +397,7 @@ class ServeEngine:
         above ``prefix_len``."""
         P = int(snapshot["prefix_len"])
         rows = snapshot["cache"]
-        for key, leaf in flatten_cache(self.cache).items():
+        for key, leaf in flatten_tree(self.cache).items():
             a = np.array(rows[key])       # a writable copy for torch
             if a.dtype == np.uint16:      # bf16 bits; torch's 16-bit int
                 a = a.view(np.int16)      # is signed

@@ -16,7 +16,8 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_segmented)
-from repro_torch.kernels.layernorm import layernorm
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+from repro_torch.kernels.layernorm import layernorm, layernorm_bwd
 from repro_torch.kernels.mamba_chunk import mamba_chunk
 from repro_torch.kernels.masked_softmax import masked_softmax
 from repro_torch.kernels.pim_matvec import pim_matvec
@@ -148,9 +149,13 @@ def test_ops_refuse_a_device_without_a_path():
                          t(1, 16)),
     lambda t: masked_softmax(t(2, 16), torch.ones(2, 16, dtype=torch.bool)),
     lambda t: mamba_chunk(t(2, 5, 16, 4), t(2, 5, 16, 4), t(2, 5, 4)),
+    lambda t: flash_attention_bwd(t(1, 2, 3, 16), t(1, 2, 3, 16),
+                                  t(1, 2, 3, 16), t(1, 2, 3, 16), t(1, 2, 3),
+                                  t(1, 2, 3, 16)),
+    lambda t: layernorm_bwd(t(2, 16), t(16), None, t(2, 16), mode="rmsnorm"),
 ], ids=["flash_attention", "flash_attention_segmented", "decode_attention",
         "pim_matvec", "layernorm", "rwkv_chunk", "masked_softmax",
-        "mamba_chunk"])
+        "mamba_chunk", "flash_attention_bwd", "layernorm_bwd"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises: given CPU tensors it
     raises before any build, and counts nothing."""

@@ -27,7 +27,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_segmented)
-from repro_torch.kernels.layernorm import layernorm
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+from repro_torch.kernels.layernorm import layernorm, layernorm_bwd
 from repro_torch.kernels.mamba_chunk import mamba_chunk
 from repro_torch.kernels.masked_softmax import masked_softmax
 from repro_torch.kernels.pim_matvec import pim_matvec
@@ -431,7 +432,9 @@ def test_each_launch_counts_once(card):
                                    "flash_attention_segmented": 2,
                                    "decode_attention": 0, "pim_matvec": 2,
                                    "layernorm": 1, "rwkv_chunk": 1,
-                                   "masked_softmax": 1, "mamba_chunk": 1}
+                                   "masked_softmax": 1, "mamba_chunk": 1,
+                                   "flash_attention_bwd": 0,
+                                   "layernorm_bwd": 0}
 
 
 def _rwkv_inputs(BH, T_, K, dtype, seed, strong=False):
@@ -966,7 +969,7 @@ def test_snapshot_round_trip_through_disk_is_bitwise(card, tmp_path,
     disk-backed ``SnapshotStore``, reloaded after the owner's crash and
     restored into another engine's slot come back bit for bit."""
     from repro_torch.chaos import SnapshotStore
-    from repro_torch.checkpoint import flatten_cache
+    from repro_torch.checkpoint import flatten_tree
 
     cfg, params, scfg = _snapshot_engine(kv_dtype)
     src = ServeEngine(cfg, params, scfg, device=card)
@@ -987,7 +990,7 @@ def test_snapshot_round_trip_through_disk_is_bitwise(card, tmp_path,
                     gid=5, restore={"prefix_len": P, "cache": rec["cache"],
                                     "bytes": rec["bytes"]})
     dst.admit_wave()
-    got, want = flatten_cache(dst.cache), flatten_cache(src.cache)
+    got, want = flatten_tree(dst.cache), flatten_tree(src.cache)
     for key in want:
         assert torch.equal(got[key][:, 0, :, :P].cpu(),
                            want[key][:, slot, :, :P].cpu()), key
@@ -1023,3 +1026,140 @@ def test_snapshot_export_adds_one_blocking_transfer(card):
     assert len(hidden) == 1
     assert eng.snapshot_stats["export_syncs"] == 3 * 2
     assert eng.host_syncs == eng.dispatch_counts["decode"]
+
+
+# --------------------------------------------------------------------------- #
+# the training path: the forward's lse, the flash and norm backward kernels
+# --------------------------------------------------------------------------- #
+def _bwd_inputs(B, H, KH, S, D, dtype, causal, seed):
+    q = _rand((B, H, S, D), seed, dtype)
+    k, v = _rand((B, KH, S, D), seed + 1, dtype), \
+        _rand((B, KH, S, D), seed + 2, dtype)
+    do = _rand((B, H, S, D), seed + 3, dtype)
+    o, lse = ref.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("B,H,KH,S,D,causal", [
+    (2, 4, 2, 37, 64, True),         # ragged S, GQA
+    (1, 8, 2, 100, 16, True),        # the reduced configs' head dim
+    (2, 4, 4, 70, 32, False),        # non-causal, MHA
+    (1, 4, 1, 33, 128, True),        # G 4 onto one KV head
+    (1, 4, 2, 1, 64, True),          # one position
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_bwd_kernel_matches_plain(card, B, H, KH, S, D, causal, dtype):
+    """dq, dk, dv against the plain recomputing backward, from the same
+    forward's o and lse; bitwise the same on a second call."""
+    args = _bwd_inputs(B, H, KH, S, D, dtype, causal, 10)
+    got = flash_attention_bwd(*args, causal=causal)
+    again = flash_attention_bwd(*args, causal=causal)
+    want = ref.flash_attention_bwd_ref(*args, causal=causal)
+    for g, a, w in zip(got, again, want):
+        _close_tight(g, w, dtype)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_writes_lse(card, causal, D, dtype):
+    """The static mode's lse (natural log of the scaled scores; the bf16
+    route keeps log2 units inside) against the plain one; the output is
+    the one the serving path gets without it."""
+    q, k, v = (_rand((2, 8, 70, D), 20, dtype),
+               _rand((2, 2, 70, D), 21, dtype), _rand((2, 2, 70, D), 22, dtype))
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    o_want, lse_want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                               return_lse=True)
+    _close_tight(o, o_want, dtype)
+    _close(lse, lse_want, torch.float32)
+    assert torch.equal(flash_attention(q, k, v, causal=causal), o)
+
+
+@pytest.mark.parametrize("mode", ["rmsnorm", "layernorm", "np_layernorm"])
+@pytest.mark.parametrize("rows,d", [(7, 300), (4096, 2048), (1027, 2048)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_norm_bwd_kernel_matches_plain(card, mode, rows, d, dtype):
+    x, dy = _rand((rows, d), 30, dtype, 3.0), _rand((rows, d), 31, dtype)
+    s, b = _rand((d,), 32, dtype), _rand((d,), 33, dtype)
+    s = s if mode != "np_layernorm" else None
+    b = b if mode == "layernorm" else None
+    got = layernorm_bwd(x, s, b, dy, mode=mode)
+    want = ref.norm_bwd_ref(x, s, b, dy, mode=mode)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            _close(g, w, dtype)
+
+
+def test_gradients_without_a_backward_kernel_raise_on_the_card(card):
+    q = _rand((2, 4, 16), 40, torch.float32).requires_grad_()
+    k = _rand((2, 2, 8, 16), 41, torch.float32)
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        ops.decode_attention(q, k, k, torch.ones(2, dtype=torch.int32))
+    x = _rand((3, 16), 42, torch.float32).requires_grad_()
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        ops.fused_matvec(x, _rand((16, 8), 43, torch.float32))
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        ops.flash_attention(q[:, :, None].expand(2, 4, 8, 16).contiguous(),
+                            k, k, q_offset=3)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_train_steps_on_the_card_match_the_cpu(card, remat):
+    """llama3.2-1b ``.reduced()`` in float32: three AdamW steps on the
+    card (the flash and norm kernels forward and backward) against the
+    same steps on the CPU (the plain versions): losses, every gradient
+    leaf of the first step and the parameters after it within 1e-4, and
+    the backward kernels launched once a layer (the norms 2 L + 1)."""
+    from repro_torch.optim import adamw_init, linear_warmup_cosine
+    from repro_torch.train import (TrainStepConfig, loss_and_grads,
+                                   make_train_step)
+    from repro_torch.data import SyntheticLM
+    cfg = dataclasses.replace(get_arch("llama3.2-1b").reduced(),
+                              dtype="float32", remat=remat)
+    p_cpu = _tree_f32(init_params(T.param_defs(cfg), device="cpu", seed=3))
+    p_gpu = _tree_to(p_cpu, "cuda")
+    data = SyntheticLM(cfg.vocab_size, 48, 4)
+    b0 = {k: torch.from_numpy(v) for k, v in data.batch(0).items()}
+    ops.reset_launch_counts()
+    _, _, g_gpu = loss_and_grads(cfg, p_gpu, _tree_to(b0, "cuda"))
+    torch.cuda.synchronize()
+    n = cfg.num_layers
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bwd"] == n
+    assert counts["layernorm_bwd"] == 2 * n + 1
+    assert counts["flash_attention"] == n * (2 if remat == "full" else 1)
+    _, _, g_cpu = loss_and_grads(cfg, p_cpu, b0)
+    for a, c in zip(_leaves_of(g_gpu), _leaves_of(g_cpu)):
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-4, atol=1e-4)
+    tcfg = TrainStepConfig(learning_rate=linear_warmup_cosine(1e-3, 1, 3))
+    steps = [make_train_step(cfg, tcfg, device=d) for d in ("cuda", "cpu")]
+    states = [[p_gpu, adamw_init(p_gpu)], [p_cpu, adamw_init(p_cpu)]]
+    for i in range(3):
+        losses = []
+        for st, step in zip(states, steps):
+            st[0], st[1], m = step(st[0], st[1], data.batch(i))
+            losses.append(float(m["loss"]))
+        assert abs(losses[0] - losses[1]) <= 1e-4 * (1 + abs(losses[1]))
+    for a, c in zip(_leaves_of(states[0][0]), _leaves_of(states[1][0])):
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-4, atol=1e-4)
+
+
+def _leaves_of(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_of(tree[k])]
+    return [tree]
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _tree_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_f32(v) for k, v in tree.items()}
+    return tree.float()
