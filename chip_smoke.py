@@ -9,8 +9,8 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
   1. print the card (``nvidia-smi``: name, power limit) and build every
      CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
      in parallel), logging what ``ptxas`` gave each kernel (registers,
-     shared memory, spills; a spill in the flash, decode, GEMV or wkv
-     source fails the run);
+     shared memory, spills; a spill in the flash (forward or backward),
+     decode, GEMV or wkv source fails the run);
   2. hold each kernel against its plain PyTorch version on the card, at
      the full-width shapes of the serving paths (llama3.2-1b's; rwkv6-7b's
      and jamba-v0.1-52b's decode FCs, norms and jamba's decode attention;
@@ -40,12 +40,16 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      an empty kernel and for a device copy (the floor under the norm);
      the training path's kernels: flash's static mode with its ``lse``
      output at llama's training shape (B 4, S 1024 causal), the flash
-     backward there, at a ragged S 1000 and non-causal at whisper's
-     encoder shape (G 1), bitwise over two calls, where the plain backward
-     with one KV tile's dK and dV dropped must fail the bound, beside the
+     backward there, at a ragged S 1000, non-causal at whisper's
+     encoder shape (G 1) and its cross attention (448 queries against
+     1,500 frames), at phase 16c's reduced llama (B 8, S 64, 4 / 2 heads
+     of 16) and at a ragged S 321 with G 8 and head dim 32, bitwise over
+     two calls, where the plain backward with one KV tile's dK and dV
+     dropped must fail the bound, beside the
      autograd backward of SDPA with ``is_causal``; the norm backward in
-     all three modes at rows 4096 x d 2048 and a ragged row count, beside
-     the autograd backward of ``F.rms_norm`` / ``F.layer_norm``;
+     all three modes at rows 4096 x d 2048 and a ragged row count,
+     bitwise over two calls, beside the autograd backward of
+     ``F.rms_norm`` / ``F.layer_norm``;
   2b. call ``ops.masked_softmax`` on a llama prefill chunk's scores with
      the launch counts set to 0 just before: the kernel must launch, give
      exact zeros where masked and rows that sum to 1;
@@ -307,11 +311,17 @@ def log(msg: str) -> None:
 # --------------------------------------------------------------------------- #
 # timing
 # --------------------------------------------------------------------------- #
+# cycles the card spins before each timed call (about 0.5 ms)
+SPIN_CYCLES = 1_000_000
+
+
 def time_ms(torch, fn, iters: int = 21, warmup: int = 3) -> float:
     """Median device time of one call, each call after an L2 flush (the
     serving path finds its weights and cache cold), by CUDA events. The
-    flush also keeps the card busy while the host enqueues the call, and
-    the median drops the odd call that the shared host held back."""
+    flush and a spin of ``SPIN_CYCLES`` keep the card busy while the host
+    enqueues the call, so that the host's time to launch it (several
+    kernels, or an autograd backward) does not enter; the median drops
+    the odd call that the shared host held back."""
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     for _ in range(warmup):
         fn()
@@ -319,6 +329,7 @@ def time_ms(torch, fn, iters: int = 21, warmup: int = 3) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
         e.record()
@@ -360,11 +371,19 @@ WIDE_FLASH = ((8, 128, 1024, 512, 20, 20, 96), (2, 37, 300, 128, 20, 20, 96),
 # and a small ragged case
 NON_CAUSAL_FLASH = ((2, 1500, 1500, 16, 16, 64), (2, 448, 1500, 16, 16, 64),
                     (2, 100, 300, 16, 16, 64))
-# the flash backward, as (B, S, H, KH, D, causal): llama3.2-1b's training
-# shape (phase 16's batch of 4 x 1024), a ragged S, and the non-causal
-# mode at G 1 (whisper-medium's encoder shape)
-FLASH_BWD = ((4, 1024, 32, 8, 64, True), (4, 1000, 32, 8, 64, True),
-             (2, 1500, 16, 16, 64, False))
+# the flash backward, as (B, S, Skv, H, KH, D, causal): llama3.2-1b's
+# training shape (phase 16's batch of 4 x 1024), a ragged S, the
+# non-causal mode at G 1: whisper-medium's encoder shape and its decoder's
+# cross attention (448 queries against the 1,500 frames); the reduced
+# llama that phase 16c trains (batch 8 x 64, 4 / 2 heads of 16), and a
+# ragged S (two 128-key CTAs and one key more than a 64-row tile) at G 8
+# and head dim 32, so that each head dim of the tensor-core route is held
+FLASH_BWD = ((4, 1024, 1024, 32, 8, 64, True),
+             (4, 1000, 1000, 32, 8, 64, True),
+             (2, 1500, 1500, 16, 16, 64, False),
+             (2, 448, 1500, 16, 16, 64, False),
+             (8, 64, 64, 4, 2, 16, True),
+             (2, 321, 321, 64, 8, 32, True))
 # the norm backward, as (mode, rows, d): llama's training rows (4 x 1024)
 # and a ragged row count, in each mode
 NORM_BWD_SHAPES = tuple((m, r, 2048) for m in ("rmsnorm", "layernorm",
@@ -644,7 +663,7 @@ def training_cases(torch, dtype, rn):
 
     es = torch.finfo(dtype).bits // 8
     cases = []
-    B, S, H, KH, D = FLASH_BWD[0][:5]
+    B, S, _, H, KH, D = FLASH_BWD[0][:6]
     q, k, v = rn(B, H, S, D), rn(B, KH, S, D), rn(B, KH, S, D)
     pairs = B * H * S * (S + 1) // 2
     cases.append(dict(
@@ -658,25 +677,27 @@ def training_cases(torch, dtype, rn):
             q, k, v, is_causal=True, enable_gqa=True),
         bytes=(2 * q.numel() + 2 * k.numel()) * es + 4 * B * H * S,
         flops=4.0 * pairs * D))
-    for B, S, H, KH, D, causal in FLASH_BWD:
-        q, k, v = rn(B, H, S, D), rn(B, KH, S, D), rn(B, KH, S, D)
+    for B, S, Skv, H, KH, D, causal in FLASH_BWD:
+        q, k, v = rn(B, H, S, D), rn(B, KH, Skv, D), rn(B, KH, Skv, D)
         do = rn(B, H, S, D)
         o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
         lib_in = [t.detach().clone().requires_grad_() for t in (
             q, k.repeat_interleave(H // KH, 1),
             v.repeat_interleave(H // KH, 1))]
         lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=causal)
-        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+        pairs = B * H * (S * (S + 1) // 2 if causal else S * Skv)
 
-        def dropped(q=q, k=k, v=v, o=o, lse=lse, do=do, c=causal):
-            # a kernel that lost keys 64-127 in its KV pass
+        def dropped(q=q, k=k, v=v, o=o, lse=lse, do=do, c=causal,
+                    lo=64 if Skv > 64 else 0):
+            # a kernel that lost keys 64-127 (0-63 where they are all) in
+            # its KV pass
             dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, c)
-            dk[:, :, 64:128], dv[:, :, 64:128] = 0, 0
+            dk[:, :, lo:lo + 64], dv[:, :, lo:lo + 64] = 0, 0
             return dq, dk, dv
         cases.append(dict(
             kernel="flash_attention_bwd", tol=TIGHT_TOL, deterministic=True,
-            label=f"B{B} S{S}" + ("" if causal else " non-causal")
-            + heads_label(H, KH, D),
+            label=(f"B{B} S{S}" if S == Skv else f"B{B} Sq{S} Skv{Skv}")
+            + ("" if causal else " non-causal") + heads_label(H, KH, D),
             run=lambda a=(q, k, v, o, lse, do), c=causal: flash_attention_bwd(
                 *a, causal=c),
             plain=lambda a=(q, k, v, o, lse, do), c=causal:
@@ -700,6 +721,7 @@ def training_cases(torch, dtype, rn):
         n_affine = len(lib_in) - 1
         cases.append(dict(
             kernel="layernorm_bwd", label=f"{mode} rows{rows} d{dn}",
+            deterministic=True,
             run=lambda x=x, s=s, b=b, dy=dy, m=mode: tuple(
                 t for t in layernorm_bwd(x, s, b, dy, mode=m)
                 if t is not None),
@@ -866,8 +888,13 @@ SOURCES = {
 }
 # the sources whose kernels may not spill (the tensor-core routes and the
 # redesigned decode kernels)
-SPILL_GATED = ("flash_attention", "decode_attention", "pim_matvec",
-               "rwkv_chunk")
+SPILL_GATED = ("flash_attention", "flash_attention_bwd", "decode_attention",
+               "pim_matvec", "rwkv_chunk")
+# the registers a thread of the flash backward's dK/dV kernel must enter
+# with: its warpgroups trade registers by setmaxnreg within the CTA's
+# launch allocation (384 x 168), and with fewer the consumers' request
+# could wait forever
+DKDV_ENTRY_REGS = 168
 # the case of each kernel that the JSON line reports (a main-path shape)
 REPORTED = {"flash_attention": "B8 S128 span640 off512",
             "flash_attention_segmented": "R8 C128 span512",
@@ -3471,6 +3498,11 @@ def main() -> None:
                 log(f"ptxas {name}: " + json.dumps(entry))
                 if name in SPILL_GATED and entry["spill_stores"]:
                     fail(f"ptxas spills in {entry['kernel']}")
+                if entry["kernel"].startswith("bwd_dkdv_tc_kernel") and \
+                        entry["registers"] != DKDV_ENTRY_REGS:
+                    fail(f"{entry['kernel']} enters with "
+                         f"{entry['registers']} registers, not "
+                         f"{DKDV_ENTRY_REGS}")
         if only is not None:
             alone = dict(FLEET_PHASES, **{
                 "2": lambda torch, checks: check_kernels(torch),

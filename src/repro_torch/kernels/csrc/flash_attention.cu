@@ -93,7 +93,7 @@
 
 #include <climits>
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -223,9 +223,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // bf16 route: the tensor-core kernel
 // ---------------------------------------------------------------------------
-constexpr int kWgRows = 64;   // query rows a warpgroup: wgmma's M
+constexpr int kWgRows = kRtWgRows;   // query rows a warpgroup: wgmma's M
 constexpr int kKeys = 64;     // keys a KV tile: the N of S = Q K^T
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // The bf16 route's CTA shape: two consumer warpgroups (each owns 64 of
@@ -244,149 +243,6 @@ template <int D> constexpr int kPadD = D <= 64 ? D : (D + 63) / 64 * 64;
 template <int D, bool SEG> constexpr int kNWG = SEG && kPadD<D> > 128 ? 1 : 2;
 template <int D> constexpr int kStages = kPadD<D> >= 128 ? 2 : 3;
 template <int D> constexpr int kMinBlocks = kPadD<D> >= 128 ? 1 : 2;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers (one phase a use of a ring stage) -------------------------
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// until the phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// --- TMA: a box of a 3-d tensor map (columns, rows, heads) -----------------
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row,
-                                         int head) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
-      "r"(head)
-      : "memory");
-}
-
-// --- wgmma ------------------------------------------------------------------
-// A shared-memory matrix descriptor: start address, leading and stride byte
-// offsets, and the swizzle of rows of `row_bytes` (128: B128, 64: B64, 32:
-// B32), as the TMA wrote them.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead,
-                                              uint32_t stride,
-                                              int row_bytes) {
-  const uint64_t layout = row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lead >> 4) << 16) |
-         (static_cast<uint64_t>(stride >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accesses of wgmma's registers across the
-// asynchronous product
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define RT_F8(d, i)                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d[64 x 64] (+)= A[64 x 16] (shared, K-major) * B[16 x 64] (shared,
-// K-major); 32 f32 a thread
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : RT_F8(d, 0), RT_F8(d, 8), RT_F8(d, 16), RT_F8(d, 24)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x N] += A[64 x 16] (registers) * B[16 x N] (shared, MN-major)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
-      "1;\n}\n"
-      : RT_F8(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : RT_F8(d, 0), RT_F8(d, 8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : RT_F8(d, 0), RT_F8(d, 8), RT_F8(d, 16), RT_F8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-#undef RT_F8
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // The tensor maps of q, k and v: 3-d (D columns, rows, heads), boxes of
 // min(D, 64) columns x 64 rows, swizzled by their row of min(D, 64) * 2
@@ -431,7 +287,7 @@ wgmma_flash_kernel(const __grid_constant__ FlashMaps maps,
   int2* ids_s = reinterpret_cast<int2*>(v_s + STAGES * kTileBytes);
   uint64_t* bars =
       reinterpret_cast<uint64_t*>(ids_s + (SEG ? STAGES * kKeys : 0));
-  const uint32_t full_bar = smem_addr(bars);          // + 8 s
+  const uint32_t full_bar = rt_smem_addr(bars);          // + 8 s
   const uint32_t empty_bar = full_bar + 8 * STAGES;   // + 8 s
   const uint32_t q_bar = empty_bar + 8 * STAGES;
   int4* rows_s = reinterpret_cast<int4*>(bars + 2 * STAGES + 2);
@@ -458,17 +314,17 @@ wgmma_flash_kernel(const __grid_constant__ FlashMaps maps,
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full_bar + 8 * s, SEG ? 2 : 1);       // TMA (+ the ids)
-      mbar_init(empty_bar + 8 * s, kConsumers / 32);  // every consumer warp
+      rt_mbar_init(full_bar + 8 * s, SEG ? 2 : 1);   // TMA (+ the ids)
+      rt_mbar_init(empty_bar + 8 * s, kConsumers / 32);   // every consumer
     }
-    mbar_init(q_bar, 1);
+    rt_mbar_init(q_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     // Q once, while the rest is set up
-    mbar_expect_tx(q_bar, NWG * kTileBytes);
+    rt_mbar_expect_tx(q_bar, NWG * kTileBytes);
     for (int w = 0; w < NWG; ++w)
       for (int c = 0; c < kOutParts; ++c)
-        tma_load(smem_addr(q_s + w * kTileBytes + c * kBoxBytes), &maps.q,
-                 q_bar, c * kBoxCols, r0 + w * kWgRows, head);
+        rt_tma_load_3d(rt_smem_addr(q_s + w * kTileBytes + c * kBoxBytes),
+                       &maps.q, q_bar, c * kBoxCols, r0 + w * kWgRows, head);
   }
 
   // The KV tiles: static mode loads [0, tile_end), up to the CTA's causal
@@ -574,22 +430,22 @@ wgmma_flash_kernel(const __grid_constant__ FlashMaps maps,
         cur[0] = nxt[0], cur[1] = nxt[1];
         if (tn < tile_end) fetch_ids(tn, nxt);
       }
-      if (use > 0) mbar_wait(empty_bar + 8 * s, (use - 1) & 1);
+      if (use > 0) rt_mbar_wait(empty_bar + 8 * s, (use - 1) & 1);
       if (lane == 0) {
         const uint32_t bar = full_bar + 8 * s;
-        mbar_expect_tx(bar, 2 * kTileBytes);
+        rt_mbar_expect_tx(bar, 2 * kTileBytes);
         for (int c = 0; c < kOutParts; ++c) {
-          tma_load(smem_addr(k_s + s * kTileBytes + c * kBoxBytes), &maps.k,
-                   bar, c * kBoxCols, t * kKeys, head);
-          tma_load(smem_addr(v_s + s * kTileBytes + c * kBoxBytes), &maps.v,
-                   bar, c * kBoxCols, t * kKeys, head);
+          rt_tma_load_3d(rt_smem_addr(k_s + s * kTileBytes + c * kBoxBytes),
+                         &maps.k, bar, c * kBoxCols, t * kKeys, head);
+          rt_tma_load_3d(rt_smem_addr(v_s + s * kTileBytes + c * kBoxBytes),
+                         &maps.v, bar, c * kBoxCols, t * kKeys, head);
         }
       }
       if (SEG) {
         ids_s[s * kKeys + lane] = cur[0];
         ids_s[s * kKeys + 32 + lane] = cur[1];
         __syncwarp();
-        if (lane == 0) mbar_arrive(full_bar + 8 * s);
+        if (lane == 0) rt_mbar_arrive(full_bar + 8 * s);
       }
       t = tn;
     }
@@ -616,39 +472,38 @@ wgmma_flash_kernel(const __grid_constant__ FlashMaps maps,
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m[2] = {RT_NEG_INF, RT_NEG_INF}, l[2] = {0.f, 0.f};
-  const float sl2 = scale * kLog2e;
-  const uint32_t q_addr = smem_addr(q_s + wg * kTileBytes);
-  mbar_wait(q_bar, 0);
+  const float sl2 = scale * kRtLog2e;
+  const uint32_t q_addr = rt_smem_addr(q_s + wg * kTileBytes);
+  rt_mbar_wait(q_bar, 0);
 
   int it = 0;
   for (int t = next_tile(0); t < tile_end; t = next_tile(t + 1), ++it) {
     const int s = it % STAGES;
     // every warp waits for each use of a stage before it releases it, so
     // that no release runs ahead into the stage's next use
-    mbar_wait(full_bar + 8 * s, (it / STAGES) & 1);
+    rt_mbar_wait(full_bar + 8 * s, (it / STAGES) & 1);
     // below this warpgroup's frontier, or seen by its rows
     if (t < wg_end && (!SEG || sees(t, wg))) {
-      const uint32_t k_addr = smem_addr(k_s + s * kTileBytes);
-      const uint32_t v_addr = smem_addr(v_s + s * kTileBytes);
+      const uint32_t k_addr = rt_smem_addr(k_s + s * kTileBytes);
+      const uint32_t v_addr = rt_smem_addr(v_s + s * kTileBytes);
       // S = Q K^T: K-major both; a k-step of 16 columns is 32 bytes along
       // the swizzled row, the next box after 64 columns; the zero columns
       // past D add nothing and are skipped
       float sc[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-      wgmma_fence();
+      rt_wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk * 16 / kBoxCols) * kBoxBytes +
                              (kk * 16 % kBoxCols) * 2;
-        wgmma_ss_n64(sc, smem_desc(q_addr + off, 16, 8 * kRowBytes,
-                                   kRowBytes),
-                     smem_desc(k_addr + off, 16, 8 * kRowBytes, kRowBytes),
-                     kk > 0);
+        rt_wgmma_ss_n64(
+            sc, rt_smem_desc(q_addr + off, 16, 8 * kRowBytes, kRowBytes),
+            rt_smem_desc(k_addr + off, 16, 8 * kRowBytes, kRowBytes), kk > 0);
       }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs<32>(sc);
+      rt_wgmma_commit();
+      rt_wgmma_wait<0>();
+      rt_fence_regs<32>(sc);
 
       // scores in log2 units; element i sits at row rr[(i / 2) % 2], key
       // t0 + 8 (i / 4) + 2 (lane % 4) + i % 2
@@ -707,22 +562,24 @@ wgmma_flash_kernel(const __grid_constant__ FlashMaps maps,
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          p[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
-      wgmma_fence();
+          p[kk][e] =
+              rt_pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+      rt_wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int part = 0; part < kOutParts; ++part)
-          wgmma_rs<kOutN>(acc + part * (kOutN / 2), p[kk],
-                          smem_desc(v_addr + part * kBoxBytes +
-                                        kk * 16 * kRowBytes,
-                                    kBoxBytes, 8 * kRowBytes, kRowBytes));
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs<DP / 2>(acc);
+          rt_wgmma_rs<kOutN>(acc + part * (kOutN / 2), p[kk],
+                             rt_smem_desc(v_addr + part * kBoxBytes +
+                                              kk * 16 * kRowBytes,
+                                          kBoxBytes, 8 * kRowBytes,
+                                          kRowBytes));
+      rt_wgmma_commit();
+      rt_wgmma_wait<0>();
+      rt_fence_regs<DP / 2>(acc);
     }
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty_bar + 8 * s);   // this warp is done
+    if (lane == 0) rt_mbar_arrive(empty_bar + 8 * s);   // this warp is done
   }
 
   // the row sums of the four threads that share a row; then O / l. The
@@ -765,31 +622,6 @@ size_t wgmma_smem_bytes(int DP, int NWG, int STAGES, bool seg, int Skv) {
   return 1024 + tiles + ids + bars + ranges;
 }
 
-// (D, rows, heads) bf16 at `base`: rows D elements apart, heads
-// head_stride elements apart; boxes of min(D, 64) x 64 x 1, rows past
-// `rows` and columns past D read as zeros
-bool encode_map(CUtensorMap* map, const void* base, int D, long long rows,
-                long long heads, long long head_stride) {
-  const RtEncodeTiled encode = rt_encode_tiled();
-  if (!encode) return false;
-  const int box_cols = D < 64 ? D : 64;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)head_stride * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)kWgRows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                       : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, bool SEG>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, float* lse, const int* const* ids, int B,
@@ -810,9 +642,10 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
       n_row_tiles * KH * B > INT_MAX)
     return cudaErrorInvalidValue;
   FlashMaps maps;
-  if (!encode_map(&maps.q, q, D, GS, (long long)B * KH, GS * D) ||
-      !encode_map(&maps.k, k, D, Skv, (long long)B * KH, kv_head_stride) ||
-      !encode_map(&maps.v, v, D, Skv, (long long)B * KH, kv_head_stride))
+  const long long heads = (long long)B * KH;
+  if (!rt_encode_map_3d(&maps.q, q, D, GS, heads, GS * D) ||
+      !rt_encode_map_3d(&maps.k, k, D, Skv, heads, kv_head_stride) ||
+      !rt_encode_map_3d(&maps.v, v, D, Skv, heads, kv_head_stride))
     return cudaErrorInvalidValue;
   const size_t smem = wgmma_smem_bytes(kPadD<D>, NWG, STAGES, SEG, Skv);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;

@@ -17,50 +17,84 @@
 // H 32 / KH 8, S 1024 causal, D 64) has 4 * 32 * 524,800 (query, key)
 // pairs; the five products take 10 D FLOPs a pair, 4.3e10, 0.043 ms at
 // 989 TFLOP/s, against 50 MB of q, k, v, o, dO, lse in and dq, dk, dv out
-// (0.015 ms).
+// (0.015 ms). Reaching it takes wgmma (the only way to the tensor cores'
+// full rate), loads that run beside the products, and no pair computed
+// that the mask drops.
 //
-// Design, chosen to be right and deterministic before fast: three kernels
-// in one launch call, no atomics, every sum in a fixed order, so two calls
-// give the same bits.
-//  * bwd_delta_kernel: D = rowsum(dO o) in f32, one warp a row, into a
-//    (B, H, S) f32 scratch buffer.
+// Design: deterministic, two passes and no atomics, every sum in a fixed
+// order, so two calls give the same bits:
+//  * D = rowsum(dO o) in f32, into a (B, H, S) f32 scratch buffer;
 //  * the dK/dV pass: one CTA per (tile of keys, KV head, batch row) holds
-//    its keys' K and V rows and their dK, dV accumulators in registers
-//    (FlashAttention-2's KV-parallel loop) and walks the query rows of all
-//    G heads of its group that can see a key of the tile (from the tile's
-//    first key on when causal), 32 rows a round staged in shared memory,
-//    recomputing P and dS for each (key, query) pair.
+//    its keys' K and V and their dK, dV accumulators (FlashAttention-2's
+//    KV-parallel loop) and walks the query rows of all G heads of its
+//    group that can see a key of the tile (from the tile's first key on
+//    when causal), recomputing P and dS for each (key, query) pair. The
+//    key tiles with the most query rows (the first, under the causal
+//    mask) launch first.
 //  * the dQ pass: one CTA per (tile of query rows, head, batch row) holds
-//    its rows' q, dO, lse and D and a dQ accumulator in registers and walks
-//    the keys up to its causal frontier, 32 a round staged in shared
-//    memory, recomputing P and dS; the tiles with the most keys first.
+//    its rows' Q, dO, lse and D and a dQ accumulator and walks the keys up
+//    to its causal frontier, recomputing P and dS; the tiles with the most
+//    keys first.
 // Two routes, by dtype and head dim:
 //  * bf16 at D 16, 32 and 64 (llama3.2-1b's 64, the reduced configs' 16):
-//    bwd_dkdv_mma_kernel and bwd_dq_mma_kernel on the tensor cores,
-//    mma.sync.m16n8k16 with f32 accumulators (the decode kernel's
-//    fragments): a warp owns 16 keys (or query rows), its K and V (or q
-//    and dO) rows as A fragments in registers, the staged rows read by
-//    ldmatrix (ldmatrix.trans for the second product); S^T = K Q^T and
-//    dP^T = V dO^T, then P^T and dS^T from the f32 accumulators in place
-//    (the accumulator layout of the first product is the A layout of the
-//    second), times dO and Q into dV and dK; the dQ pass alike. P and dS
-//    enter the second products as two bf16 halves each (hi and what hi
-//    leaves out, as rwkv_chunk's tensor-core route splits its operands):
-//    rounding them to one bf16, FlashAttention-2's way, missed the bf16
-//    bound 1e-2 + 2e-2 |want| at B 4, S 1000 (an error of 0.0625: dK and
-//    dV sum up to 4,000 terms a key); the split keeps them to about 2^-17
-//    for 40 % more tensor-core work.
-//  * f32, and bf16 at D 128: bwd_dkdv_kernel and bwd_dq_kernel on the CUDA
-//    cores in f32 (every product in f32, as the plain version and the
+//    bwd_dq_tc_kernel, then bwd_dkdv_tc_kernel, the forward's parts
+//    (wgmma.cuh). The dQ pass takes D of its rows from its o and dO tiles
+//    (o loaded by TMA beside Q and dO) and writes it out for the dK/dV
+//    pass (a kernel of its own took 0.013 ms of 0.254 at the training
+//    shape). A
+//    CTA is consumer warpgroups of 64 keys (dK/dV: 2) or query rows (dQ:
+//    kDqWgs, 3) each and a producer warp, which loads the CTA's own tiles
+//    once and streams the others, 64 rows at a time, by TMA into a ring of
+//    kTcStages stages with "full" and "empty" mbarriers, so loads run
+//    ahead of the products and no CTA barrier stands between them (the
+//    dK/dV pass gives its producer a whole warpgroup, whose registers
+//    setmaxnreg hands to the consumers: kDkdvThreads' note). In the
+//    dK/dV pass S^T = K Q^T and dP^T = V dO^T run as wgmma m64n64k16 with
+//    both operands in shared memory (K-major), P^T and dS^T are formed in
+//    registers (the accumulator layout of the first product is the A
+//    layout of the second, as the forward's P V), and dV += P^T dO and
+//    dK += dS^T Q run as register-A wgmma with dO and Q MN-major through
+//    the transpose bit; the dQ pass alike (S = Q K^T, dP = dO V^T,
+//    dQ += dS K). A dK/dV warpgroup keeps a tile's dV, dK products in
+//    flight while it issues the next tile's S^T, dP^T (5 % of the pass at
+//    the training shape); the dQ pass, three warpgroups at 128 registers a
+//    thread, has no room for that (ptxas serializes the products), and
+//    two warpgroups that do it were slower there than three that do not.
+//    In the dK/dV pass every wgmma wait is unconditional: one in a branch
+//    made ptxas serialize the products. The dQ pass waits inside its one
+//    branch, `t < wg_end` (a KV tile that the warpgroup's rows see; wg is
+//    read warp-uniform, so a warpgroup takes it as one): it keeps no
+//    product in flight across tiles. Scores are taken in log2 units:
+//    log2 e is folded into the scale and into lse as they are loaded, and
+//    P = exp2f(...). Only a tile that crosses the diagonal, or Skv in the
+//    dQ pass, is masked; a tile that no pair of it sees is skipped whole. A key past Skv reads
+//    zeros (TMA's out-of-bounds fill) and its dK, dV rows are not written;
+//    a query row past S reads zeros and gets a log2 lse of 1e30, so its P
+//    is 0 and it adds nothing.
+//    P and dS enter the second products as two bf16 halves each (hi and
+//    the bf16 rounding of what hi leaves out), two register-A wgmmas a
+//    k-step: rounding them to one bf16, FlashAttention-2's way, missed the
+//    bf16 bound 1e-2 + 2e-2 |want| at B 4, S 1000 on the card (an error of
+//    0.0625: dK and dV sum about 4,000 terms a key). A float32 emulation
+//    of this route at that shape (tests/test_torch_flash_bwd_tiles.py)
+//    puts one rounding of P alone at 0.99 of the bound, of dS alone at
+//    0.90, and the split at 0.25, the outputs' own bf16 rounding: neither
+//    half can go. So the passes issue ten products' worth of tensor work
+//    a pair where the bound counts five.
+//  * f32, and bf16 at D 128: bwd_delta_kernel (D, 16 bytes of o and dO a
+//    thread), then bwd_dkdv_kernel and bwd_dq_kernel on the CUDA cores in
+//    f32 (every product in f32, as the plain version and the
 //    reference compute them: the float32 route is held to 1e-4). A row of
 //    D elements belongs to D / 16 threads (16 dims each, as four 16-byte
 //    chunks interleaved so that the threads of a row read neighbouring
 //    chunks), whose partial dot products meet in an xor butterfly (every
-//    lane ends with the same sum). D in {16, 32, 64, 128}.
-// wgmma and TMA, the forward's design, are the next step.
+//    lane ends with the same sum). D in {16, 32, 64, 128}. At D 128 the
+//    dK and dV accumulators of a 64-key tile take 128 registers a thread
+//    beside the scores, more than a warpgroup of the bf16 route can hold.
+#include <climits>
 #include <type_traits>
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -142,19 +176,34 @@ __device__ __forceinline__ void stage(float (*dst)[D], const T* src,
   }
 }
 
-// D = rowsum(dO o), one warp a row of (B, H, S)
+// D = rowsum(dO o) of the (B, H, S) rows: 16 bytes of o and of dO a
+// thread, the D / kDeltaVec<T> threads of a row meeting in an xor
+// butterfly; kDeltaRows<T, D> rows a block of 256 threads
+template <typename T> constexpr int kDeltaVec = 16 / sizeof(T);
+template <typename T, int D>
+constexpr int kDeltaRows = 256 / (D / kDeltaVec<T>);
+
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
 bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                  float* __restrict__ delta, long long rows) {
-  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
+  constexpr int V = kDeltaVec<T>, kTprow = D / V;
+  const long long row =
+      (long long)blockIdx.x * kDeltaRows<T, D> + threadIdx.x / kTprow;
+  const int part = threadIdx.x % kTprow;
   float d = 0.f;
-  for (int c = lane; c < D; c += 32)
-    d = fmaf(rt_to_f32(o[row * D + c]), rt_to_f32(dout[row * D + c]), d);
-  d = rt_warp_sum(d);
-  if (lane == 0) delta[row] = d;
+  if (row < rows) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + part * V);
+    const uint4 c =
+        *reinterpret_cast<const uint4*>(dout + row * D + part * V);
+    const T* x = reinterpret_cast<const T*>(&a);
+    const T* y = reinterpret_cast<const T*>(&c);
+#pragma unroll
+    for (int e = 0; e < V; ++e) d = fmaf(rt_to_f32(x[e]), rt_to_f32(y[e]), d);
+  }
+#pragma unroll
+  for (int m = 1; m < kTprow; m <<= 1) d += __shfl_xor_sync(RT_FULL_MASK, d, m);
+  if (row < rows && part == 0) delta[row] = d;
 }
 
 // dK, dV of a tile of kRows keys of one (batch row, KV head)
@@ -263,72 +312,40 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 route on the tensor cores (mma.sync.m16n8k16, f32 accumulators),
-// D in {16, 32, 64}. Shared-memory rows are padded by 16 bytes so that
-// ldmatrix reads 8 rows without bank conflicts.
+// bf16 route on the tensor cores (wgmma, TMA, a producer warp), D in {16,
+// 32, 64}. Every tile is 64 rows (wgmma's M) of D bf16, one tensor-map box
+// swizzled by its row of 2 D bytes (wgmma.cuh's rt_encode_map_3d).
 // ---------------------------------------------------------------------------
-constexpr int kMmaRows = 64;   // keys (dk/dv) or query rows (dq) a CTA
-constexpr int kMmaTile = 32;   // query rows (dk/dv) or keys (dq) a round
+constexpr int kTc = kRtWgRows;          // rows of a tile: keys or queries
+constexpr int kTcStages = 3;            // the ring of streamed tiles
+// the dQ pass: kDqWgs (3) consumer warpgroups and a producer warp (at
+// most 128 registers a thread, which 13 warps allow); the dK/dV pass: two
+// consumer warpgroups and a producer warpgroup, whose warps 1-3 only hand
+// their registers over.
+// Its consumers hold four accumulators of 32 f32 beside their bf16
+// halves, which spill under the 168 registers a thread that 9 warps allow
+// (3 of them on one of the SM's four register-file quarters); setmaxnreg
+// moves registers within the CTA's launch allocation, 384 x 168, so the
+// producer warpgroup gives up 128 x (168 - 40) for the consumers' 256 x
+// (232 - 168)
+constexpr int kDqWgs = 3;                   // of 64 query rows each
+constexpr int kDqRows = kDqWgs * kTc;
+constexpr int kDqThreads = kDqWgs * 128 + 32;
+constexpr int kDkdvThreads = 3 * 128;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// the log2 log-sum-exp of a query row past S: its P is exp2(-1e30) = 0
+constexpr float kNoRow = 1e30f;
 
-template <int D> constexpr int kPad = D + 8;
+// the tensor maps of q, o, dO (D, S, B * H) and k, v (D, Skv, B * KH)
+struct BwdMaps {
+  CUtensorMap q, o, k, v, dout;
+};
 
-// a (16 x D) row-major bf16 block at `rows` (row stride D, rows past
-// `n_ok` zero) as D / 16 A fragments
 template <int D>
-__device__ __forceinline__ void load_a(const __nv_bfloat16* rows, int n_ok,
-                                       uint32_t (&a)[D / 16][4]) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
-  const __nv_bfloat16* r0 = rows + (size_t)g * D + 2 * t4;
-  const __nv_bfloat16* r8 = r0 + 8 * D;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const int c = ks * 16;
-    a[ks][0] = g < n_ok ? *reinterpret_cast<const uint32_t*>(r0 + c) : 0u;
-    a[ks][1] = g + 8 < n_ok ? *reinterpret_cast<const uint32_t*>(r8 + c) : 0u;
-    a[ks][2] = g < n_ok ? *reinterpret_cast<const uint32_t*>(r0 + c + 8) : 0u;
-    a[ks][3] =
-        g + 8 < n_ok ? *reinterpret_cast<const uint32_t*>(r8 + c + 8) : 0u;
-  }
-}
-
-// kMmaTile rows of D bf16 from `src` (row 0 at `first`, rows past `n`
-// zero) into padded shared memory, 16 bytes a thread at a time
-template <int D>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16 (*dst)[kPad<D>],
-                                           const __nv_bfloat16* src,
-                                           int first, int n) {
-  constexpr int kChunks = D / 8;
-  for (int e = threadIdx.x; e < kMmaTile * kChunks; e += kThreads) {
-    const int r = e / kChunks, c = e % kChunks;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n)
-      x = *reinterpret_cast<const uint4*>(src + (size_t)(first + r) * D +
-                                          c * 8);
-    *reinterpret_cast<uint4*>(&dst[r][c * 8]) = x;
-  }
-}
-
-// c (16 x kMmaTile, f32) = A (16 x D, fragments) B^T, B the staged rows
-// (kMmaTile x D): the rows are B's n index, D its k index
-template <int D>
-__device__ __forceinline__ void mma_abt(const uint32_t (&a)[D / 16][4],
-                                        const __nv_bfloat16 (*b)[kPad<D>],
-                                        float (&c)[kMmaTile / 8][4]) {
-  const int lane = threadIdx.x % 32, j8 = lane / 8, r8 = lane % 8;
-#pragma unroll
-  for (int n = 0; n < kMmaTile / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-    for (int n = 0; n < kMmaTile / 8; n += 2) {
-      uint32_t bf[4];
-      rt_ldmatrix_x4(bf, &b[n * 8 + (j8 >> 1) * 8 + r8][ks * 16 + (j8 & 1) * 8]);
-      rt_mma_bf16_16816(c[n], a[ks], bf[0], bf[1]);
-      rt_mma_bf16_16816(c[n + 1], a[ks], bf[2], bf[3]);
-    }
-}
+struct TcShape {
+  static constexpr int kRowBytes = 2 * D;             // a swizzled row
+  static constexpr int kTileBytes = kTc * kRowBytes;  // a 64-row tile
+};
 
 // two f32 values as the bf16 pair hi and the bf16 pair of what hi leaves
 // out: hi + lo holds about 16 of f32's 24 bits
@@ -340,223 +357,508 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   lo = rt_pack_bf16(x0 - f.x, x1 - f.y);
 }
 
-// acc (16 x D, f32) += P (16 x kMmaTile, the f32 fragments of an mma_abt)
-// B, B the staged rows (kMmaTile x D): the rows are B's k index. The
-// accumulator layout of the first product is the A layout of this one; P
-// enters as two bf16 halves, each times B, so the product keeps P's f32
-// precision to about 2^-17 (B is bf16 already)
+// a 64 x 64 f32 fragment (rt_wgmma_ss_n64's layout) as the register A
+// operands of its four k-steps, split in two bf16 halves
+__device__ __forceinline__ void split_frag(const float (&x)[32],
+                                          uint32_t (&hi)[16],
+                                          uint32_t (&lo)[16]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    split_bf16(x[2 * j], x[2 * j + 1], hi[j], lo[j]);
+}
+
+// c (64 x 64, f32) = A B^T: A a 64 x D tile, B a 64 x D tile, both
+// K-major in shared memory (D contiguous)
 template <int D>
-__device__ __forceinline__ void mma_pb(const float (&p)[kMmaTile / 8][4],
-                                       const __nv_bfloat16 (*b)[kPad<D>],
-                                       float (&acc)[D / 8][4]) {
-  const int lane = threadIdx.x % 32, j8 = lane / 8, r8 = lane % 8;
+__device__ __forceinline__ void tc_abt(float (&c)[32], uint32_t a,
+                                       uint32_t b) {
+  constexpr int R = TcShape<D>::kRowBytes;
 #pragma unroll
-  for (int kk = 0; kk < kMmaTile / 16; ++kk) {
-    uint32_t hi[4], lo[4];
+  for (int kk = 0; kk < D / 16; ++kk)
+    rt_wgmma_ss_n64(c, rt_smem_desc(a + kk * 32, 16, 8 * R, R),
+                    rt_smem_desc(b + kk * 32, 16, 8 * R, R), kk > 0);
+}
+
+// acc (64 x D, f32) += X B with X (64 x 64) as the halves hi + lo of
+// split_frag and B a 64 x D tile in shared memory, its 64 rows X's k index
+// (MN-major: D contiguous, through wgmma's transpose bit)
+template <int D>
+__device__ __forceinline__ void tc_xb(float* acc, const uint32_t (&hi)[16],
+                                      const uint32_t (&lo)[16], uint32_t b) {
+  constexpr int R = TcShape<D>::kRowBytes;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float* f = p[2 * kk + (e >> 1)];
-      split_bf16(f[2 * (e & 1)], f[2 * (e & 1) + 1], hi[e], lo[e]);
-    }
-#pragma unroll
-    for (int nd = 0; nd < D / 8; nd += 2) {
-      uint32_t bf[4];
-      rt_ldmatrix_x4_trans(
-          bf, &b[kk * 16 + (j8 & 1) * 8 + r8][(nd + (j8 >> 1)) * 8]);
-      rt_mma_bf16_16816(acc[nd], hi, bf[0], bf[1]);
-      rt_mma_bf16_16816(acc[nd], lo, bf[0], bf[1]);
-      rt_mma_bf16_16816(acc[nd + 1], hi, bf[2], bf[3]);
-      rt_mma_bf16_16816(acc[nd + 1], lo, bf[2], bf[3]);
-    }
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t desc = rt_smem_desc(b + kk * 16 * R,
+                                       TcShape<D>::kTileBytes, 8 * R, R);
+    rt_wgmma_rs<D>(acc, hi + 4 * kk, desc);
+    rt_wgmma_rs<D>(acc, lo + 4 * kk, desc);
   }
 }
 
-// a (16 x D) f32 accumulator times s, as bf16 rows of D at `rows` (rows
-// past n_ok not written)
+// a (64 x D) f32 accumulator of a warpgroup times s, as bf16 rows of D
+// from `rows` (row r of the tile at rows + r D); rows from n_ok on are not
+// written
 template <int D>
-__device__ __forceinline__ void store_acc(__nv_bfloat16* rows, int n_ok,
-                                          const float (&acc)[D / 8][4],
-                                          float s) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+__device__ __forceinline__ void tc_store(__nv_bfloat16* rows, int n_ok,
+                                         const float* acc, float s) {
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (g + 8 * h >= n_ok) continue;
-    __nv_bfloat16* r = rows + (size_t)(g + 8 * h) * D + 2 * t4;
+    const int r = warp * 16 + lane / 4 + 8 * h;
+    if (r >= n_ok) continue;
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<__nv_bfloat162*>(r + nd * 8) = __floats2bfloat162_rn(
-          acc[nd][2 * h] * s, acc[nd][2 * h + 1] * s);
-  }
-}
-
-// dK, dV of kMmaRows keys of one (batch row, KV head): warp w owns keys
-// 16 w..16 w + 15 (their K and V rows as A fragments in registers) and
-// walks the query rows of the group's G heads, kMmaTile a round: S^T =
-// K Q^T, dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dk,
-                    __nv_bfloat16* __restrict__ dv, int H, int KH, int S,
-                    int Skv, int causal, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kMmaTile][kPad<D>];
-  __shared__ __align__(16) __nv_bfloat16 dos[kMmaTile][kPad<D>];
-  __shared__ float lse_s[kMmaTile];
-  __shared__ float del_s[kMmaTile];
-
-  const int kh = blockIdx.y, b = blockIdx.z, G = H / KH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int k0 = blockIdx.x * kMmaRows, kw = k0 + warp * 16;
-  const size_t kv_head = (size_t)b * KH + kh;
-  const int n_keys = max(0, min(16, Skv - kw));
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_a<D>(k + (kv_head * Skv + min(kw, Skv - 1)) * D, n_keys, ka);
-  load_a<D>(v + (kv_head * Skv + min(kw, Skv - 1)) * D, n_keys, va);
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
-
-  const int q_first = causal ? (min(k0, S) / kMmaTile) * kMmaTile : 0;
-  for (int gi = 0; gi < G; ++gi) {
-    const size_t head = (size_t)b * H + (size_t)kh * G + gi;
-    for (int q0 = q_first; q0 < S; q0 += kMmaTile) {
-      const int n = min(kMmaTile, S - q0);
-      __syncthreads();   // the previous round's reads are done
-      stage_bf16<D>(qs, q + head * S * D, q0, n);
-      stage_bf16<D>(dos, dout + head * S * D, q0, n);
-      if (threadIdx.x < kMmaTile) {
-        const bool in = threadIdx.x < n;
-        lse_s[threadIdx.x] = in ? lse[head * S + q0 + threadIdx.x] : 0.f;
-        del_s[threadIdx.x] = in ? delta[head * S + q0 + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-      if (causal && q0 + n - 1 < kw) continue;   // no row sees these keys
-      float st[kMmaTile / 8][4], dpt[kMmaTile / 8][4];
-      mma_abt<D>(ka, qs, st);
-      mma_abt<D>(va, dos, dpt);
-      // element (n, e): key kw + g + 8 (e / 2), query q0 + 8 n + 2 t4 + e % 2
-#pragma unroll
-      for (int nn = 0; nn < kMmaTile / 8; ++nn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = kw + g + 8 * (e >> 1);
-          const int col = 8 * nn + 2 * t4 + (e & 1), qi = q0 + col;
-          const bool keep = key < Skv && col < n && (!causal || key <= qi);
-          const float p = keep ? expf(st[nn][e] * scale - lse_s[col]) : 0.f;
-          st[nn][e] = p;
-          dpt[nn][e] = p * (dpt[nn][e] - del_s[col]);
-        }
-      mma_pb<D>(st, dos, dv_acc);
-      mma_pb<D>(dpt, qs, dk_acc);
+    for (int jn = 0; jn < D / 8; ++jn) {
+      const int i = 4 * jn + 2 * h;
+      *reinterpret_cast<__nv_bfloat162*>(rows + (size_t)r * D + 8 * jn +
+                                         2 * (lane % 4)) =
+          __floats2bfloat162_rn(acc[i] * s, acc[i + 1] * s);
     }
   }
-  if (n_keys > 0) {
-    store_acc<D>(dk + (kv_head * Skv + kw) * D, n_keys, dk_acc, scale);
-    store_acc<D>(dv + (kv_head * Skv + kw) * D, n_keys, dv_acc, 1.f);
+}
+
+template <int D>
+size_t dkdv_smem_bytes() {
+  return 1024 + (size_t)(4 + 2 * kTcStages) * TcShape<D>::kTileBytes +
+         2 * kTcStages * kTc * 4 + 8 * (2 * kTcStages + 1);
+}
+
+template <int D>
+size_t dq_smem_bytes() {
+  return 1024 + (size_t)(3 * kDqWgs + 2 * kTcStages) * TcShape<D>::kTileBytes +
+         8 * (2 * kTcStages + 1);
+}
+
+// dK, dV of 128 keys of one (batch row, KV head): warpgroup w owns keys
+// k0 + 64 w .. + 63, its K and V tiles loaded once; the producer warp
+// streams 64-row tiles of Q and dO of the group's G heads, from the
+// causal frontier on, with their rows' log2 lse and D, into a ring. Per
+// tile: S^T = K Q^T and dP^T = V dO^T (both operands in shared memory),
+// P^T = exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T (dP^T - D) in
+// registers, then dV += P^T dO and dK += dS^T Q with P^T and dS^T as
+// register A operands in two bf16 halves. The key tiles that see the most
+// query rows (the first, under the causal mask) launch first.
+//
+// Shared memory, from a 1024-byte-aligned base: K (2 tiles), V (2), the
+// ring's Q and dO tiles (kTcStages each), the ring's lse and D (kTcStages x
+// 64 f32 each), then the mbarriers: full and empty a stage, and K/V's.
+template <int D>
+__global__ void __launch_bounds__(kDkdvThreads, 1)
+bwd_dkdv_tc_kernel(const __grid_constant__ BwdMaps maps,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, int B, int H, int KH,
+                   int S, int Skv, int causal, float scale) {
+  constexpr int T = TcShape<D>::kTileBytes, ST = kTcStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* k_s = smem;
+  unsigned char* v_s = k_s + 2 * T;
+  unsigned char* q_s = v_s + 2 * T;
+  unsigned char* do_s = q_s + ST * T;
+  float* lse_s = reinterpret_cast<float*>(do_s + ST * T);
+  float* del_s = lse_s + ST * kTc;
+  const uint32_t full_bar = rt_smem_addr(del_s + ST * kTc);   // + 8 s
+  const uint32_t empty_bar = full_bar + 8 * ST;                // + 8 s
+  const uint32_t kv_bar = empty_bar + 8 * ST;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = (tid % 128) / 32;
+  // the warpgroup, read from lane 0 so that ptxas knows it warp-uniform:
+  // the branches on it (tiles seen or not) then hold no divergent path
+  // that would make it serialize the wgmma products
+  const int wg = __shfl_sync(RT_FULL_MASK, tid / 128, 0);
+  const int G = H / KH, pairs = KH * B;
+  // the first key tiles (most query rows under the causal mask) first
+  const int kt = static_cast<int>(blockIdx.x) / pairs;
+  const int pair = static_cast<int>(blockIdx.x) % pairs;
+  const int kh = pair % KH, b = pair / KH;
+  const int k0 = kt * 2 * kTc;
+  const int n_qt = (S + kTc - 1) / kTc;
+  // no query before the tile's first key sees it under the causal mask
+  const int qt0 = causal ? min(k0 / kTc, n_qt) : 0;
+  const int per_g = n_qt - qt0, n_it = G * per_g;
+
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      rt_mbar_init(full_bar + 8 * s, 1);
+      rt_mbar_init(empty_bar + 8 * s, 8);   // every consumer warp
+    }
+    rt_mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    rt_mbar_expect_tx(kv_bar, 4 * T);
+    for (int w = 0; w < 2; ++w) {
+      rt_tma_load_3d(rt_smem_addr(k_s + w * T), &maps.k, kv_bar, 0,
+                     k0 + w * kTc, b * KH + kh);
+      rt_tma_load_3d(rt_smem_addr(v_s + w * T), &maps.v, kv_bar, 0,
+                     k0 + w * kTc, b * KH + kh);
+    }
+  }
+  __syncthreads();   // the barriers are ready
+
+  if (tid >= 256) {
+    // the producer warpgroup: its first warp puts each (head, query tile)
+    // into the ring, a stage refilled once every consumer warp has
+    // released it; the rows' lse (in log2 units) and D first, then the
+    // tiles by TMA
+    rt_setmaxnreg_dec<kProducerRegs>();
+    for (int it = 0; tid < 288 && it < n_it; ++it) {
+      const int s = it % ST, use = it / ST;
+      const int head = b * H + kh * G + it / per_g;
+      const int q0 = (qt0 + it % per_g) * kTc;
+      float l[2], d[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = q0 + 32 * h + lane;
+        l[h] = r < S ? lse[(size_t)head * S + r] * kRtLog2e : kNoRow;
+        d[h] = r < S ? delta[(size_t)head * S + r] : 0.f;
+      }
+      if (use > 0) rt_mbar_wait(empty_bar + 8 * s, (use - 1) & 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        lse_s[s * kTc + 32 * h + lane] = l[h];
+        del_s[s * kTc + 32 * h + lane] = d[h];
+      }
+      __syncwarp();
+      if (lane == 0) {
+        const uint32_t bar = full_bar + 8 * s;
+        rt_mbar_expect_tx(bar, 2 * T);
+        rt_tma_load_3d(rt_smem_addr(q_s + s * T), &maps.q, bar, 0, q0, head);
+        rt_tma_load_3d(rt_smem_addr(do_s + s * T), &maps.dout, bar, 0, q0,
+                       head);
+      }
+    }
+  } else {
+    rt_setmaxnreg_inc<kConsumerRegs>();
+    // warpgroup wg's keys kw .. kw + 63
+    const int kw = k0 + wg * kTc;
+    const int n_keys = max(0, min(kTc, Skv - kw));
+    const int key[2] = {kw + warp * 16 + lane / 4,
+                        kw + warp * 16 + lane / 4 + 8};
+    const float sl2 = scale * kRtLog2e;
+    const uint32_t k_addr = rt_smem_addr(k_s + wg * T);
+    const uint32_t v_addr = rt_smem_addr(v_s + wg * T);
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    rt_mbar_wait(kv_bar, 0);
+
+    // A tile's products into dV and dK stay in flight while the next seen
+    // tile's S^T and dP^T are issued behind them (their registers are
+    // free by then); its stage is released once they are done. Every wait
+    // is unconditional, so that ptxas keeps the products asynchronous. A
+    // warpgroup holds one stage so; the tiles it skips between two it
+    // sees are at most one (the first of a head's, under the causal
+    // mask), so the ring's other stages always take the next tile it sees
+    uint32_t p_hi[16], p_lo[16], ds_hi[16], ds_lo[16];
+    int pending = -1;   // the stage whose dV, dK products are in flight
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % ST;
+      const int q0 = (qt0 + it % per_g) * kTc;
+      // every warp waits for each use of a stage before it releases it
+      rt_mbar_wait(full_bar + 8 * s, (it / ST) & 1);
+      // a tile that no (key, query) pair of it sees is released at once
+      if (n_keys == 0 || (causal && min(q0 + kTc, S) - 1 < kw)) {
+        __syncwarp();
+        if (lane == 0) rt_mbar_arrive(empty_bar + 8 * s);
+        continue;
+      }
+      const uint32_t q_addr = rt_smem_addr(q_s + s * T);
+      const uint32_t do_addr = rt_smem_addr(do_s + s * T);
+      float st[32], dpt[32];
+      rt_wgmma_fence();
+      tc_abt<D>(st, k_addr, q_addr);
+      tc_abt<D>(dpt, v_addr, do_addr);
+      rt_wgmma_commit();
+      // this thread's 16 query columns: 8 jb + 2 (lane % 4) + {0, 1}
+      float2 l2[8], dd[8];
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb) {
+        const int c = 8 * jb + 2 * (lane % 4);
+        l2[jb] = *reinterpret_cast<const float2*>(lse_s + s * kTc + c);
+        dd[jb] = *reinterpret_cast<const float2*>(del_s + s * kTc + c);
+      }
+      rt_wgmma_wait<1>();   // the previous tile's dV, dK products
+      rt_fence_regs<D / 2>(dv_acc);
+      rt_fence_regs<D / 2>(dk_acc);
+      rt_fence_regs<16>(p_hi);
+      rt_fence_regs<16>(p_lo);
+      rt_fence_regs<16>(ds_hi);
+      rt_fence_regs<16>(ds_lo);
+      if (pending >= 0) {
+        __syncwarp();
+        if (lane == 0) rt_mbar_arrive(empty_bar + 8 * pending);
+      }
+      rt_wgmma_wait<0>();
+      rt_fence_regs<32>(st);
+      rt_fence_regs<32>(dpt);
+      // element i: key key[(i / 2) % 2], query q0 + 8 (i / 4) + 2 (lane %
+      // 4) + i % 2; only a tile that crosses the diagonal is masked
+      const bool masked = causal && q0 < kw + kTc - 1;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int jb = i / 4;
+        const float l = i % 2 ? l2[jb].y : l2[jb].x;
+        const float d = i % 2 ? dd[jb].y : dd[jb].x;
+        float p = exp2f(fmaf(st[i], sl2, -l));
+        if (masked && key[(i / 2) % 2] > q0 + 8 * jb + 2 * (lane % 4) + i % 2)
+          p = 0.f;
+        st[i] = p;
+        dpt[i] = p * (dpt[i] - d);
+      }
+      split_frag(st, p_hi, p_lo);
+      split_frag(dpt, ds_hi, ds_lo);
+      rt_wgmma_fence();
+      tc_xb<D>(dv_acc, p_hi, p_lo, do_addr);
+      tc_xb<D>(dk_acc, ds_hi, ds_lo, q_addr);
+      rt_wgmma_commit();
+      pending = s;
+    }
+    rt_wgmma_wait<0>();
+    rt_fence_regs<D / 2>(dv_acc);
+    rt_fence_regs<D / 2>(dk_acc);
+    rt_fence_regs<16>(p_hi);
+    rt_fence_regs<16>(p_lo);
+    rt_fence_regs<16>(ds_hi);
+    rt_fence_regs<16>(ds_lo);
+    if (n_keys > 0) {
+      const size_t row0 = ((size_t)b * KH + kh) * Skv + kw;
+      tc_store<D>(dk + row0 * D, n_keys, dk_acc, scale);
+      tc_store<D>(dv + row0 * D, n_keys, dv_acc, 1.f);
+    }
   }
 }
 
-// dQ of kMmaRows query rows of one (batch row, head): warp w owns rows
-// 16 w..16 w + 15 (their q and dO rows as A fragments) and walks the keys
-// up to the CTA's causal frontier, kMmaTile a round: S = Q K^T, dP = dO
-// V^T, dQ += dS K; the last row tiles first
+// dQ of kDqRows query rows of one (batch row, head): warpgroup w owns
+// rows r0 + 64 w .. + 63, its Q and dO tiles loaded once; the producer warp
+// streams 64-key tiles of K and V up to the causal frontier into a ring.
+// Per tile: S = Q K^T and dP = dO V^T, P and dS = P (dP - D) in
+// registers, dQ += dS K with dS as register A operands in two bf16
+// halves. The last row tiles (most keys) launch first.
+//
+// Shared memory, from a 1024-byte-aligned base: Q (kDqWgs tiles), dO
+// (kDqWgs), o (kDqWgs), the ring's K and V tiles (kTcStages each), then
+// the mbarriers: full and empty a stage, and Q/dO/o's.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dq, int H, int KH, int S,
-                  int Skv, int causal, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kMmaTile][kPad<D>];
-  __shared__ __align__(16) __nv_bfloat16 vs[kMmaTile][kPad<D>];
+__global__ void __launch_bounds__(kDqThreads, 1)
+bwd_dq_tc_kernel(const __grid_constant__ BwdMaps maps,
+                 const float* __restrict__ lse, float* __restrict__ delta,
+                 __nv_bfloat16* __restrict__ dq, int B, int H, int KH,
+                 int S, int Skv, int causal, float scale) {
+  constexpr int T = TcShape<D>::kTileBytes, ST = kTcStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = smem;
+  unsigned char* do_s = q_s + kDqWgs * T;
+  unsigned char* o_s = do_s + kDqWgs * T;
+  unsigned char* k_s = o_s + kDqWgs * T;
+  unsigned char* v_s = k_s + ST * T;
+  const uint32_t full_bar = rt_smem_addr(v_s + ST * T);   // + 8 s
+  const uint32_t empty_bar = full_bar + 8 * ST;            // + 8 s
+  const uint32_t q_bar = empty_bar + 8 * ST;
 
-  const int h = blockIdx.y, b = blockIdx.z, kh = h / (H / KH);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaRows, qw = q0 + warp * 16;
-  const size_t head = (size_t)b * H + h;
-  const int n_rows = max(0, min(16, S - qw));
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  load_a<D>(q + (head * S + min(qw, S - 1)) * D, n_rows, qa);
-  load_a<D>(dout + (head * S + min(qw, S - 1)) * D, n_rows, da);
-  float row_lse[2], row_del[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = qw + g + 8 * r;
-    row_lse[r] = qi < S ? lse[head * S + qi] : 0.f;
-    row_del[r] = qi < S ? delta[head * S + qi] : 0.f;
+  const int tid = threadIdx.x, lane = tid % 32, warp = (tid % 128) / 32;
+  // the warpgroup, read from lane 0 so that ptxas knows it warp-uniform:
+  // the branches on it (tiles seen or not) then hold no divergent path
+  // that would make it serialize the wgmma products
+  const int wg = __shfl_sync(RT_FULL_MASK, tid / 128, 0);
+  const int pairs = H * B;
+  const int n_rt = (S + kDqRows - 1) / kDqRows;
+  const int pair = static_cast<int>(blockIdx.x) % pairs;
+  const int h = pair % H, b = pair / H, kh = h / (H / KH);
+  // the last row tiles (most keys under the causal mask) first
+  const int r0 = (n_rt - 1 - static_cast<int>(blockIdx.x) / pairs) * kDqRows;
+  const int n_kv = (Skv + kTc - 1) / kTc;
+  // the KV tiles: [0, tile_end) up to the CTA's causal frontier; a
+  // warpgroup computes those below its own (wg_end) and masks those from
+  // first_masked on (the diagonal's, and the one that crosses Skv)
+  const int r0w = r0 + wg * kTc;
+  int tile_end = n_kv, wg_end = r0w < S ? n_kv : 0;
+  int first_masked = n_kv - (Skv % kTc != 0);
+  if (causal) {
+    tile_end = min(n_kv, (min(r0 + kDqRows, S) - 1) / kTc + 1);
+    if (r0w < S) wg_end = min(n_kv, (min(r0w + kTc, S) - 1) / kTc + 1);
+    first_masked = min(first_masked, r0w / kTc);
   }
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[nd][e] = 0.f;
 
-  const int kv_end = causal ? min(Skv, min(S, q0 + kMmaRows)) : Skv;
-  const size_t kv_head = ((size_t)b * KH + kh) * Skv * D;
-  for (int t0 = 0; t0 < kv_end; t0 += kMmaTile) {
-    const int n = min(kMmaTile, kv_end - t0);
-    __syncthreads();
-    stage_bf16<D>(ks, k + kv_head, t0, n);
-    stage_bf16<D>(vs, v + kv_head, t0, n);
-    __syncthreads();
-    if (n_rows == 0 || (causal && t0 > qw + n_rows - 1)) continue;
-    float s[kMmaTile / 8][4], dp[kMmaTile / 8][4];
-    mma_abt<D>(qa, ks, s);
-    mma_abt<D>(da, vs, dp);
-    // element (n, e): row qw + g + 8 (e / 2), key t0 + 8 n + 2 t4 + e % 2
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      rt_mbar_init(full_bar + 8 * s, 1);
+      rt_mbar_init(empty_bar + 8 * s, 4 * kDqWgs);   // every consumer warp
+    }
+    rt_mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    rt_mbar_expect_tx(q_bar, 3 * kDqWgs * T);
+    for (int w = 0; w < kDqWgs; ++w) {
+      rt_tma_load_3d(rt_smem_addr(q_s + w * T), &maps.q, q_bar, 0,
+                     r0 + w * kTc, b * H + h);
+      rt_tma_load_3d(rt_smem_addr(do_s + w * T), &maps.dout, q_bar, 0,
+                     r0 + w * kTc, b * H + h);
+      rt_tma_load_3d(rt_smem_addr(o_s + w * T), &maps.o, q_bar, 0,
+                     r0 + w * kTc, b * H + h);
+    }
+  }
+  __syncthreads();   // the barriers are ready
+
+  if (tid >= 128 * kDqWgs) {
+    // the producer: each KV tile into the ring
+    for (int t = 0; t < tile_end; ++t) {
+      const int s = t % ST, use = t / ST;
+      if (use > 0) rt_mbar_wait(empty_bar + 8 * s, (use - 1) & 1);
+      if (lane == 0) {
+        const uint32_t bar = full_bar + 8 * s;
+        rt_mbar_expect_tx(bar, 2 * T);
+        rt_tma_load_3d(rt_smem_addr(k_s + s * T), &maps.k, bar, 0, t * kTc,
+                       b * KH + kh);
+        rt_tma_load_3d(rt_smem_addr(v_s + s * T), &maps.v, bar, 0, t * kTc,
+                       b * KH + kh);
+      }
+    }
+    return;
+  }
+
+  // consumers: this thread's rows r0w + rr[0] and r0w + rr[1], their lse
+  // in log2 units and D
+  const int rr[2] = {warp * 16 + lane / 4, warp * 16 + lane / 4 + 8};
+  // D = rowsum(dO o) of each row, from the warpgroup's o and dO tiles:
+  // the 4 threads that share a row take every fourth 16-byte chunk of it
+  // (chunk c of row r lies at chunk c ^ swz(r), the TMA's swizzle), and
+  // each thread of a row ends with the sum; written out for the dK/dV pass
+  constexpr int R = TcShape<D>::kRowBytes;
+  const size_t bh = (size_t)b * H + h;
+  const unsigned char* o_t = o_s + wg * T;
+  const unsigned char* do_t = do_s + wg * T;
+  float row_l[2], row_d[2];
 #pragma unroll
-    for (int nn = 0; nn < kMmaTile / 8; ++nn)
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0w + rr[i];
+    row_l[i] = row < S ? lse[bh * S + row] * kRtLog2e : kNoRow;
+  }
+  rt_mbar_wait(q_bar, 0);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = rr[i], swz = ((r * R) >> 7) & (R / 16 - 1);
+    float d = 0.f;
+#pragma unroll
+    for (int c = lane % 4; c < R / 16; c += 4) {
+      const int off = r * R + 16 * (c ^ swz);
+      const uint4 a = *reinterpret_cast<const uint4*>(o_t + off);
+      const uint4 g = *reinterpret_cast<const uint4*>(do_t + off);
+      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&g);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, qi = qw + g + 8 * r;
-        const int col = 8 * nn + 2 * t4 + (e & 1), key = t0 + col;
-        const bool keep = qi < S && col < n && (!causal || key <= qi);
-        const float p = keep ? expf(s[nn][e] * scale - row_lse[r]) : 0.f;
-        s[nn][e] = p * (dp[nn][e] - row_del[r]);
+        const float2 xf = __bfloat1622float2(x[e]);
+        const float2 yf = __bfloat1622float2(y[e]);
+        d = fmaf(xf.x, yf.x, fmaf(xf.y, yf.y, d));
       }
-    mma_pb<D>(s, ks, dq_acc);
+    }
+    d += __shfl_xor_sync(RT_FULL_MASK, d, 1);
+    d += __shfl_xor_sync(RT_FULL_MASK, d, 2);
+    const int row = r0w + r;
+    if (row < S && lane % 4 == 0) delta[bh * S + row] = d;
+    row_d[i] = row < S ? d : 0.f;
   }
-  if (n_rows > 0) store_acc<D>(dq + (head * S + qw) * D, n_rows, dq_acc, scale);
+  const float sl2 = scale * kRtLog2e;
+  const uint32_t q_addr = rt_smem_addr(q_s + wg * T);
+  const uint32_t do_addr = rt_smem_addr(do_s + wg * T);
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+  for (int t = 0; t < tile_end; ++t) {
+    const int s = t % ST;
+    rt_mbar_wait(full_bar + 8 * s, (t / ST) & 1);
+    if (t < wg_end) {
+      const uint32_t k_addr = rt_smem_addr(k_s + s * T);
+      const uint32_t v_addr = rt_smem_addr(v_s + s * T);
+      float sc[32], dp[32];
+      rt_wgmma_fence();
+      tc_abt<D>(sc, q_addr, k_addr);
+      tc_abt<D>(dp, do_addr, v_addr);
+      rt_wgmma_commit();
+      rt_wgmma_wait<0>();
+      rt_fence_regs<32>(sc);
+      rt_fence_regs<32>(dp);
+      // element i: row r0w + rr[(i / 2) % 2], key t0 + 8 (i / 4) +
+      // 2 (lane % 4) + i % 2
+      const int t0 = t * kTc;
+      const bool masked = t >= first_masked;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i / 2) % 2;
+        const int key = t0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        float p = exp2f(fmaf(sc[i], sl2, -row_l[hh]));
+        if (masked && (key >= Skv || (causal && key > r0w + rr[hh])))
+          p = 0.f;
+        sc[i] = p * (dp[i] - row_d[hh]);
+      }
+      uint32_t ds_hi[16], ds_lo[16];
+      split_frag(sc, ds_hi, ds_lo);
+      rt_wgmma_fence();
+      tc_xb<D>(dq_acc, ds_hi, ds_lo, k_addr);
+      rt_wgmma_commit();
+      rt_wgmma_wait<0>();
+      rt_fence_regs<D / 2>(dq_acc);
+      rt_fence_regs<16>(ds_hi);
+      rt_fence_regs<16>(ds_lo);
+    }
+    __syncwarp();
+    if (lane == 0) rt_mbar_arrive(empty_bar + 8 * s);   // this warp is done
+  }
+  if (r0w < S)
+    tc_store<D>(dq + (bh * S + r0w) * D, S - r0w, dq_acc, scale);
 }
 
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const void* o, const float* lse, const void* dout,
-                       void* dq, void* dk, void* dv, float* delta, int B,
-                       int H, int KH, int S, int Skv, int causal, float scale,
-                       cudaStream_t s) {
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const void* o, const float* lse, const void* dout,
+                      void* dq, void* dk, void* dv, float* delta, int B,
+                      int H, int KH, int S, int Skv, int causal, float scale,
+                      cudaStream_t s) {
   using bf = __nv_bfloat16;
-  const bf* qt = static_cast<const bf*>(q);
-  const bf* kt = static_cast<const bf*>(k);
-  const bf* vt = static_cast<const bf*>(v);
-  const bf* dot = static_cast<const bf*>(dout);
-  const long long rows = (long long)B * H * S;
-  bwd_delta_kernel<bf, D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
-      static_cast<const bf*>(o), dot, delta, rows);
-  cudaError_t err = cudaGetLastError();
+  // TMA reads from 16-byte-aligned addresses
+  const uintptr_t align =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+      reinterpret_cast<uintptr_t>(dout);
+  if (align % 16 != 0) return cudaErrorInvalidValue;
+  BwdMaps maps;
+  if (!rt_encode_map_3d(&maps.q, q, D, S, (long long)B * H, (long long)S * D) ||
+      !rt_encode_map_3d(&maps.o, o, D, S, (long long)B * H, (long long)S * D) ||
+      !rt_encode_map_3d(&maps.dout, dout, D, S, (long long)B * H,
+                        (long long)S * D) ||
+      !rt_encode_map_3d(&maps.k, k, D, Skv, (long long)B * KH,
+                        (long long)Skv * D) ||
+      !rt_encode_map_3d(&maps.v, v, D, Skv, (long long)B * KH,
+                        (long long)Skv * D))
+    return cudaErrorInvalidValue;
+  // one-dimensional grids, the tile index slowest, so that the heaviest
+  // tiles of every (batch row, head) launch first; the dQ pass first, as
+  // it writes D = rowsum(dO o), which the dK/dV pass reads
+  const long long kv_ctas = (Skv + 2LL * kTc - 1) / (2 * kTc) * KH * B;
+  const long long q_ctas = (S + kDqRows - 1LL) / kDqRows * H * B;
+  if (kv_ctas > INT_MAX || q_ctas > INT_MAX) return cudaErrorInvalidValue;
+  // the attribute is set on every launch: it belongs to the current device
+  auto dkdv = bwd_dkdv_tc_kernel<D>;
+  auto dqk = bwd_dq_tc_kernel<D>;
+  const size_t kv_smem = dkdv_smem_bytes<D>(), q_smem = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(q_smem));
   if (err != cudaSuccess) return err;
-  const dim3 kv_grid((Skv + kMmaRows - 1) / kMmaRows, KH, B);
-  bwd_dkdv_mma_kernel<D><<<kv_grid, kThreads, 0, s>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv),
-      H, KH, S, Skv, causal, scale);
+  dqk<<<static_cast<unsigned>(q_ctas), kDqThreads, q_smem, s>>>(
+      maps, lse, delta, static_cast<bf*>(dq), B, H, KH, S, Skv, causal,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 q_grid((S + kMmaRows - 1) / kMmaRows, H, B);
-  bwd_dq_mma_kernel<D><<<q_grid, kThreads, 0, s>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<bf*>(dq), H, KH, S, Skv,
-      causal, scale);
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kv_smem));
+  if (err != cudaSuccess) return err;
+  dkdv<<<static_cast<unsigned>(kv_ctas), kDkdvThreads, kv_smem, s>>>(
+      maps, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), B, H, KH,
+      S, Skv, causal, scale);
   return cudaGetLastError();
 }
 
@@ -571,8 +873,9 @@ cudaError_t launch_all(const void* q, const void* k, const void* v,
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
   const long long rows = (long long)B * H * S;
-  bwd_delta_kernel<T, D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
-      static_cast<const T*>(o), dot, delta, rows);
+  constexpr int R = kDeltaRows<T, D>;
+  bwd_delta_kernel<T, D><<<static_cast<unsigned>((rows + R - 1) / R), 256, 0,
+                           s>>>(static_cast<const T*>(o), dot, delta, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 kv_grid((Skv + kRows<D> - 1) / kRows<D>, KH, B);
@@ -597,8 +900,8 @@ cudaError_t launch_dim(int D, const void* q, const void* k, const void* v,
 #define RT_BWD_CASE(DIM)                                                    \
   case DIM:                                                                 \
     if constexpr (std::is_same<T, __nv_bfloat16>::value && DIM <= 64)       \
-      return launch_mma<DIM>(q, k, v, o, lse, dout, dq, dk, dv, delta, B,   \
-                             H, KH, S, Skv, causal, scale, s);              \
+      return launch_tc<DIM>(q, k, v, o, lse, dout, dq, dk, dv, delta, B,    \
+                            H, KH, S, Skv, causal, scale, s);               \
     else                                                                    \
       return launch_all<T, DIM>(q, k, v, o, lse, dout, dq, dk, dv, delta,  \
                                 B, H, KH, S, Skv, causal, scale, s);
@@ -618,15 +921,19 @@ cudaError_t launch_dim(int D, const void* q, const void* k, const void* v,
 // q, o, dout, dq: (B, H, S, D); k, v, dk, dv: (B, KH, Skv, D); all
 // contiguous, of one dtype (RT_F32 or RT_BF16). lse: the forward's (B, H,
 // S) f32 log-sum-exp; delta: (B, H, S) f32 scratch. Queries at positions
-// [0, S), keys [0, Skv); causal masks key > query. D in {16, 32, 64, 128}.
-// Three kernels on `stream`; returns the first launch error.
+// [0, S), keys [0, Skv); causal masks key > query. D in {16, 32, 64, 128};
+// o and dout start 16-byte aligned, and so do q, k and v for the bf16
+// route at D <= 64, which reads them by TMA. Three kernels on `stream`;
+// returns the first launch error.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const float* lse, const void* dout, void* dq, void* dk, void* dv,
     float* delta, int B, int H, int KH, int S, int Skv, int D, int causal,
     float scale, int dtype, void* stream) {
   if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || S < 1 || Skv < 1 ||
-      B > 65535 || H > 65535)
+      B > 65535 || H > 65535 ||
+      (reinterpret_cast<uintptr_t>(o) | reinterpret_cast<uintptr_t>(dout)) %
+          16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == RT_F32)

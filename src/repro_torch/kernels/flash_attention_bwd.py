@@ -6,11 +6,13 @@ Replaces no TPU kernel: the reference's flash backward
 differentiates is the hand-written ``csrc/flash_attention.cu``, so its
 gradient is the hand-written ``csrc/flash_attention_bwd.cu`` (whose header
 says what bounds it and what its design does about that: bf16 at D <= 64
-on the tensor cores, float32 and bf16 at D 128 on the CUDA cores). It
-recomputes P from (q, k, v, the forward's o and its per-row log-sum-exp)
-and dO, as ``ref.flash_attention_bwd_ref`` does on the CPU. One call is
-one launch in ``flash_attention_bwd.launches`` (the source runs three
-kernels a call, with no atomics: two calls give the same bits).
+on the tensor cores, through ``wgmma`` fed by TMA, float32 and bf16 at D
+128 on the CUDA cores). It recomputes P from (q, k, v, the forward's o
+and its per-row log-sum-exp) and dO, as ``ref.flash_attention_bwd_ref``
+does on the CPU. One call is one launch in
+``flash_attention_bwd.launches`` (the source runs two kernels a call on
+the tensor cores, three on the CUDA cores, with no atomics: two calls
+give the same bits).
 """
 from __future__ import annotations
 
@@ -24,6 +26,12 @@ from repro_torch.kernels._checks import (contiguous, dtype_code, on_cuda,
 from repro_torch.kernels.ref import flash_attention_bwd_ref  # noqa: F401  (plain version)
 
 BWD_HEAD_DIMS = (16, 32, 64, 128)
+# the bf16 route's tiles (csrc/flash_attention_bwd.cu): 64 rows (wgmma's
+# M) of keys or query rows, one a consumer warpgroup; a CTA of the dK/dV
+# pass has two, one of the dQ pass three
+TILE = 64
+KV_CTA_TILES = 2
+Q_CTA_TILES = 3
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -50,10 +58,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D not in BWD_HEAD_DIMS:
         raise ValueError(f"the flash backward takes head_dim in "
                          f"{BWD_HEAD_DIMS}, got {D}")
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 for t in (q, k, v, do)):
-        raise ValueError("the bf16 route stages rows 16 bytes at a time: "
-                         "q, k, v and do must start 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (o, do)) or (
+            q.dtype == torch.bfloat16 and D <= 64
+            and any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError("the kernels read 16 bytes at a time and the bf16 "
+                         "route its tiles by TMA: o and do (and q, k, v in "
+                         "bf16) must start 16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention_bwd")

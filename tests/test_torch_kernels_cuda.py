@@ -1031,27 +1031,44 @@ def test_snapshot_export_adds_one_blocking_transfer(card):
 # --------------------------------------------------------------------------- #
 # the training path: the forward's lse, the flash and norm backward kernels
 # --------------------------------------------------------------------------- #
-def _bwd_inputs(B, H, KH, S, D, dtype, causal, seed):
+def _bwd_inputs(B, H, KH, S, D, dtype, causal, seed, Skv=None):
+    Skv = S if Skv is None else Skv
     q = _rand((B, H, S, D), seed, dtype)
-    k, v = _rand((B, KH, S, D), seed + 1, dtype), \
-        _rand((B, KH, S, D), seed + 2, dtype)
+    k, v = _rand((B, KH, Skv, D), seed + 1, dtype), \
+        _rand((B, KH, Skv, D), seed + 2, dtype)
     do = _rand((B, H, S, D), seed + 3, dtype)
     o, lse = ref.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
     return q, k, v, o, lse, do
 
 
-@pytest.mark.parametrize("B,H,KH,S,D,causal", [
-    (2, 4, 2, 37, 64, True),         # ragged S, GQA
-    (1, 8, 2, 100, 16, True),        # the reduced configs' head dim
-    (2, 4, 4, 70, 32, False),        # non-causal, MHA
-    (1, 4, 1, 33, 128, True),        # G 4 onto one KV head
-    (1, 4, 2, 1, 64, True),          # one position
+@pytest.mark.parametrize("B,H,KH,S,Skv,D,causal", [
+    (2, 4, 2, 37, 37, 64, True),     # ragged S, GQA
+    (1, 8, 2, 100, 100, 16, True),   # the reduced configs' head dim
+    (2, 4, 4, 70, 70, 32, False),    # non-causal, MHA
+    (1, 4, 1, 33, 33, 128, True),    # G 4 onto one KV head
+    (1, 4, 2, 1, 1, 64, True),       # one position
+    # S at the 64-row tiles' edges and one past the 128-key CTA
+    (1, 4, 2, 63, 63, 64, True),
+    (1, 4, 2, 64, 64, 64, True),
+    (1, 4, 2, 65, 65, 64, True),
+    (1, 4, 2, 127, 127, 64, True),
+    (1, 4, 2, 129, 129, 64, True),
+    (1, 8, 1, 200, 200, 64, True),   # G 8 onto one KV head
+    (1, 4, 4, 448, 1500, 64, False),  # whisper's cross attention
+] + [
+    # the tensor-core route's narrower head dims (32- and 64-byte
+    # swizzled rows) at one position, the tiles' edges and G 8, and
+    # non-causal at ragged Sq != Skv
+    (1, 4, 2, S, S, D, True) for D in (16, 32) for S in (1, 63, 65, 127, 129)
+] + [(1, 8, 1, 200, 200, D, True) for D in (16, 32)] + [
+    (1, 4, 2, 130, 300, D, False) for D in (16, 32)
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_flash_bwd_kernel_matches_plain(card, B, H, KH, S, D, causal, dtype):
+def test_flash_bwd_kernel_matches_plain(card, B, H, KH, S, Skv, D, causal,
+                                        dtype):
     """dq, dk, dv against the plain recomputing backward, from the same
     forward's o and lse; bitwise the same on a second call."""
-    args = _bwd_inputs(B, H, KH, S, D, dtype, causal, 10)
+    args = _bwd_inputs(B, H, KH, S, D, dtype, causal, 10, Skv)
     got = flash_attention_bwd(*args, causal=causal)
     again = flash_attention_bwd(*args, causal=causal)
     want = ref.flash_attention_bwd_ref(*args, causal=causal)
@@ -1078,19 +1095,24 @@ def test_flash_kernel_writes_lse(card, causal, D, dtype):
 
 
 @pytest.mark.parametrize("mode", ["rmsnorm", "layernorm", "np_layernorm"])
-@pytest.mark.parametrize("rows,d", [(7, 300), (4096, 2048), (1027, 2048)])
+@pytest.mark.parametrize("rows,d", [(7, 300), (4096, 2048), (1027, 2048),
+                                    (1, 2048), (8193, 4096)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_norm_bwd_kernel_matches_plain(card, mode, rows, d, dtype):
+    """dx, dscale, dbias against the plain version; bitwise the same on
+    a second call (the partials are summed in a fixed order)."""
     x, dy = _rand((rows, d), 30, dtype, 3.0), _rand((rows, d), 31, dtype)
     s, b = _rand((d,), 32, dtype), _rand((d,), 33, dtype)
     s = s if mode != "np_layernorm" else None
     b = b if mode == "layernorm" else None
     got = layernorm_bwd(x, s, b, dy, mode=mode)
+    again = layernorm_bwd(x, s, b, dy, mode=mode)
     want = ref.norm_bwd_ref(x, s, b, dy, mode=mode)
-    for g, w in zip(got, want):
+    for g, a, w in zip(got, again, want):
         assert (g is None) == (w is None)
         if g is not None:
             _close(g, w, dtype)
+            assert torch.equal(g, a)
 
 
 def test_gradients_without_a_backward_kernel_raise_on_the_card(card):
