@@ -49,7 +49,15 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      autograd backward of SDPA with ``is_causal``; the norm backward in
      all three modes at rows 4096 x d 2048 and a ragged row count,
      bitwise over two calls, beside the autograd backward of
-     ``F.rms_norm`` / ``F.layer_norm``;
+     ``F.rms_norm`` / ``F.layer_norm``; the flash backward also at
+     jamba's attention layer (B 2, S 2048, 32 / 8 heads of 128, the CUDA
+     cores); the recurrences' backward kernels against their plain
+     adjoint recurrences, bitwise over two calls (no spill): the wkv's at
+     rwkv6-7b's training call (BH 128, T 2048, K 64, u (H, K)), a ragged
+     T with dS_T, U < BH at K 16 and the model's strong decays, the
+     Mamba scan's at jamba's (B 2, T 2048, d 8192, n 16, in float32), a
+     ragged T with dh_T and the reduced widths (f32 within 2e-3, bf16
+     within 1e-2 + 2e-2 |want|; no library call computes either);
   2b. call ``ops.masked_softmax`` on a llama prefill chunk's scores with
      the launch counts set to 0 just before: the kernel must launch, give
      exact zeros where masked and rows that sum to 1;
@@ -251,11 +259,33 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      --steps 60 --ckpt-every 20 --fail-at-step 45`` on the card exits 17
      after its checkpoint at step 40, and the rerun prints "resumed from
      step 40" and "done:" and exits 0.
+  17. training rwkv6-7b at full width cut to 8 of 32 layers (bf16 weights
+     from a seed, ``remat="full"``), AdamW under a 2-step warmup to 1e-3,
+     10 steps on one ``SyntheticLM`` batch of 2 x 2048: the losses finite
+     and the last 3 below the first 3, the gradient at the trained
+     weights finite and nonzero in every leaf, each step launching
+     ``rwkv_chunk`` 16 times (forward and recomputed), ``rwkv_chunk_bwd``
+     8, the norm 33 and its backward 17; logged as 16's;
+  17b. rwkv6-7b at depth 2, float32, S 128: step 1's gradient and 3 AdamW
+     steps through the kernels against the plain versions on the card
+     (every gradient leaf, the losses and the parameters within 1e-4);
+  18. training jamba-v0.1-52b's two-layer stack at full widths (a Mamba +
+     dense layer and an attention + MoE layer, 16 experts top-2; 3.66 G
+     parameters), B 2 x S 2048, 10 steps as 17: ``mamba_chunk`` 2 and
+     ``mamba_chunk_bwd`` 1 a step, flash 2 and its backward 1 at D 128,
+     the MoE's gradient in plain PyTorch;
+  18b. that stack in float32 at B 1 x S 128, as 17b but through the
+     launcher's ``"train"`` step (Adafactor: AdamW's f32 moments beside
+     two float32 copies of the stack do not fit);
+  19. training whisper-medium at full size, phase 14's step shape (B 2,
+     1,500 bf16 frames, 448 tokens), 10 steps as 17: the encoder under
+     remat, the flash backward 72 times a step, at 1,500 x 1,500 and 448
+     x 1,500 non-causal (24 each) and 448 causal (24).
 
-``--phases 2,12,12b,12c,14,15,16`` (any of them) builds the kernels and
-runs only the named phases (14 with 14b, 15 with 15b, 16 with 16b and
-16c) and phase 13's checks of their traces, printing no result lines (a
-development run).
+``--phases 2,12,12b,12c,14,15,16,17,18,19`` (any of them) builds the
+kernels and runs only the named phases (14 with 14b, 15 with 15b, 16 with
+16b and 16c, 17 with 17b, 18 with 18b) and phase 13's checks of their
+traces, printing no result lines (a development run).
 
 The last two lines of standard output are the kernel table as one JSON
 object (a row a kernel at its main-path shape, then flash at D 96 in both
@@ -263,7 +293,10 @@ modes, launched by phase 10b, at D 112, by phase 11c, and at D 160 in
 both modes and decode attention at D 160, by phase 15, then flash's
 non-causal mode at whisper's encoder and cross shapes and decode
 attention at its cross cache, by phase 14, then the training path's
-forward with ``lse``, flash backward and norm backward, by phase 16), then
+forward with ``lse``, flash backward and norm backward, by phase 16, the
+wkv's backward by phase 17, the Mamba scan's and the flash backward at D
+128 by phase 18, and the flash backward at whisper's two non-causal
+shapes by phase 19), then
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when there is no CUDA device, when the port's sources are missing,
 or when any phase fails.
@@ -372,7 +405,8 @@ WIDE_FLASH = ((8, 128, 1024, 512, 20, 20, 96), (2, 37, 300, 128, 20, 20, 96),
 NON_CAUSAL_FLASH = ((2, 1500, 1500, 16, 16, 64), (2, 448, 1500, 16, 16, 64),
                     (2, 100, 300, 16, 16, 64))
 # the flash backward, as (B, S, Skv, H, KH, D, causal): llama3.2-1b's
-# training shape (phase 16's batch of 4 x 1024), a ragged S, the
+# training shape (phase 16's batch of 4 x 1024), a ragged S, jamba's
+# attention layer in phase 18 (B 2 x S 2048, 32 / 8 heads of 128), the
 # non-causal mode at G 1: whisper-medium's encoder shape and its decoder's
 # cross attention (448 queries against the 1,500 frames); the reduced
 # llama that phase 16c trains (batch 8 x 64, 4 / 2 heads of 16), and a
@@ -380,12 +414,24 @@ NON_CAUSAL_FLASH = ((2, 1500, 1500, 16, 16, 64), (2, 448, 1500, 16, 16, 64),
 # and head dim 32, so that each head dim of the tensor-core route is held
 FLASH_BWD = ((4, 1024, 1024, 32, 8, 64, True),
              (4, 1000, 1000, 32, 8, 64, True),
+             (2, 2048, 2048, 32, 8, 128, True),
              (2, 1500, 1500, 16, 16, 64, False),
              (2, 448, 1500, 16, 16, 64, False),
              (8, 64, 64, 4, 2, 16, True),
              (2, 321, 321, 64, 8, 32, True))
 # the norm backward, as (mode, rows, d): llama's training rows (4 x 1024)
 # and a ragged row count, in each mode
+# the wkv backward, as (BH, T, K, U, strong decays, with dS_T): rwkv6-7b's
+# training call in phase 17 (B 2 x 64 heads of 64, S 2048, u (H, K)
+# broadcast over the batch, no gradient of S_T), a ragged last sub-chunk
+# with dS_T, U < BH at K 16 and T 37, and the model's strong decays
+RWKV_BWD = ((128, 2048, 64, 64, False, False), (4, 200, 64, 4, False, True),
+            (6, 37, 16, 3, False, True), (16, 512, 64, 16, True, False))
+# the Mamba scan's backward, as (B, T, d_inner, d_state, with dh_T): jamba's
+# training call in phase 18 (B 2 x S 2048), a ragged last checkpoint with
+# dh_T at full width, and the reduced widths at a ragged T
+MAMBA_BWD = ((2, 2048, 8192, 16, False), (1, 200, 8192, 16, True),
+             (2, 37, 128, 4, True), (2, 37, 100, 5, False))
 NORM_BWD_SHAPES = tuple((m, r, 2048) for m in ("rmsnorm", "layernorm",
                                                "np_layernorm")
                         for r in (4096, 1027))
@@ -732,6 +778,69 @@ def training_cases(torch, dtype, rn):
                 y, i, g, retain_graph=True),
             bytes=(3 * x.numel() + 2 * n_affine * dn) * es,
             flops=10.0 * rows * dn))
+    return cases + recurrent_bwd_cases(torch, dtype, rn)
+
+
+def recurrent_bwd_cases(torch, dtype, rn):
+    """Phase 2's cases of the recurrences' backward kernels against their
+    plain adjoint recurrences, bitwise over two calls: the wkv's at
+    ``RWKV_BWD`` (r, k, v in the case's dtype, w, u and dy in f32 as the
+    model gives them; the decays as ``kernel_cases``' wkv makes them), the
+    Mamba scan's at ``MAMBA_BWD`` (a, u, C as ``mamba_inputs`` makes them,
+    dy in their dtype; timed in float32, the model's call, and bf16 only
+    at the small shapes). f32 within the chunked wkv's 2e-3, bf16 within
+    1e-2 + 2e-2 |want|. No single PyTorch call computes either gradient,
+    so there is no library column. Operations: 14 flops an element of
+    the wkv's state a step (state and G advanced, 3 each; S dy, G v, G^T
+    k, G * S, 2 each), 8 an element of the scan's a step."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba_chunk_bwd import mamba_chunk_bwd
+    from repro_torch.kernels.rwkv_chunk_bwd import rwkv_chunk_bwd
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    es = torch.finfo(dtype).bits // 8
+    cases = []
+    tol = {"float32": 2e-3, "bfloat16": TIGHT_TOL["bfloat16"]}
+    for BH, T_, K, U, strong, final in RWKV_BWD:
+        r, k, v = (rn(BH, T_, K, scale=0.5) for _ in range(3))
+        w0 = (torch.rand((BH, T_, K), generator=g, device="cuda") * 14 - 10
+              if strong else
+              torch.log(torch.rand((BH, T_, K), generator=g, device="cuda")
+                        * (1 - 1e-3) + 1e-3))
+        w = torch.exp(-torch.exp(w0))
+        u = torch.randn((U, K), generator=g, device="cuda") * 0.1
+        dy = torch.randn((BH, T_, K), generator=g, device="cuda")
+        ds = torch.randn((BH, K, K), generator=g, device="cuda") \
+            if final else None
+        args = (r, k, v, w, u, dy, ds)
+        cases.append(dict(
+            kernel="rwkv_chunk_bwd", deterministic=True, tol=tol,
+            label=f"BH{BH} T{T_} K{K}"
+            + ("" if (BH, U) == (128, 64) else f" U{U}")
+            + (" strong" if strong else "") + (" dS" if final else ""),
+            run=lambda a=args: rwkv_chunk_bwd(*a),
+            plain=lambda a=args: ref.rwkv_chunk_bwd_ref(*a),
+            library=None, math="float32",
+            bytes=BH * T_ * K * (6 * es + 12) + 8 * U * K
+            + (4 * BH * K * K if final else 0),
+            flops=14.0 * BH * T_ * K * K))
+    for B, T_, di, n, final in MAMBA_BWD:
+        if dtype == torch.bfloat16 and T_ == 2048:
+            continue              # the bf16 instantiation: the small cases
+        a, u, C = mamba_inputs(torch, g, B, T_, di, n, dtype)
+        dy = torch.randn((B, T_, di), generator=g, device="cuda").to(dtype)
+        dh = torch.randn((B, di, n), generator=g, device="cuda") \
+            if final else None
+        args = (a, u, C, dy, dh)
+        cases.append(dict(
+            kernel="mamba_chunk_bwd", deterministic=True, tol=tol,
+            label=f"B{B} T{T_} d{di} n{n}" + (" dh" if final else ""),
+            run=lambda a=args: mamba_chunk_bwd(*a),
+            plain=lambda a=args: ref.mamba_chunk_bwd_ref(*a),
+            library=None, math="float32", timed="float32",
+            bytes=es * (4 * B * T_ * di * n + 2 * B * T_ * n + B * T_ * di)
+            + (4 * B * di * n if final else 0),
+            flops=8.0 * B * T_ * di * n))
     return cases
 
 
@@ -885,11 +994,20 @@ SOURCES = {
     "layernorm_bwd": ("triton", "src/repro_torch/kernels/layernorm.py",
                       "src/repro/models/layers.py:36 (apply_norm, XLA "
                       "autodiff)"),
+    # the recurrences' gradients: XLA autodiff of the reference's scans
+    "rwkv_chunk_bwd": (
+        "cuda", "src/repro_torch/kernels/csrc/rwkv_chunk_bwd.cu",
+        "src/repro/models/ssm.py:117 (_wkv_scan, XLA autodiff)"),
+    "mamba_chunk_bwd": (
+        "cuda", "src/repro_torch/kernels/csrc/mamba_chunk_bwd.cu",
+        "src/repro/models/ssm.py:280 (mamba_mix's chunked_linear_scan, "
+        "XLA autodiff)"),
 }
-# the sources whose kernels may not spill (the tensor-core routes and the
-# redesigned decode kernels)
+# the sources whose kernels may not spill (the tensor-core routes, the
+# redesigned decode kernels and the recurrences' backward kernels)
 SPILL_GATED = ("flash_attention", "flash_attention_bwd", "decode_attention",
-               "pim_matvec", "rwkv_chunk")
+               "pim_matvec", "rwkv_chunk", "rwkv_chunk_bwd",
+               "mamba_chunk_bwd")
 # the registers a thread of the flash backward's dK/dV kernel must enter
 # with: its warpgroups trade registers by setmaxnreg within the CTA's
 # launch allocation (384 x 168), and with fewer the consumers' request
@@ -905,7 +1023,9 @@ REPORTED = {"flash_attention": "B8 S128 span640 off512",
             "masked_softmax": "rows32768 n640",
             "mamba_chunk": "B2 T2048 d8192 n16",
             "flash_attention_bwd": "B4 S1024",
-            "layernorm_bwd": "rmsnorm rows4096 d2048"}
+            "layernorm_bwd": "rmsnorm rows4096 d2048",
+            "rwkv_chunk_bwd": "BH128 T2048 K64",
+            "mamba_chunk_bwd": "B2 T2048 d8192 n16"}
 
 
 def ptxas_entries(log_text: str):
@@ -968,7 +1088,12 @@ def check_kernels(torch) -> dict:
             tol = c.get("tol", TOL)[dname]
             atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
             got = flat(torch, c["run"]())
+            t0 = time.perf_counter()
             want = flat(torch, c["plain"]())
+            torch.cuda.synchronize()
+            # a plain version slower than 50 ms a call is timed over 5
+            plain_kw = dict(iters=5, warmup=1) \
+                if time.perf_counter() - t0 > 0.05 else {}
             # a kernel that merges splits in a fixed order: a second call
             # gives the same bits
             again = flat(torch, c["run"]()) if c.get("deterministic") \
@@ -1009,7 +1134,7 @@ def check_kernels(torch) -> dict:
                 row["dropped_tile_tol_share"] = broken_share
             if dname == c.get("timed", "bfloat16"):
                 row["ms"] = time_ms(torch, c["run"])
-                row["plain_ms"] = time_ms(torch, c["plain"])
+                row["plain_ms"] = time_ms(torch, c["plain"], **plain_kw)
                 row["library_ms"] = (None if c["library"] is None
                                      else time_ms(torch, c["library"]))
                 # a kernel that computes in f32 whatever its inputs (the
@@ -1816,7 +1941,9 @@ PORT_KERNELS = ("pim_matvec_kernel", "decode_attention_kernel",
                 "rwkv_chunk_kernel", "rwkv_chunk_tc_kernel",
                 "mamba_chunk_kernel", "norm_kernel", "softmax_kernel",
                 "bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
-                "bwd_dkdv_mma_kernel", "bwd_dq_mma_kernel", "norm_bwd_kernel")
+                "bwd_dkdv_mma_kernel", "bwd_dq_mma_kernel", "norm_bwd_kernel",
+                "rwkv_chunk_bwd_kernel", "rwkv_du_kernel",
+                "mamba_chunk_bwd_kernel", "mamba_dc_kernel")
 
 
 def device_profile(torch, fn, top: int = 8) -> dict:
@@ -2709,7 +2836,8 @@ def shape_counts(tally) -> dict:
 NO_LAUNCH = {"flash_attention": 0, "flash_attention_segmented": 0,
              "decode_attention": 0, "pim_matvec": 0, "layernorm": 0,
              "rwkv_chunk": 0, "masked_softmax": 0, "mamba_chunk": 0,
-             "flash_attention_bwd": 0, "layernorm_bwd": 0}
+             "flash_attention_bwd": 0, "layernorm_bwd": 0,
+             "rwkv_chunk_bwd": 0, "mamba_chunk_bwd": 0}
 
 
 def whisper_launches(cfg) -> tuple:
@@ -3268,13 +3396,24 @@ class TraceChecks:
 # phases 16-16c: training llama3.2-1b
 # --------------------------------------------------------------------------- #
 def train_launches(cfg) -> dict:
-    """What one train step launches at ``cfg.remat="full"``: flash and the
-    two in-block norms once in the forward and again in the block's
-    recomputation, the final norm once; each backward kernel once a
-    forward launch it differentiates."""
-    L = cfg.num_layers
-    return dict(NO_LAUNCH, flash_attention=2 * L, flash_attention_bwd=L,
-                layernorm=4 * L + 1, layernorm_bwd=2 * L + 1)
+    """What one train step launches at ``cfg.remat="full"``: each kernel of
+    a block (flash, the wkv or the Mamba scan, the in-block norms; an
+    encdec decoder block's cross attention and its norm; whisper's encoder
+    blocks too) once in the forward and again in the block's
+    recomputation, the final norms (the encoder's and the decoder's) once;
+    each backward kernel once a forward launch it differentiates."""
+    kinds = cfg.layer_kinds()
+    enc = cfg.encoder_layers if cfg.family == "encdec" else 0
+    cross = kinds.count("attn") if enc else 0
+    flash = kinds.count("attn") + cross + enc
+    norms = 2 * len(kinds) + cross + 2 * enc
+    finals = 2 if enc else 1
+    rwkv, mamba = kinds.count("rwkv"), kinds.count("mamba")
+    return dict(NO_LAUNCH, flash_attention=2 * flash,
+                flash_attention_bwd=flash, layernorm=2 * norms + finals,
+                layernorm_bwd=norms + finals, rwkv_chunk=2 * rwkv,
+                rwkv_chunk_bwd=rwkv, mamba_chunk=2 * mamba,
+                mamba_chunk_bwd=mamba)
 
 
 def train_phase(torch) -> dict:
@@ -3462,6 +3601,340 @@ def train_phases(torch, checks=None) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phases 17-19: training rwkv6-7b, jamba and whisper-medium
+# --------------------------------------------------------------------------- #
+# jamba's two-layer stack at its full widths: ``.reduced()``'s interleave,
+# one Mamba + dense layer and one attention + MoE layer (its own period of
+# 8 layers holds 11.3 G parameters in experts, which AdamW's 12 bytes a
+# parameter cannot hold on 80 GB)
+JAMBA_STACK = dict(attn_period=2, attn_offset=1, moe_every=2, moe_offset=1,
+                   num_layers=2)
+
+
+def step_flops(cfg, B: int, S: int) -> float:
+    """6 N tokens of one step: N the parameters a token meets (all but the
+    experts it is not routed to); whisper's encoder parameters meet the
+    frames, the rest the decoder's tokens."""
+    from repro_torch.models import transformer as T
+
+    defs = T.param_defs(cfg)
+
+    def count(tree):
+        total = experts = 0
+        for pd in leaves(tree):
+            n = 1
+            for x in pd.shape:
+                n *= x
+            total += n
+            experts += n if "experts" in pd.logical_axes else 0
+        if experts:
+            total -= experts * (1 - cfg.experts_per_token / cfg.num_experts)
+        return total
+    if cfg.family == "encdec":
+        enc = count(defs["encoder"])
+        return 6.0 * B * (enc * cfg.encoder_seq
+                          + (count(defs) - enc) * S)
+    return 6.0 * B * S * count(defs)
+
+
+def to_card(torch, batch: dict) -> dict:
+    return {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+
+
+def family_train(torch, phase: str, cfg, B: int, S: int, steps: int,
+                 batch_of) -> dict:
+    """``cfg`` at full width in bf16, weights from a seed, ``remat="full"``,
+    AdamW under a 2-step warmup to 1e-3 and cosine decay, ``steps`` steps
+    on one batch ``batch_of(0)`` (B x S). Every loss is finite and the
+    last 3 average below the first 3; the gradient at the trained weights
+    (on ``batch_of(1)``) has
+    every leaf finite and nonzero (a leaf without one is a dead autograd
+    path); each step
+    launches exactly ``train_launches(cfg)`` (the recurrences' backward
+    kernels once a layer). Logged: ms a step (mean of steps 2 on), tokens
+    a second, the share of 989 TFLOP/s that ``step_flops`` reaches, peak
+    memory, and a profiled step (busy share, device ms by kernel)."""
+    from repro_torch.checkpoint import flatten_tree
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.optim import adamw_init, linear_warmup_cosine
+    from repro_torch.train import (TrainStepConfig, loss_and_grads,
+                                   make_train_step)
+
+    if cfg.remat != "full" or cfg.dtype != "bfloat16":
+        fail(f"{phase}: {cfg.name} has remat {cfg.remat}, dtype {cfg.dtype}")
+    t0 = time.perf_counter()
+    params = init_params(T.param_defs(cfg), device="cuda", seed=0)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, TrainStepConfig(
+        learning_rate=linear_warmup_cosine(1e-3, 2, steps)))
+    # one batch, fitted: a step that learns makes its loss fall however
+    # the stream's rules change from batch to batch
+    batches = [batch_of(0)] * steps + [batch_of(1)]
+    want = train_launches(cfg)
+    losses, ms, total = [], [], dict.fromkeys(want, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ops.reset_launch_counts()
+        ev[0].record()
+        params, opt, m = step(params, opt, batches[i])
+        ev[1].record()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if counts != want:
+            fail(f"{phase}: step {i} launched {counts}, expected {want}")
+        total = {k: total[k] + counts[k] for k in total}
+        losses.append(float(m["loss"]))
+        ms.append(ev[0].elapsed_time(ev[1]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        fail(f"{phase}: losses {losses}")
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not last < first:
+        fail(f"{phase}: the last 3 losses average {last}, the first 3 "
+             f"{first}")
+    # the gradient at the trained weights (at the initial ones rwkv's
+    # decay LoRA, whose second factor starts at 0, passes none to its
+    # first factor and mu_w)
+    _, _, grads = loss_and_grads(cfg, params, to_card(torch, batches[-1]))
+    named = flatten_tree(grads)
+    for name, g in named.items():
+        if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+            fail(f"{phase}: gradient of {name} not finite and nonzero")
+    n_leaves = len(named)
+    del grads, named
+    empty_card(torch)
+    mean = sum(ms[1:]) / (steps - 1)
+    flops = step_flops(cfg, B, S)
+    out = dict(phase=phase, arch=cfg.name, layers=cfg.num_layers, B=B, S=S,
+               steps=steps, params=param_count(T.param_defs(cfg)),
+               step_flops=flops, grad_leaves=n_leaves, losses=losses,
+               first3=first, last3=last, ms_per_step=mean, ms_runs=ms,
+               tokens_per_s=B * S / (mean / 1e3),
+               flops_share=flops / (mean / 1e3) / PEAK_FLOPS["bfloat16"],
+               max_memory_allocated=peak, launches_per_step=want,
+               launches=total)
+    # the emptied allocator refills on an unmeasured step first
+    params, opt, _ = step(params, opt, batches[steps])
+    out["profile"] = device_profile(
+        torch, lambda: step(params, opt, batches[steps]), top=12)
+    del params, opt
+    empty_card(torch)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def family_parity(torch, phase: str, cfg, batch_of,
+                  adafactor: bool = False) -> dict:
+    """``cfg`` (full width, depth 2) in float32, ``remat="full"``: step 1's
+    gradient and 3 steps through the kernels and through the plain
+    versions (``plain_path``), both on the card, from the same weights
+    (from a seed, cast to float32) and batches: AdamW at a constant 1e-4
+    (``make_train_step``) or, with ``adafactor``, the launcher's
+    ``"train"`` step (Adafactor at 1e-4). The two paths run one after the
+    other, the kernel path's gradient and parameters kept on the host (a
+    float32 copy of jamba's stack with its optimizer state for each path
+    would not fit the card). Every gradient leaf, each step's loss and
+    every parameter after step 3 within 1e-4 of the plain path's,
+    relative to 1 + |plain| (16b's bound); the kernel path's launches
+    exact."""
+    import contextlib as cl
+
+    from repro_torch.checkpoint import flatten_tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import step_fn_for
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adafactor_init, adamw_init
+    from repro_torch.train import (TrainStepConfig, loss_and_grads,
+                                   make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+
+    def tree(fn, t):
+        return {k: tree(fn, v) for k, v in t.items()} \
+            if isinstance(t, dict) else fn(t)
+    params = init_params(T.param_defs(cfg), device="cuda", seed=4)
+    init = tree(lambda a: a.float().cpu(), params)
+    del params
+    batches = [batch_of(i) for i in range(3)]
+    want = train_launches(cfg)
+
+    def run(plain: bool):
+        p = tree(lambda a: a.to("cuda"), init)
+        with plain_path(ops) if plain else cl.nullcontext():
+            ops.reset_launch_counts()
+            grads = loss_and_grads(cfg, p, to_card(torch, batches[0]))[2]
+            if not plain and ops.launch_counts() != want:
+                fail(f"{phase}: the gradient launched {ops.launch_counts()}"
+                     f", expected {want}")
+            yield grads
+            del grads
+            if adafactor:
+                opt, step = adafactor_init(p), step_fn_for(cfg, "train")
+            else:
+                opt = adamw_init(p)
+                step = make_train_step(cfg, TrainStepConfig(
+                    learning_rate=lambda s: 1e-4))
+            losses = []
+            for i in range(3):
+                ops.reset_launch_counts()
+                p, opt, m = step(p, opt, batches[i])
+                losses.append(float(m["loss"]))
+                if not plain and ops.launch_counts() != want:
+                    fail(f"{phase}: step {i} launched "
+                         f"{ops.launch_counts()}, expected {want}")
+            del opt
+            yield losses, p
+
+    def worst(a, b):
+        """The largest |kernel - plain| / (1 + |plain|) and its leaf."""
+        errs = {k: float(((x.to("cuda") - y).abs() / (1 + y.abs())).max())
+                for (k, x), y in zip(flatten_tree(a).items(),
+                                     flatten_tree(b).values())}
+        leaf = max(errs, key=errs.get)
+        return errs[leaf], leaf
+    kernel = run(plain=False)
+    g_k = tree(lambda a: a.cpu(), next(kernel))
+    losses_k, p_k = next(kernel)
+    p_k = tree(lambda a: a.cpu(), p_k)
+    kernel.close()
+    empty_card(torch)
+    plain = run(plain=True)
+    out = dict(phase=phase, arch=cfg.name,
+               optimizer="adafactor" if adafactor else "adamw")
+    out["grad_err"], out["grad_worst"] = worst(g_k, next(plain))
+    del g_k
+    losses_p, p_p = next(plain)
+    out["param_err"], out["param_worst"] = worst(p_k, p_p)
+    plain.close()
+    del p_k, p_p
+    out["losses"] = list(zip(losses_k, losses_p))
+    out["loss_err"] = max(abs(a - b) / (1 + abs(b)) for a, b in out["losses"])
+    if max(out["grad_err"], out["loss_err"], out["param_err"]) > 1e-4:
+        fail(f"{phase}: kernel path != plain path beyond 1e-4: {out}")
+    empty_card(torch)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+@contextlib.contextmanager
+def flash_bwd_shapes(ops):
+    """Within it, each launch of the flash backward is tallied by
+    ("bwd", causal, Sq, Skv, D), as ``attention_shapes`` tallies the
+    forward; the wrapper is restored after."""
+    import collections
+
+    tally = collections.Counter()
+    bwd = ops._flash_bwd
+
+    def counted(q, k, v, o, lse, do, *, causal=True):
+        tally["bwd", bool(causal), q.shape[2], k.shape[2], q.shape[3]] += 1
+        return bwd(q, k, v, o, lse, do, causal=causal)
+    ops._flash_bwd = counted
+    try:
+        yield tally
+    finally:
+        ops._flash_bwd = bwd
+
+
+def rwkv_train_phases(torch, checks=None) -> dict:
+    """Phase 17: rwkv6-7b at full width cut to 8 of 32 layers, B 2 x S
+    2048 of ``SyntheticLM``, 10 steps; 17b: depth 2, float32, S 128 (the
+    plain path's wkv and its backward walk the steps one by one)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+
+    full = get_arch("rwkv6-7b")
+    cfg = dataclasses.replace(full, num_layers=8)
+    data = SyntheticLM(cfg.vocab_size, 2048, 2, seed=0)
+    out = {"17": family_train(torch, "17 rwkv6-7b train", cfg, 2, 2048, 10,
+                              data.batch)}
+    log(f"phase 17 took {out['17']['wall_s']:.1f} s: " + json.dumps(out["17"]))
+    small = SyntheticLM(cfg.vocab_size, 128, 2, seed=5)
+    out["17b"] = family_parity(torch, "17b rwkv6-7b train parity",
+                               dataclasses.replace(full, num_layers=2,
+                                                   dtype="float32"),
+                               small.batch)
+    log(f"phase 17b took {out['17b']['wall_s']:.1f} s: "
+        + json.dumps(out["17b"]))
+    return out
+
+
+def jamba_train_phases(torch, checks=None) -> dict:
+    """Phase 18: jamba-v0.1-52b's ``JAMBA_STACK`` at full widths, B 2 x S
+    2048 of ``SyntheticLM``, 10 steps (Mamba, flash at D 128 on the CUDA
+    cores, MoE and their backward); 18b: the same stack in float32, B 1 x
+    S 128, through the launcher's Adafactor step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+
+    cfg = dataclasses.replace(get_arch("jamba-v0.1-52b"), **JAMBA_STACK)
+    data = SyntheticLM(cfg.vocab_size, 2048, 2, seed=0)
+    out = {"18": family_train(torch, "18 jamba train", cfg, 2, 2048, 10,
+                              data.batch)}
+    log(f"phase 18 took {out['18']['wall_s']:.1f} s: " + json.dumps(out["18"]))
+    # in float32 the stack, a second copy of it and AdamW's moments (4
+    # x 14.6 GB) leave no room: the launcher's Adafactor step
+    small = SyntheticLM(cfg.vocab_size, 128, 1, seed=5)
+    out["18b"] = family_parity(torch, "18b jamba train parity",
+                               dataclasses.replace(cfg, dtype="float32"),
+                               small.batch, adafactor=True)
+    log(f"phase 18b took {out['18b']['wall_s']:.1f} s: "
+        + json.dumps(out["18b"]))
+    return out
+
+
+def whisper_train_phase(torch, checks=None) -> dict:
+    """Phase 19: whisper-medium at full size, phase 14's step shape (B 2,
+    1,500 frames, 448 tokens from ``batch_for``, frames in bf16), 10 steps:
+    its encoder under remat, the flash backward non-causal at 1,500 x
+    1,500 (24 a step) and 448 x 1,500 (24), causal at 448 (24)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import batch_for
+    from repro_torch.kernels import ops
+
+    cfg = get_arch("whisper-medium")
+    S = 448                         # the decoder's context
+
+    def batch_of(i):
+        b = to_card(torch, batch_for(cfg, 2, S, seed=i))
+        b["frame_embeds"] = b["frame_embeds"].to(torch.bfloat16)
+        return b
+    with flash_bwd_shapes(ops) as tally:
+        out = family_train(torch, "19 whisper-medium train", cfg, 2, S, 10,
+                           batch_of)
+    L, E, D, F = cfg.num_layers, cfg.encoder_layers, cfg.head_dim, \
+        cfg.encoder_seq
+    want = {("bwd", False, F, F, D): E, ("bwd", True, S, S, D): L,
+            ("bwd", False, S, F, D): L}
+    # the gradient check, 10 steps, an unmeasured one and the profiled one
+    runs = out["steps"] + 3
+    if dict(tally) != {k: n * runs for k, n in want.items()}:
+        fail(f"19: the flash backward ran at {shape_counts(tally)}, expected"
+             f" {runs} x {want}")
+    # the launches of the 10 measured steps at each shape
+    out["flash_bwd_by_shape"] = shape_counts(
+        {k: n * out["steps"] for k, n in want.items()})
+    log(f"phase 19 took {out['wall_s']:.1f} s: " + json.dumps(out))
+    return {"19": out}
+
+
+def family_train_phases(torch, checks=None) -> dict:
+    """Phases 17-19, each on a card emptied first."""
+    out = {}
+    for fn in (rwkv_train_phases, jamba_train_phases, whisper_train_phase):
+        empty_card(torch)
+        out.update(fn(torch))
+    return out
+
+
 def main() -> None:
     import argparse
 
@@ -3507,7 +3980,8 @@ def main() -> None:
             alone = dict(FLEET_PHASES, **{
                 "2": lambda torch, checks: check_kernels(torch),
                 "14": whisper_phases, "15": pixtral_phases,
-                "16": train_phases})
+                "16": train_phases, "17": rwkv_train_phases,
+                "18": jamba_train_phases, "19": whisper_train_phase})
             for phase in only.split(","):
                 t0 = time.perf_counter()
                 alone[phase](torch, checks)
@@ -3560,6 +4034,7 @@ def main() -> None:
         whisper = whisper_phases(torch, checks)
         pixtral = pixtral_phases(torch, checks)
         train = train_phases(torch)
+        train.update(family_train_phases(torch))
         checks.run(card)
     except SystemExit:
         raise
@@ -3573,8 +4048,12 @@ def main() -> None:
     # and packed serve; decode attention from its unpacked serve), and
     # whisper-medium's non-causal flash (one prefill step's launches at
     # each shape) and cross decode attention (a run of phase 14b:
-    # prefill_with_cache's 16 steps and 32 decode steps)
+    # prefill_with_cache's 16 steps and 32 decode steps); the training
+    # kernels by phase 16 (llama), 17 (the wkv's backward), 18 (the Mamba
+    # scan's; the flash backward at D 128) and 19 (the flash backward at
+    # whisper's two non-causal shapes, its runs' launches at each)
     per_step = whisper["14a"]["flash_by_shape_per_step"]
+    bwd_shapes = train["19"]["flash_bwd_by_shape"]
 
     def launched(kernel, n):
         return {"launches": {kernel: n}}
@@ -3582,7 +4061,9 @@ def main() -> None:
              {"flash_attention_segmented": serves["3b packed"],
               "rwkv_chunk": rwkv["step"], "mamba_chunk": jamba["step"],
               "masked_softmax": path, "flash_attention_bwd": train["16"],
-              "layernorm_bwd": train["16"]}.get(name, serves["3 unpacked"]))
+              "layernorm_bwd": train["16"], "rwkv_chunk_bwd": train["17"],
+              "mamba_chunk_bwd": train["18"]}.get(name,
+                                                  serves["3 unpacked"]))
             for name in SOURCES] + [
         ("flash_attention D96", "flash_attention",
          "B8 S128 span640 off512 D96 H20/20", gpt2["10b"]["unpacked"]),
@@ -3608,7 +4089,16 @@ def main() -> None:
          launched("decode_attention",
                   whisper["14b generate"]["cross_launches"])),
         ("flash_attention lse", "flash_attention", "B4 S1024 span1024 off0 "
-         "lse", train["16"])]
+         "lse", train["16"]),
+        ("flash_attention_bwd D128", "flash_attention_bwd", "B2 S2048 D128",
+         train["18"]),
+        ("flash_attention_bwd non-causal encoder", "flash_attention_bwd",
+         "B2 S1500 non-causal H16/16",
+         launched("flash_attention_bwd",
+                  bwd_shapes["bwd False 1500 1500 64"])),
+        ("flash_attention_bwd non-causal cross", "flash_attention_bwd",
+         "B2 Sq448 Skv1500 non-causal H16/16",
+         launched("flash_attention_bwd", bwd_shapes["bwd False 448 1500 64"]))]
     kernels = []
     for name, kernel, label, run in rows:
         route, source, replaces = SOURCES[kernel]

@@ -22,7 +22,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
-           "pim_matvec", "rwkv_chunk", "mamba_chunk")
+           "pim_matvec", "rwkv_chunk", "mamba_chunk", "rwkv_chunk_bwd",
+           "mamba_chunk_bwd")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +40,8 @@ ARGTYPES = {
     "rwkv_chunk_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P],
     "mamba_chunk_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rwkv_chunk_bwd_launch": [_P] * 14 + [_I] * 6 + [_P],
+    "mamba_chunk_bwd_launch": [_P] * 10 + [_I] * 5 + [_P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -57,7 +57,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{lse.dtype} {tuple(lse.shape)}")
     if D not in BWD_HEAD_DIMS:
         raise ValueError(f"the flash backward takes head_dim in "
-                         f"{BWD_HEAD_DIMS}, got {D}")
+                         f"{BWD_HEAD_DIMS}, got {D}: head dims 96, 112 and "
+                         f"160 (gpt2-2.5b, kimi-k2, pixtral-12b) train on "
+                         f"the card with ROADMAP queue 1 item 6c")
     if any(t.data_ptr() % 16 for t in (o, do)) or (
             q.dtype == torch.bfloat16 and D <= 64
             and any(t.data_ptr() % 16 for t in (q, k, v))):

@@ -12,12 +12,16 @@ switch that picks one. Mixed operand dtypes promote first, as
 dtype.
 
 Gradients: where an input requires one, the static flash mode (queries
-from position 0) goes through ``FlashAttentionFn`` and the norm through
-``NormFn``, whose backward follows the device as the forward does: the
-plain backward (``ref.flash_attention_bwd_ref``, ``ref.norm_bwd_ref``) on
-the CPU, the hand-written backward kernels on the card. Every other
-kernel has no backward on the card and raises there if asked for a
-gradient; on the CPU autograd runs through its plain version.
+from position 0) goes through ``FlashAttentionFn``, the norm through
+``NormFn``, the RWKV6 wkv through ``RwkvChunkFn`` and the Mamba scan
+through ``MambaChunkFn``. Each saves only its inputs (flash also its
+output and ``lse``), and its backward follows the device as the forward
+does: the plain backward (``ref.*_bwd_ref``) on the CPU, the hand-written
+backward kernel on the card. These are the kernels of the training path
+of every family. The rest (the GEMV, decode attention, the masked
+softmax, the segmented and offset flash modes) serve decoding and
+prefill only: they have no backward on the card and raise there if asked
+for a gradient; on the CPU autograd runs through their plain versions.
 """
 from __future__ import annotations
 
@@ -35,15 +39,21 @@ from repro_torch.kernels.flash_attention_bwd import \
 from repro_torch.kernels.layernorm import layernorm as _norm
 from repro_torch.kernels.layernorm import layernorm_bwd as _norm_bwd
 from repro_torch.kernels.mamba_chunk import mamba_chunk as _mamba_chunk
+from repro_torch.kernels.mamba_chunk_bwd import \
+    mamba_chunk_bwd as _mamba_chunk_bwd
 from repro_torch.kernels.masked_softmax import masked_softmax as _msoftmax
 from repro_torch.kernels.pim_matvec import pim_matvec as _matvec
 from repro_torch.kernels.rwkv_chunk import rwkv_chunk as _rwkv_chunk
+from repro_torch.kernels.rwkv_chunk_bwd import \
+    rwkv_chunk_bwd as _rwkv_chunk_bwd
 
 KERNELS = {"flash_attention": _flash, "flash_attention_segmented": _flash_seg,
            "decode_attention": _decode, "pim_matvec": _matvec,
            "layernorm": _norm, "rwkv_chunk": _rwkv_chunk,
            "masked_softmax": _msoftmax, "mamba_chunk": _mamba_chunk,
-           "flash_attention_bwd": _flash_bwd, "layernorm_bwd": _norm_bwd}
+           "flash_attention_bwd": _flash_bwd, "layernorm_bwd": _norm_bwd,
+           "rwkv_chunk_bwd": _rwkv_chunk_bwd,
+           "mamba_chunk_bwd": _mamba_chunk_bwd}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -70,12 +80,15 @@ def _wants_grad(*ts) -> bool:
 
 
 def _no_backward_on_card(name: str, *ts) -> None:
-    """A kernel without a backward kernel refuses a gradient on the card
-    rather than return an output autograd cannot differentiate."""
+    """A serving kernel without a backward kernel refuses a gradient on
+    the card rather than return an output autograd cannot differentiate.
+    No training path calls one: training runs the static flash mode, the
+    norm and the two recurrences, which have backward kernels."""
     if ts[0].is_cuda and _wants_grad(*ts):
         raise NotImplementedError(
-            f"{name} has no backward kernel on the card: training through "
-            f"it is ROADMAP queue 1 item 6b")
+            f"{name} serves decoding and prefill and has no backward kernel "
+            f"on the card; the training path differentiates the static "
+            f"flash mode, the norm, rwkv_chunk and mamba_chunk")
 
 
 def _rows16(t: torch.Tensor) -> torch.Tensor:
@@ -239,28 +252,89 @@ def masked_softmax(x, mask_bitmap):
     return o.reshape(x.shape)
 
 
+class RwkvChunkFn(torch.autograd.Function):
+    """The wkv with its backward: the forward saves only its inputs, and
+    the backward runs the adjoint recurrences from them (recomputing the
+    states). A CUDA tensor runs the ``rwkv_chunk`` and ``rwkv_chunk_bwd``
+    kernels; a CPU tensor the plain versions. u is (U, K), row bh taking
+    u[bh % U]."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, out_dtype):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u)
+        return _rwkv_forward(r, k, v, w, u, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        r, k, v, w, u = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        if _use_kernel(r):
+            grads = _rwkv_chunk_bwd(r, k, v, w, u, dy.contiguous(),
+                                    None if ds is None else ds.contiguous())
+        else:
+            grads = ref.rwkv_chunk_bwd_ref(r, k, v, w, u, dy, ds)
+        return (*grads, None)
+
+
+def _rwkv_forward(r, k, v, w, u, out_dtype):
+    if not _use_kernel(r):
+        u_rows = u.repeat(r.shape[0] // u.shape[0], 1)
+        return ref.rwkv_chunk_ref(r, k, v, w, u_rows, out_dtype=out_dtype)
+    return _rwkv_chunk(r, k, v, w, u, out_dtype=out_dtype)
+
+
 def rwkv_chunk(r, k, v, w, u, *, out_dtype=None):
     """The RWKV6 wkv from a zero state. r, k, v, w: (BH, T, K); u: (BH, K)
     as in the reference's ops, or (H, K) broadcast over the batch (row bh
     takes u[bh % H]). r, k, v compute in f32 whatever their dtype; w and u
     are taken in f32. Returns (y (BH, T, K) in ``out_dtype``, r.dtype by
-    default; S_T (BH, K, K) f32, k-major)."""
-    r, k, v = _common(r, k, v)
-    w, u = w.float(), u.float()
-    _no_backward_on_card("rwkv_chunk", r, k, v, w, u)
-    if not _use_kernel(r):
-        u = u.repeat(r.shape[0] // u.shape[0], 1)
-        return ref.rwkv_chunk_ref(r, k, v, w, u, out_dtype=out_dtype)
-    return _rwkv_chunk(r.contiguous(), k.contiguous(), v.contiguous(),
-                       w.contiguous(), u.contiguous(), out_dtype=out_dtype)
+    default; S_T (BH, K, K) f32, k-major). Under a gradient it runs
+    through ``RwkvChunkFn``."""
+    r, k, v = (t.contiguous() for t in _common(r, k, v))
+    w, u = w.float().contiguous(), u.float().contiguous()
+    if _wants_grad(r, k, v, w, u):
+        return RwkvChunkFn.apply(r, k, v, w, u, out_dtype)
+    return _rwkv_forward(r, k, v, w, u, out_dtype)
+
+
+class MambaChunkFn(torch.autograd.Function):
+    """The selective scan with its backward: the forward saves only its
+    inputs, and the backward runs the adjoint recurrence from them
+    (recomputing the states). A CUDA tensor runs the ``mamba_chunk`` and
+    ``mamba_chunk_bwd`` kernels; a CPU tensor the plain versions."""
+
+    @staticmethod
+    def forward(ctx, a, u, C):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(a, u, C)
+        return _mamba_forward(a, u, C)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        a, u, C = ctx.saved_tensors
+        if dy is None:
+            dy = a.new_zeros(a.shape[:3])
+        dy = dy.to(a.dtype)
+        if _use_kernel(a):
+            return _mamba_chunk_bwd(a, u, C, dy.contiguous(),
+                                    None if dh is None else dh.contiguous())
+        return ref.mamba_chunk_bwd_ref(a, u, C, dy, dh)
+
+
+def _mamba_forward(a, u, C):
+    if not _use_kernel(a):
+        return ref.mamba_chunk_ref(a, u, C)
+    return _mamba_chunk(a, u, C)
 
 
 def mamba_chunk(a, u, C):
     """The Mamba selective scan from a zero state. a, u: (B, T, d, n);
     C: (B, T, n), promoted to one dtype. Returns (y (B, T, d) in that
-    dtype, h_T (B, d, n) f32)."""
-    a, u, C = _common(a, u, C)
-    _no_backward_on_card("mamba_chunk", a, u, C)
-    if not _use_kernel(a):
-        return ref.mamba_chunk_ref(a, u, C)
-    return _mamba_chunk(a.contiguous(), u.contiguous(), C.contiguous())
+    dtype, h_T (B, d, n) f32). Under a gradient it runs through
+    ``MambaChunkFn``."""
+    a, u, C = (t.contiguous() for t in _common(a, u, C))
+    if _wants_grad(a, u, C):
+        return MambaChunkFn.apply(a, u, C)
+    return _mamba_forward(a, u, C)

@@ -243,3 +243,76 @@ def mamba_chunk_ref(a, u, C):
         h = a[:, t].float() * h + u[:, t].float()
         ys.append((h * C[:, t, None, :].float()).sum(-1))
     return torch.stack(ys, dim=1).to(a.dtype), h
+
+
+def rwkv_chunk_bwd_ref(r, k, v, w, u, dy, ds=None):
+    """The gradient of ``rwkv_chunk_ref`` as explicit adjoint recurrences
+    (no autograd). r, k, v, w, dy: (BH, T, K); u: (U, K) with BH % U == 0,
+    row bh taking u[bh % U]; ds: the final state's gradient (BH, K, K) or
+    None. In f32, with S_{t-1} the state before step t (S_{-1} = 0) and
+    G_t the gradient of S_t (G_{T-1} = ds):
+
+      dr_t = (S_{t-1} + diag(u) k_t v_t^T) dy_t
+      dk_t = G_t v_t + u * r_t (v_t . dy_t)
+      dv_t = G_t^T k_t + dy_t (r_t . (u * k_t))
+      dw_t = rowsum(G_t * S_{t-1})
+      du   = sum_t r_t * k_t (v_t . dy_t), summed over the rows bh that
+             share u[bh % U]
+      G_{t-1} = diag(w_t) G_t + r_t dy_t^T
+
+    Returns (dr, dk, dv in r.dtype; dw (BH, T, K) f32; du (U, K) f32)."""
+    BH, T, K = r.shape
+    U = u.shape[0]
+    rf, kf, vf, wf, gy = (a.float() for a in (r, k, v, w, dy))
+    uf = u.float().repeat(BH // U, 1)                        # (BH, K)
+    vdy = (vf * gy).sum(-1, keepdim=True)                    # (BH, T, 1)
+    s = torch.zeros((BH, K, K), dtype=torch.float32, device=r.device)
+    states, dr = [], torch.empty_like(rf)
+    for t in range(T):
+        states.append(s)
+        dr[:, t] = torch.einsum("bij,bj->bi", s, gy[:, t]) \
+            + uf * kf[:, t] * vdy[:, t]
+        s = wf[:, t, :, None] * s + kf[:, t, :, None] * vf[:, t, None, :]
+    g = s.new_zeros(s.shape) if ds is None else ds.float()
+    dk, dv, dw = (torch.empty_like(rf) for _ in range(3))
+    for t in reversed(range(T)):
+        dk[:, t] = torch.einsum("bij,bj->bi", g, vf[:, t]) \
+            + uf * rf[:, t] * vdy[:, t]
+        dv[:, t] = torch.einsum("bij,bi->bj", g, kf[:, t]) \
+            + gy[:, t] * (rf[:, t] * uf * kf[:, t]).sum(-1, keepdim=True)
+        dw[:, t] = (g * states[t]).sum(-1)
+        g = wf[:, t, :, None] * g + rf[:, t, :, None] * gy[:, t, None, :]
+    du = (rf * kf * vdy).sum(1).reshape(BH // U, U, K).sum(0)
+    return dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw, du
+
+
+def mamba_chunk_bwd_ref(a, u, C, dy, dh=None):
+    """The gradient of ``mamba_chunk_ref`` as an explicit adjoint
+    recurrence (no autograd). a, u: (B, T, d, n); C: (B, T, n); dy
+    (B, T, d); dh: the final state's gradient (B, d, n) or None. In f32,
+    with h_{t-1} the state before step t (h_{-1} = 0) and g_t the gradient
+    of h_t:
+
+      g_t  = dy_t[:, None] * C_t + a_{t+1} * g_{t+1}   (g_T-1 adds dh)
+      da_t = g_t * h_{t-1};  du_t = g_t;  dC_t = sum_d h_t * dy_t[:, None]
+
+    h_{t-1} is kept from a forward pass, never recovered as
+    (h_t - u_t) / a_t (a underflows to 0). Returns (da, du, dC) in a's
+    dtype."""
+    B, T, d, n = a.shape
+    af, uf, Cf, gy = (x.float() for x in (a, u, C, dy))
+    h = torch.zeros((B, d, n), dtype=torch.float32, device=a.device)
+    states, dC = [], torch.empty_like(Cf)
+    for t in range(T):
+        states.append(h)
+        h = af[:, t] * h + uf[:, t]
+        dC[:, t] = (h * gy[:, t, :, None]).sum(1)
+    g = h.new_zeros(h.shape) if dh is None else dh.float()
+    a_next = torch.ones_like(g)
+    da, du = torch.empty_like(af), torch.empty_like(uf)
+    for t in reversed(range(T)):
+        g = gy[:, t, :, None] * Cf[:, t, None, :] + a_next * g
+        da[:, t] = g * states[t]
+        du[:, t] = g
+        a_next = af[:, t]
+    return da.to(a.dtype), du.to(a.dtype), dC.to(a.dtype)

@@ -1,8 +1,8 @@
 """The lowered step functions of the port, one per shape kind.
 
 Counterpart of ``repro/launch/steps.py``: ``"train"`` is loss -> gradient
--> Adafactor at lr 1e-4, with gradient accumulation over microbatches
-(the dense family; the others raise, ROADMAP queue 1 item 6b);
+-> Adafactor at lr 1e-4, with gradient accumulation over microbatches,
+for every family;
 ``"prefill"`` is the full-sequence forward with last-position logits (the
 serving prefill of a whole prompt batch from a zero state), for every
 family (MoE FFNs route the whole (B, S) batch as one group; a ``vlm``
@@ -19,7 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.params import resolve_device
 from repro_torch.optim.adafactor import adafactor_update
-from repro_torch.train.step import accumulate, check_trainable
+from repro_torch.train.step import accumulate
 
 
 def _to(dev):
@@ -34,7 +34,6 @@ def make_train_step_fn(cfg: ModelConfig, microbatches: int = 1, device=None):
     {"loss"})``. microbatches > 1 splits the batch's leading dim and sums
     the parts' gradients in f32 (activation memory scales 1 / mb at the
     same math)."""
-    check_trainable(cfg)
     on_dev = _to(resolve_device(device))
 
     def train_step(params, opt_state, batch):

@@ -1,9 +1,9 @@
 """The model of the port: parameter and cache trees, the one-token decode
 step, the full-sequence forward and the training loss (``loss_fn``;
-``cfg.remat`` checkpoints its superblock loop under a gradient), whisper's
-encoder, batched chunked prefill, the teacher-forced
-``prefill_with_cache``, the one-call decode + sample + terminate step,
-decode supersteps and fused overlapped steps.
+``cfg.remat`` checkpoints its superblock loop and whisper's encoder blocks
+under a gradient), whisper's encoder, batched chunked prefill, the
+teacher-forced ``prefill_with_cache``, the one-call decode + sample +
+terminate step, decode supersteps and fused overlapped steps.
 
 Counterpart of ``repro/models/transformer.py`` for every family: ``dense``,
 ``moe`` (attention mixers, MoE FFNs), ``ssm`` (RWKV6), ``hybrid`` (Jamba:
@@ -290,15 +290,21 @@ def encode(cfg: ModelConfig, params: dict,
     """frame_embeds (B, S_enc, d), the stub frontend's output, taken in
     its own dtype as the reference takes it -> encoder states (B, S_enc,
     d): ``encoder_layers`` bidirectional blocks (the flash kernel's
-    non-causal mode) and the encoder's final norm."""
+    non-causal mode), each under ``cfg.remat`` as the reference's
+    ``_loop_blocks`` runs them, and the encoder's final norm."""
     x = frame_embeds
     positions = torch.arange(x.shape[1], device=x.device)[None].expand(
         x.shape[0], x.shape[1])
     enc = params["encoder"]
+    blocks = _layers(enc["blocks"]["pos0"], cfg.encoder_layers)
+
+    def block(x, i):
+        return _apply_block_full(cfg, ("attn", "dense"), blocks[i], x,
+                                 positions, causal=False)[0]
+
+    body = _remat(cfg, block)
     for i in range(cfg.encoder_layers):
-        x, _ = _apply_block_full(cfg, ("attn", "dense"),
-                                 _layer(enc["blocks"]["pos0"], i), x,
-                                 positions, causal=False)
+        x = body(x, i)
     return L.apply_norm(cfg, enc["final_norm"], x)
 
 

@@ -2,14 +2,17 @@
 
 ``make_train_step`` returns ``step(params, opt_state, batch[, err_state])
 -> (params, opt_state[, err_state], metrics)``: the loss and its gradient
-(autograd through the model: on the card the flash and norm kernels and
-their backward kernels, ``cfg.remat`` for the block loop), microbatches
-accumulated in f32, the optional int8 compressed all-reduce, and AdamW at
-the schedule's rate for the step before it is counted (so a warmup's
-first step has rate 0, as in the reference). Metrics: ``nll``, ``aux``,
-``loss``, ``lr``, ``grad_norm``, ``clip_scale``. The dense family only;
-the others raise (ROADMAP queue 1 item 6b). Batches are numpy arrays or
-tensors and go to the step's device, on the card unless ``device="cpu"``.
+(autograd through the model: on the card the flash, norm, wkv and
+Mamba scan kernels and their backward kernels, ``cfg.remat`` for the
+block loops), microbatches accumulated in f32, the optional int8
+compressed all-reduce, and AdamW at the schedule's rate for the step
+before it is counted (so a warmup's first step has rate 0, as in the
+reference). Metrics: ``nll``, ``aux``,
+``loss``, ``lr``, ``grad_norm``, ``clip_scale``. Every family trains, as
+in the reference: on the card the recurrences run their backward kernels
+(``rwkv_chunk_bwd``, ``mamba_chunk_bwd``) and the MoE FFN its plain
+PyTorch gradient. Batches are numpy arrays or tensors and go to the
+step's device, on the card unless ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -31,13 +34,6 @@ class TrainStepConfig:
     learning_rate: Callable = staticmethod(lambda step: 3e-4)
     adamw: AdamWConfig = AdamWConfig()
     compress_grads: bool = False    # int8 EF all-reduce (compression.py)
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet (ROADMAP "
-            f"queue 1 item 6b): the port trains dense models")
 
 
 def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict):
@@ -81,7 +77,6 @@ def make_train_step(cfg: ModelConfig,
                     tcfg: TrainStepConfig = TrainStepConfig(), device=None):
     """Returns step(params, opt_state, batch[, err_state]), its gradients
     ``accumulate``'s over ``tcfg.microbatches``."""
-    check_trainable(cfg)
     dev = resolve_device(device)
 
     def step(params, opt_state, batch, err_state=None):

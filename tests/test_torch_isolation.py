@@ -79,12 +79,12 @@ def test_engine_without_a_device_refuses_the_cpu():
 @pytest.mark.parametrize("kind,error,match", [
     pytest.param("prefill", RuntimeError, "no CUDA device", id="prefill"),
     pytest.param("decode", ValueError, "unknown step kind", id="decode"),
-    pytest.param("train", NotImplementedError, "item 6", id="train"),
+    pytest.param("train", RuntimeError, "no CUDA device", id="train"),
 ])
 def test_step_functions_without_a_device_refuse_the_cpu(kind, error, match):
-    """The prefill step refuses the CPU unless asked for it; the kinds the
-    port has no step for raise whatever the device (the engine runs its
-    own decode step)."""
+    """The prefill and train steps (rwkv6-7b's too: every family trains)
+    refuse the CPU unless asked for it; the kinds the port has no step for
+    raise whatever the device (the engine runs its own decode step)."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(error, match=match):

@@ -30,9 +30,11 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.kernels.layernorm import layernorm, layernorm_bwd
 from repro_torch.kernels.mamba_chunk import mamba_chunk
+from repro_torch.kernels.mamba_chunk_bwd import mamba_chunk_bwd
 from repro_torch.kernels.masked_softmax import masked_softmax
 from repro_torch.kernels.pim_matvec import pim_matvec
 from repro_torch.kernels.rwkv_chunk import rwkv_chunk
+from repro_torch.kernels.rwkv_chunk_bwd import rwkv_chunk_bwd
 from repro_torch.models import transformer as T
 from repro_torch.models.params import init_params
 from repro_torch.serve import ServeConfig, ServeEngine
@@ -434,7 +436,8 @@ def test_each_launch_counts_once(card):
                                    "layernorm": 1, "rwkv_chunk": 1,
                                    "masked_softmax": 1, "mamba_chunk": 1,
                                    "flash_attention_bwd": 0,
-                                   "layernorm_bwd": 0}
+                                   "layernorm_bwd": 0, "rwkv_chunk_bwd": 0,
+                                   "mamba_chunk_bwd": 0}
 
 
 def _rwkv_inputs(BH, T_, K, dtype, seed, strong=False):
@@ -1118,12 +1121,12 @@ def test_norm_bwd_kernel_matches_plain(card, mode, rows, d, dtype):
 def test_gradients_without_a_backward_kernel_raise_on_the_card(card):
     q = _rand((2, 4, 16), 40, torch.float32).requires_grad_()
     k = _rand((2, 2, 8, 16), 41, torch.float32)
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
         ops.decode_attention(q, k, k, torch.ones(2, dtype=torch.int32))
     x = _rand((3, 16), 42, torch.float32).requires_grad_()
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
         ops.fused_matvec(x, _rand((16, 8), 43, torch.float32))
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
         ops.flash_attention(q[:, :, None].expand(2, 4, 8, 16).contiguous(),
                             k, k, q_offset=3)
 
@@ -1166,6 +1169,105 @@ def test_train_steps_on_the_card_match_the_cpu(card, remat):
             losses.append(float(m["loss"]))
         assert abs(losses[0] - losses[1]) <= 1e-4 * (1 + abs(losses[1]))
     for a, c in zip(_leaves_of(states[0][0]), _leaves_of(states[1][0])):
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("BH,T_,K,U,strong,final", [
+    (128, 2048, 64, 64, False, False),   # rwkv6-7b's training shape, B 2
+    (4, 200, 64, 4, False, True),        # a ragged last sub-chunk, dS_T
+    (6, 37, 16, 3, False, True),         # U < BH, K 16
+    (16, 512, 64, 16, True, False),      # the model's strong decays
+    (2, 1, 64, 1, False, True),          # one step
+])
+@pytest.mark.parametrize("dtype,dy_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_rwkv_chunk_bwd_kernel_matches_plain(card, BH, T_, K, U, strong,
+                                             final, dtype, dy_dtype):
+    """dr, dk, dv, dw and du against the plain adjoint recurrences; f32
+    within the chunked wkv's 2e-3, bf16 inputs within 1e-2 + 2e-2 |want|
+    (dr, dk, dv round to bf16); bitwise the same on a second call."""
+    r, k, v, w, u = _rwkv_inputs(BH, T_, K, dtype, 11, strong=strong)
+    u = u[:U].contiguous()
+    dy = _rand((BH, T_, K), 12, dy_dtype)
+    ds = _rand((BH, K, K), 13, torch.float32) if final else None
+    got = rwkv_chunk_bwd(r, k, v, w, u, dy, ds)
+    again = rwkv_chunk_bwd(r, k, v, w, u, dy, ds)
+    want = ref.rwkv_chunk_bwd_ref(r, k, v, w, u, dy, ds)
+    tol = dict(rtol=2e-3, atol=2e-3) if dtype == torch.float32 \
+        else dict(rtol=2e-2, atol=1e-2)
+    for g, a, w_ in zip(got, again, want):
+        _close(g, w_, dtype, tol)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("B,T_,d,n,final", [
+    (1, 2048, 8192, 16, False),   # jamba's training shape, B 1
+    (1, 200, 8192, 16, True),     # a ragged last checkpoint, dh_T
+    (2, 37, 128, 4, True),        # the reduced widths
+    (2, 37, 100, 5, False),       # n no power of two
+    (1, 1, 8, 32, True),          # one step, n 32
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mamba_chunk_bwd_kernel_matches_plain(card, B, T_, d, n, final,
+                                              dtype):
+    """da, du, dC against the plain adjoint recurrence, a = exp(dt A) as
+    the model makes it (down to 0); f32 within 2e-3, bf16 within 1e-2 +
+    2e-2 |want|; bitwise the same on a second call."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T_, d), generator=g, device="cuda") * 3)
+    A = torch.rand((d, n), generator=g, device="cuda") * 20 + 1e-3
+    a = (dt[..., None] * -A).exp().to(dtype)
+    u = torch.randn((B, T_, d, n), generator=g, device="cuda").to(dtype)
+    C = torch.randn((B, T_, n), generator=g, device="cuda").to(dtype)
+    dy = torch.randn((B, T_, d), generator=g, device="cuda").to(dtype)
+    dh = torch.randn((B, d, n), generator=g, device="cuda") if final \
+        else None
+    got = mamba_chunk_bwd(a, u, C, dy, dh)
+    again = mamba_chunk_bwd(a, u, C, dy, dh)
+    want = ref.mamba_chunk_bwd_ref(a, u, C, dy, dh)
+    tol = dict(rtol=2e-3, atol=2e-3) if dtype == torch.float32 \
+        else dict(rtol=2e-2, atol=1e-2)
+    for x, y, z in zip(got, again, want):
+        _close(x, z, dtype, tol)
+        assert torch.equal(x, y)
+
+
+def test_flash_bwd_refuses_the_wide_head_dims(card):
+    """D 160 (pixtral-12b) has no backward kernel yet: the wrapper raises
+    and names the ROADMAP item."""
+    q = _rand((1, 2, 8, 160), 50, torch.bfloat16)
+    o, lse = flash_attention(q, q, q, causal=True, return_lse=True)
+    with pytest.raises(ValueError, match="item 6c"):
+        flash_attention_bwd(q, q, q, o, lse, q, causal=True)
+
+
+@pytest.mark.parametrize("name", ["rwkv6-7b", "jamba-v0.1-52b",
+                                  "qwen3-moe-30b-a3b", "whisper-medium"])
+def test_family_gradients_on_the_card_match_the_cpu(card, name):
+    """Each family's ``.reduced()`` stack in float32 under remat "full":
+    every gradient leaf on the card (the kernels and their backward
+    kernels) within 1e-4 of the CPU's (the plain versions), and the
+    recurrences' backward kernels launched once a layer."""
+    from repro_torch.data import batch_for
+    from repro_torch.train import loss_and_grads
+    cfg = dataclasses.replace(get_arch(name).reduced(), dtype="float32",
+                              remat="full")
+    p_cpu = _tree_f32(init_params(T.param_defs(cfg), device="cpu", seed=3))
+    b = {k: torch.from_numpy(v) for k, v in batch_for(cfg, 2, 32).items()}
+    ops.reset_launch_counts()
+    _, _, g_gpu = loss_and_grads(cfg, _tree_to(p_cpu, "cuda"),
+                                 _tree_to(b, "cuda"))
+    torch.cuda.synchronize()
+    kinds = cfg.layer_kinds()
+    counts = ops.launch_counts()
+    assert counts["rwkv_chunk_bwd"] == kinds.count("rwkv")
+    assert counts["mamba_chunk_bwd"] == kinds.count("mamba")
+    assert counts["rwkv_chunk"] == 2 * kinds.count("rwkv")
+    assert counts["mamba_chunk"] == 2 * kinds.count("mamba")
+    _, _, g_cpu = loss_and_grads(cfg, p_cpu, b)
+    for a, c in zip(_leaves_of(g_gpu), _leaves_of(g_cpu)):
         torch.testing.assert_close(a.cpu(), c, rtol=1e-4, atol=1e-4)
 
 

@@ -75,6 +75,44 @@ def test_adamw_decays_the_stacked_norm_scale():
     assert torch.equal(new["bias"], params["bias"])
 
 
+def test_adamw_update_consumes_the_old_moments_and_writes_no_input():
+    """The update empties the old state's moment trees, so that a step
+    holds one copy of the moments (two of jamba's two-layer stack at full
+    width do not fit an 80 GB card beside its weights), and writes no
+    input tensor: the params, the gradients and the old moments keep
+    their values, and the new state mirrors the params."""
+    params, grads = _t(_tree(0)), _t(_tree(1, scale=0.5))
+    state = AW.adamw_update(params, grads, AW.adamw_init(params), 1e-2)[1]
+    held = [t for k in ("m", "v") for t in jax.tree.leaves(state[k])]
+    inputs = jax.tree.leaves(params) + jax.tree.leaves(grads) + held
+    before = [t.clone() for t in inputs]
+    new_p, new_s, _ = AW.adamw_update(params, grads, state, 1e-2)
+    assert state["m"] == {} and state["v"] == {}
+    for t, b in zip(inputs, before):
+        assert torch.equal(t, b)
+    shape = jax.tree.structure(jax.tree.map(np.asarray, _tree(0)))
+    for tree in (new_p, new_s["m"], new_s["v"]):
+        assert jax.tree.structure(jax.tree.map(lambda t: t.numpy(), tree,
+                                               is_leaf=lambda x: isinstance(
+                                                   x, torch.Tensor))) == shape
+    assert int(new_s["step"]) == 2
+
+
+def test_adamw_update_in_pieces_gives_the_same_bits(monkeypatch):
+    """A leaf larger than ``PIECE`` is updated piece by piece (the f32
+    temporaries of one of jamba's expert stacks would not fit the card):
+    the same bits as the whole leaf at once, weight decay decided on the
+    leaf's own rank."""
+    params, grads = _t(_tree(0)), _t(_tree(1, scale=0.5))
+    state = AW.adamw_update(params, grads, AW.adamw_init(params), 1e-2)[1]
+    twin = jax.tree.map(lambda t: t.clone(), state)
+    whole = AW.adamw_update(params, grads, state, 1e-2)
+    monkeypatch.setattr(AW, "PIECE", 7)
+    pieces = AW.adamw_update(params, grads, twin, 1e-2)
+    for a, b in zip(jax.tree.leaves(whole[:2]), jax.tree.leaves(pieces[:2])):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("weight_decay", [0.0, 0.1])
 def test_adafactor_update_matches_reference(weight_decay):
     cfg_j = JAF.AdafactorConfig(weight_decay=weight_decay)

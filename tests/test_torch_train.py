@@ -188,17 +188,6 @@ def test_the_lowered_train_step_matches_the_reference_adafactor(params):
                                    atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "rwkv6-7b",
-                                  "jamba-v0.1-52b", "whisper-medium",
-                                  "pixtral-12b"])
-def test_other_families_do_not_train_yet(name):
-    cfg = get_arch(name).reduced()
-    for make in (lambda: make_train_step(cfg, device="cpu"),
-                 lambda: step_fn_for(cfg, "train", device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            make()
-
-
 @pytest.mark.parametrize("name", sorted(JAX_ARCHS))
 def test_param_count_matches_the_reference(name):
     cfg_j, cfg_t = jax_arch(name), get_arch(name)
