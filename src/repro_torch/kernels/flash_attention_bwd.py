@@ -5,14 +5,14 @@ Replaces no TPU kernel: the reference's flash backward
 ``flash_attention_fused``) is XLA. On the card the forward it
 differentiates is the hand-written ``csrc/flash_attention.cu``, so its
 gradient is the hand-written ``csrc/flash_attention_bwd.cu`` (whose header
-says what bounds it and what its design does about that: bf16 at D <= 64
-on the tensor cores, through ``wgmma`` fed by TMA, float32 and bf16 at D
-128 on the CUDA cores). It recomputes P from (q, k, v, the forward's o
-and its per-row log-sum-exp) and dO, as ``ref.flash_attention_bwd_ref``
-does on the CPU. One call is one launch in
+says what bounds it and what its design does about that: bf16 at every
+head dim on the tensor cores, through ``wgmma`` fed by TMA, D 96, 112 and
+160 at the next multiple of 64; float32 on the CUDA cores). It recomputes P from (q, k, v, the
+forward's o and its per-row log-sum-exp) and dO, as
+``ref.flash_attention_bwd_ref`` does on the CPU. One call is one launch in
 ``flash_attention_bwd.launches`` (the source runs two kernels a call on
-the tensor cores, three on the CUDA cores, with no atomics: two calls
-give the same bits).
+the tensor cores up to D 64, three above and on the CUDA cores, with no
+atomics: two calls give the same bits).
 """
 from __future__ import annotations
 
@@ -25,13 +25,12 @@ from repro_torch.kernels._checks import (contiguous, dtype_code, on_cuda,
                                          stream_of)
 from repro_torch.kernels.ref import flash_attention_bwd_ref  # noqa: F401  (plain version)
 
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 96, 112, 128, 160)
 # the bf16 route's tiles (csrc/flash_attention_bwd.cu): 64 rows (wgmma's
 # M) of keys or query rows, one a consumer warpgroup; a CTA of the dK/dV
-# pass has two, one of the dQ pass three
+# pass has two, one of the dQ pass three (two above D 64)
 TILE = 64
 KV_CTA_TILES = 2
-Q_CTA_TILES = 3
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -57,11 +56,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{lse.dtype} {tuple(lse.shape)}")
     if D not in BWD_HEAD_DIMS:
         raise ValueError(f"the flash backward takes head_dim in "
-                         f"{BWD_HEAD_DIMS}, got {D}: head dims 96, 112 and "
-                         f"160 (gpt2-2.5b, kimi-k2, pixtral-12b) train on "
-                         f"the card with ROADMAP queue 1 item 6c")
+                         f"{BWD_HEAD_DIMS}, got {D}")
     if any(t.data_ptr() % 16 for t in (o, do)) or (
-            q.dtype == torch.bfloat16 and D <= 64
+            q.dtype == torch.bfloat16
             and any(t.data_ptr() % 16 for t in (q, k, v))):
         raise ValueError("the kernels read 16 bytes at a time and the bf16 "
                          "route its tiles by TMA: o and do (and q, k, v in "

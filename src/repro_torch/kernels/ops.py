@@ -103,8 +103,11 @@ class FlashAttentionFn(torch.autograd.Function):
     recomputing backward: the forward saves (q, k, v, o, lse) and the
     backward recomputes P from them, as the reference's custom VJP
     (``flash_attention_fused``) does. A CUDA tensor runs the flash kernel
-    (with its ``lse`` output) and the backward kernel; a CPU tensor the
-    plain versions."""
+    (with its ``lse`` output) and the backward kernel, at every head dim
+    the forward takes (16, 32, 64, 96, 112, 128, 160; bf16 on the tensor
+    cores, float32 on the CUDA cores; another raises), q, k, v and dO
+    passed contiguous and 16-byte aligned for the TMA reads (a copy only
+    where they are not); a CPU tensor the plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):

@@ -40,9 +40,13 @@ def _grads_port(fn, arrays, do):
 
 
 # the cases of tests/test_kernels.py::test_flash_custom_vjp_gradients, a
-# GQA case with G 4 and a ragged S, and the reduced llama's head dim
+# GQA case with G 4 and a ragged S, the reduced llama's head dim, and the
+# head dims above 64 that the card's backward takes (gpt2-2.5b's 96,
+# kimi-k2's 112, jamba's 128, pixtral-12b's 160) at ragged sizes
 FLASH_CASES = [(2, 4, 2, 64, 32, True), (1, 4, 4, 128, 32, False),
-               (1, 8, 2, 37, 16, True), (2, 4, 2, 24, 16, False)]
+               (1, 8, 2, 37, 16, True), (2, 4, 2, 24, 16, False),
+               (1, 4, 2, 40, 96, True), (1, 4, 1, 33, 112, False),
+               (1, 2, 2, 64, 128, True), (1, 4, 2, 70, 160, True)]
 
 
 @pytest.mark.parametrize("B,H,KH,S,D,causal", FLASH_CASES)

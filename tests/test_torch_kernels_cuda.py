@@ -1234,26 +1234,54 @@ def test_mamba_chunk_bwd_kernel_matches_plain(card, B, T_, d, n, final,
         assert torch.equal(x, y)
 
 
-def test_flash_bwd_refuses_the_wide_head_dims(card):
-    """D 160 (pixtral-12b) has no backward kernel yet: the wrapper raises
-    and names the ROADMAP item."""
-    q = _rand((1, 2, 8, 160), 50, torch.bfloat16)
-    o, lse = flash_attention(q, q, q, causal=True, return_lse=True)
-    with pytest.raises(ValueError, match="item 6c"):
-        flash_attention_bwd(q, q, q, o, lse, q, causal=True)
+@pytest.mark.parametrize("B,H,KH,S,Skv,causal", [
+    (1, 4, 2, 40, 40, True),         # one 64-row tile, ragged
+    (1, 8, 2, 129, 129, True),       # one past the 128-key CTA, G 4
+    (1, 4, 4, 70, 130, False),       # non-causal, MHA, Sq != Skv
+])
+@pytest.mark.parametrize("D", [96, 112, 128, 160])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_bwd_kernel_at_the_wide_head_dims(card, B, H, KH, S, Skv,
+                                                causal, D, dtype):
+    """The head dims above 64 (gpt2-2.5b's 96, kimi-k2's 112, jamba's 128,
+    pixtral-12b's 160): the bf16 route at the padded width in column
+    parts, the float32 route with a row's chunks past D masked; against
+    the plain backward, bitwise the same on a second call."""
+    args = _bwd_inputs(B, H, KH, S, D, dtype, causal, 50, Skv)
+    got = flash_attention_bwd(*args, causal=causal)
+    again = flash_attention_bwd(*args, causal=causal)
+    want = ref.flash_attention_bwd_ref(*args, causal=causal)
+    for g, a, w in zip(got, again, want):
+        _close_tight(g, w, dtype)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("D", [80, 256])
+def test_flash_bwd_refuses_unsupported_head_dims(card, D):
+    """A head dim outside the forward's set raises and names the dims the
+    kernel takes; nothing falls back to the plain version."""
+    args = _bwd_inputs(1, 2, 2, 8, D, torch.bfloat16, True, 51, 8)
+    with pytest.raises(ValueError, match="160"):
+        flash_attention_bwd(*args, causal=True)
 
 
 @pytest.mark.parametrize("name", ["rwkv6-7b", "jamba-v0.1-52b",
-                                  "qwen3-moe-30b-a3b", "whisper-medium"])
+                                  "qwen3-moe-30b-a3b", "whisper-medium",
+                                  "pixtral-12b"])
 def test_family_gradients_on_the_card_match_the_cpu(card, name):
-    """Each family's ``.reduced()`` stack in float32 under remat "full":
-    every gradient leaf on the card (the kernels and their backward
-    kernels) within 1e-4 of the CPU's (the plain versions), and the
-    recurrences' backward kernels launched once a layer."""
+    """Each family's ``.reduced()`` stack in float32 under remat "full"
+    (pixtral-12b's with its own heads, 32 / 8 of 160): every gradient leaf
+    on the card (the kernels and their backward kernels) within 1e-4 of
+    the CPU's (the plain versions), and the recurrences' backward kernels
+    launched once a layer."""
     from repro_torch.data import batch_for
     from repro_torch.train import loss_and_grads
-    cfg = dataclasses.replace(get_arch(name).reduced(), dtype="float32",
-                              remat="full")
+    full = get_arch(name)
+    heads = dict(head_dim=full.head_dim, num_heads=full.num_heads,
+                 num_kv_heads=full.num_kv_heads) \
+        if name == "pixtral-12b" else {}
+    cfg = dataclasses.replace(full.reduced(), dtype="float32", remat="full",
+                              **heads)
     p_cpu = _tree_f32(init_params(T.param_defs(cfg), device="cpu", seed=3))
     b = {k: torch.from_numpy(v) for k, v in batch_for(cfg, 2, 32).items()}
     ops.reset_launch_counts()

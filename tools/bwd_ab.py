@@ -13,14 +13,16 @@ and ``chip_smoke.NORM_BWD_SHAPES``, in bf16, both kernels are held
 against the plain version (``chip_smoke``'s bounds: ``TIGHT_TOL`` for
 flash, ``TOL`` for the norm) and timed by ``chip_smoke.time_ms`` in the
 order this, other, other, this, beside the library call (the autograd
-backward of SDPA, ``F.rms_norm`` or ``F.layer_norm``). ``--plans`` also
-times this tree's norm backward under the other plans of ``PLANS`` at
-rows 4096 x d 2048 in each mode; ``--flash-only`` times the flash
-backward alone. Prints what ptxas gave the other build's
-tensor-core kernels, one JSON line a shape (and one with each kernel's
-device time a call, by ``torch.profiler``), then the card's name and
-power limit.
+backward of SDPA, ``F.rms_norm`` or ``F.layer_norm``); a flash shape
+whose head dim is not in the other checkout's ``BWD_HEAD_DIMS`` is timed
+in this tree alone. ``--plans`` also times this tree's norm backward
+under the other plans of ``PLANS`` at rows 4096 x d 2048 in each mode;
+``--flash-only`` times the flash backward alone. Prints what ptxas gave
+the other build's tensor-core kernels, one JSON line a shape (and one
+with each kernel's device time a call, by ``torch.profiler``), then the
+card's name and power limit.
 """
+import ast
 import ctypes
 import functools
 import importlib.util
@@ -52,8 +54,23 @@ PLANS = ({}, {"sms": 0.5}, {"sms": 2}, {"BWD_TILE": 2048},
          {"BWD_TILE": 8192}, {"BWD_PER_THREAD": 8}, {"BWD_PER_THREAD": 32})
 
 
+def head_dims(root: str) -> tuple:
+    """The ``BWD_HEAD_DIMS`` of a checkout's flash backward wrapper."""
+    path = os.path.join(root, "src", "repro_torch", "kernels",
+                        "flash_attention_bwd.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "BWD_HEAD_DIMS"
+                for t in node.targets):
+            return tuple(ast.literal_eval(node.value))
+    raise SystemExit(f"{path} has no BWD_HEAD_DIMS")
+
+
 def other_flash_bwd(root: str):
-    """The other checkout's flash backward, built from its source."""
+    """The other checkout's flash backward, built from its source, and the
+    head dims it takes."""
     csrc = os.path.join(root, "src", "repro_torch", "kernels", "csrc")
     out = os.path.join(ROOT, "build", "ab", "libother_flash_bwd.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
@@ -82,7 +99,7 @@ def other_flash_bwd(root: str):
         if err:
             raise RuntimeError(f"other flash backward: CUDA error {err}")
         return dq, dk, dv
-    return run
+    return run, head_dims(root)
 
 
 def other_norm_bwd(root: str):
@@ -105,6 +122,8 @@ def check(name, got, want, tol):
 def ab(label, kernels, library, want, tol):
     times = {}
     for name in ("this", "other", "other", "this"):
+        if name not in kernels:
+            continue
         check(f"{name} {label}", kernels[name](), want, tol)
         times.setdefault(name, []).append(
             chip_smoke.time_ms(torch, kernels[name]))
@@ -131,7 +150,7 @@ def kernel_split(fn, calls: int = 10) -> dict:
             for e in prof.key_averages() if e.device_time_total > 0}
 
 
-def flash_rows(g, other):
+def flash_rows(g, other, other_dims):
     for B, S, Skv, H, KH, D, causal in chip_smoke.FLASH_BWD:
         q, k, v = rn(g, B, H, S, D), rn(g, B, KH, Skv, D), rn(g, B, KH, Skv, D)
         do = rn(g, B, H, S, D)
@@ -141,17 +160,17 @@ def flash_rows(g, other):
             q, k.repeat_interleave(H // KH, 1),
             v.repeat_interleave(H // KH, 1))]
         lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=causal)
+        kernels = {"this": lambda: flash_attention_bwd(*a, causal=causal)}
+        if D in other_dims:
+            kernels["other"] = lambda: other(*a, causal)
         ab(f"flash_bwd B{B} Sq{S} Skv{Skv} H{H}/{KH} D{D} causal{causal}",
-           {"this": lambda: flash_attention_bwd(*a, causal=causal),
-            "other": lambda: other(*a, causal)},
+           kernels,
            lambda: torch.autograd.grad(lib_out, lib_in, do,
                                        retain_graph=True),
            ref.flash_attention_bwd_ref(*a, causal=causal),
            chip_smoke.TIGHT_TOL["bfloat16"])
         print(json.dumps({"split": {
-            "this": kernel_split(lambda: flash_attention_bwd(
-                *a, causal=causal)),
-            "other": kernel_split(lambda: other(*a, causal))}}),
+            name: kernel_split(fn) for name, fn in kernels.items()}}),
             flush=True)
 
 
@@ -234,7 +253,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     g = torch.Generator(device="cuda").manual_seed(1)
-    flash_rows(g, other_flash_bwd(args[0]))
+    flash_rows(g, *other_flash_bwd(args[0]))
     if "--flash-only" not in sys.argv:
         norm_rows(g, other_norm_bwd(args[0]))
     if "--plans" in sys.argv:
