@@ -60,8 +60,12 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      rwkv6-7b's training call (BH 128, T 2048, K 64, u (H, K)), a ragged
      T with dS_T, U < BH at K 16 and the model's strong decays, the
      Mamba scan's at jamba's (B 2, T 2048, d 8192, n 16, in float32), a
-     ragged T with dh_T and the reduced widths (f32 within 2e-3, bf16
-     within 1e-2 + 2e-2 |want|; no library call computes either);
+     ragged T with dh_T and the reduced widths, from the checkpoints that
+     its forward kernel writes under a gradient (f32 within 2e-3, bf16
+     within 1e-2 + 2e-2 |want|; no library call computes either); the
+     forward's checkpoints (h every 16 steps) against h of the plain
+     recurrence at those steps, and its time with them beside the serving
+     call's;
   2b. call ``ops.masked_softmax`` on a llama prefill chunk's scores with
      the launch counts set to 0 just before: the kernel must launch, give
      exact zeros where masked and rows that sum to 1;
@@ -470,6 +474,8 @@ def kernel_cases(torch, dtype):
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_segmented)
     from repro_torch.kernels.layernorm import layernorm
+    from repro_torch.kernels.mamba_chunk import CK as MAMBA_CK
+    from repro_torch.kernels.mamba_chunk import mamba_chunk
     from repro_torch.kernels.masked_softmax import masked_softmax
     from repro_torch.kernels.pim_matvec import pim_matvec
 
@@ -667,18 +673,32 @@ def kernel_cases(torch, dtype):
     # it (B 2, T 2048, d_inner 8192, d_state 16; a, u and C in f32 whatever
     # the model's dtype), a ragged T, and the reduced config's widths; the
     # model's discretization (a = exp(dt A), u = dt x B). Timed in f32.
+    # Under a gradient the kernel also writes h before every 16 steps, the
+    # checkpoints of mamba_chunk_bwd ("ck"): held against h of the plain
+    # recurrence at those steps (mamba_checkpoints_ref), and timed beside
+    # the serving call that writes none
     for B, T_, di, n in ((2, 2048, 8192, 16), (1, 200, 8192, 16),
                          (2, 37, 128, 4)):
         if dtype == torch.bfloat16 and T_ == 2048:
             continue              # the bf16 instantiation: the small cases
         a, u, C = mamba_inputs(torch, g, B, T_, di, n, dtype)
+        moved = es * (2 * B * T_ * di * n + B * T_ * n + B * T_ * di) \
+            + 4 * B * di * n
         cases.append(dict(
             kernel="mamba_chunk", label=f"B{B} T{T_} d{di} n{n}",
             run=lambda a=a, u=u, C=C: ops.mamba_chunk(a, u, C),
             plain=lambda a=a, u=u, C=C: ref.mamba_chunk_ref(a, u, C),
             library=None, math="float32", timed="float32",
-            bytes=es * (2 * B * T_ * di * n + B * T_ * n + B * T_ * di)
-            + 4 * B * di * n,
+            bytes=moved, flops=4.0 * B * T_ * di * n))
+        cases.append(dict(
+            kernel="mamba_chunk", label=f"B{B} T{T_} d{di} n{n} ck",
+            deterministic=True,
+            run=lambda a=a, u=u, C=C: mamba_chunk(a, u, C, checkpoints=True),
+            plain=lambda a=a, u=u, C=C: (
+                *ref.mamba_chunk_ref(a, u, C),
+                ref.mamba_checkpoints_ref(a, u, MAMBA_CK)),
+            library=None, math="float32", timed="float32",
+            bytes=moved + 4 * B * -(-T_ // MAMBA_CK) * di * n,
             flops=4.0 * B * T_ * di * n))
     # masked_softmax: the scores of a llama prefill chunk (8 slots x 32
     # heads x 128 queries against 640 keys at offset 512: the causal
@@ -818,6 +838,7 @@ def recurrent_bwd_cases(torch, dtype, rn):
     the wkv's state a step (state and G advanced, 3 each; S dy, G v, G^T
     k, G * S, 2 each), 8 an element of the scan's a step."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba_chunk import mamba_chunk
     from repro_torch.kernels.mamba_chunk_bwd import mamba_chunk_bwd
     from repro_torch.kernels.rwkv_chunk_bwd import rwkv_chunk_bwd
 
@@ -856,10 +877,13 @@ def recurrent_bwd_cases(torch, dtype, rn):
         dh = torch.randn((B, di, n), generator=g, device="cuda") \
             if final else None
         args = (a, u, C, dy, dh)
+        # the checkpoints as the training path makes them: by the forward
+        # kernel (phase 2 holds them against the plain recurrence)
+        _, _, ck = mamba_chunk(a, u, C, checkpoints=True)
         cases.append(dict(
             kernel="mamba_chunk_bwd", deterministic=True, tol=tol,
             label=f"B{B} T{T_} d{di} n{n}" + (" dh" if final else ""),
-            run=lambda a=args: mamba_chunk_bwd(*a),
+            run=lambda a=args, ck=ck: mamba_chunk_bwd(*a, ck=ck),
             plain=lambda a=args: ref.mamba_chunk_bwd_ref(*a),
             library=None, math="float32", timed="float32",
             bytes=es * (4 * B * T_ * di * n + 2 * B * T_ * n + B * T_ * di)

@@ -39,7 +39,7 @@ ARGTYPES = {
                           _I, _P],
     "rwkv_chunk_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P],
-    "mamba_chunk_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mamba_chunk_launch": [_P] * 6 + [_I] * 5 + [_P],
     "rwkv_chunk_bwd_launch": [_P] * 14 + [_I] * 6 + [_P],
     "mamba_chunk_bwd_launch": [_P] * 10 + [_I] * 5 + [_P],
 }

@@ -15,12 +15,13 @@ Gradients: where an input requires one, the static flash mode (queries
 from position 0) goes through ``FlashAttentionFn``, the norm through
 ``NormFn``, the RWKV6 wkv through ``RwkvChunkFn`` and the Mamba scan
 through ``MambaChunkFn``. Each saves only its inputs (flash also its
-output and ``lse``), and its backward follows the device as the forward
-does: the plain backward (``ref.*_bwd_ref``) on the CPU, the hand-written
-backward kernel on the card. These are the kernels of the training path
-of every family. The rest (the GEMV, decode attention, the masked
-softmax, the segmented and offset flash modes) serve decoding and
-prefill only: they have no backward on the card and raise there if asked
+output and ``lse``, the Mamba scan on the card the states its forward
+kernel writes every 16 steps), and its backward follows the device as
+the forward does: the plain backward (``ref.*_bwd_ref``) on the CPU,
+the hand-written backward kernel on the card. These are the kernels of
+the training path of every family. The rest (the GEMV, decode attention,
+the masked softmax, the segmented and offset flash modes) serve decoding
+and prefill only: they have no backward on the card and raise there if asked
 for a gradient; on the CPU autograd runs through their plain versions.
 """
 from __future__ import annotations
@@ -303,26 +304,33 @@ def rwkv_chunk(r, k, v, w, u, *, out_dtype=None):
 
 
 class MambaChunkFn(torch.autograd.Function):
-    """The selective scan with its backward: the forward saves only its
-    inputs, and the backward runs the adjoint recurrence from them
-    (recomputing the states). A CUDA tensor runs the ``mamba_chunk`` and
-    ``mamba_chunk_bwd`` kernels; a CPU tensor the plain versions."""
+    """The selective scan with its backward: the forward saves its inputs
+    and, on the card, the states the forward kernel writes every 16 steps,
+    and the backward runs the adjoint recurrence from them (recomputing
+    the states between checkpoints). A CUDA tensor runs the
+    ``mamba_chunk`` and ``mamba_chunk_bwd`` kernels; a CPU tensor the
+    plain versions."""
 
     @staticmethod
     def forward(ctx, a, u, C):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(a, u, C)
-        return _mamba_forward(a, u, C)
+        if _use_kernel(a):
+            y, h, ck = _mamba_chunk(a, u, C, checkpoints=True)
+        else:
+            (y, h), ck = ref.mamba_chunk_ref(a, u, C), None
+        ctx.save_for_backward(a, u, C, ck)
+        return y, h
 
     @staticmethod
     def backward(ctx, dy, dh):
-        a, u, C = ctx.saved_tensors
+        a, u, C, ck = ctx.saved_tensors
         if dy is None:
             dy = a.new_zeros(a.shape[:3])
         dy = dy.to(a.dtype)
         if _use_kernel(a):
             return _mamba_chunk_bwd(a, u, C, dy.contiguous(),
-                                    None if dh is None else dh.contiguous())
+                                    None if dh is None else dh.contiguous(),
+                                    ck=ck)
         return ref.mamba_chunk_bwd_ref(a, u, C, dy, dh)
 
 

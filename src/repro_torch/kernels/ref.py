@@ -245,6 +245,21 @@ def mamba_chunk_ref(a, u, C):
     return torch.stack(ys, dim=1).to(a.dtype), h
 
 
+def mamba_checkpoints_ref(a, u, every: int = 16):
+    """The states that ``mamba_chunk``'s kernel writes under a gradient:
+    h before steps 0, every, 2 every, ... of ``mamba_chunk_ref``'s
+    recurrence (h before step 0 is 0). a, u: (B, T, d, n). Returns
+    (B, ceil(T / every), d, n) f32."""
+    B, T, d, n = a.shape
+    h = torch.zeros((B, d, n), dtype=torch.float32, device=a.device)
+    out = []
+    for t in range(T):
+        if t % every == 0:
+            out.append(h)
+        h = a[:, t].float() * h + u[:, t].float()
+    return torch.stack(out, dim=1)
+
+
 def rwkv_chunk_bwd_ref(r, k, v, w, u, dy, ds=None):
     """The gradient of ``rwkv_chunk_ref`` as explicit adjoint recurrences
     (no autograd). r, k, v, w, dy: (BH, T, K); u: (U, K) with BH % U == 0,

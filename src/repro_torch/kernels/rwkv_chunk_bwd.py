@@ -5,8 +5,12 @@ Replaces no TPU kernel: the reference differentiates its wkv
 differentiates is the hand-written ``csrc/rwkv_chunk.cu``, so its
 gradient is the hand-written ``csrc/rwkv_chunk_bwd.cu`` (whose header
 gives the adjoint recurrences, what bounds them on an H100 and what its
-design does about that): the states are checkpointed every ``SUB`` steps
-and recomputed, never recovered by dividing by a decay.
+design does about that): a block of ``THREADS`` threads a row, 16 state
+elements a thread; the states are checkpointed in device memory every
+``CK`` steps, recomputed from there into shared-memory slots every
+``SUB`` steps and into registers step by step, never recovered by
+dividing by a decay; each step writes its parts of the sums to
+shared-memory partials that a sub-chunk adds in a fixed order.
 ``ref.rwkv_chunk_bwd_ref`` is its plain PyTorch version. One call is one
 launch in ``rwkv_chunk_bwd.launches`` (the source runs two kernels a
 call, the second summing du over the rows that share u, in a fixed
@@ -21,9 +25,10 @@ from repro_torch.kernels._checks import (DTYPE_CODES, contiguous, dtype_code,
                                          on_cuda, stream_of)
 from repro_torch.kernels.ref import rwkv_chunk_bwd_ref  # noqa: F401  (plain version)
 
-MAX_K = 64
-SUB = 8          # steps between checkpoints (csrc/rwkv_chunk_bwd.cu: kSub)
-THREADS = 256    # a block a row, 16 state elements a thread
+MAX_K = 64       # the kernel's state width: K < 64 runs zero channels
+SUB = 8          # steps a task stages, S_{t-1} in registers (kSub)
+CK = 32          # steps between checkpoints in device memory (kSub * kQ)
+THREADS = 256    # a block a row, 16 state elements a thread (kThreads)
 
 
 def rwkv_chunk_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,8 +59,8 @@ def rwkv_chunk_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     du = torch.empty(u.shape, dtype=torch.float32, device=r.device)
     du_rows = torch.empty((BH, K), dtype=torch.float32, device=r.device)
-    ck = torch.empty((BH, -(-T // SUB), 16, THREADS), dtype=torch.float32,
-                     device=r.device)
+    ck = torch.empty((BH, -(-T // CK), MAX_K * MAX_K),
+                     dtype=torch.float32, device=r.device)
     lib = _build.load("rwkv_chunk_bwd")
     err = lib.rwkv_chunk_bwd_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),

@@ -1178,6 +1178,8 @@ def test_train_steps_on_the_card_match_the_cpu(card, remat):
     (6, 37, 16, 3, False, True),         # U < BH, K 16
     (16, 512, 64, 16, True, False),      # the model's strong decays
     (2, 1, 64, 1, False, True),          # one step
+    (2, 48, 64, 2, True, True),          # a last stretch of 2 sub-chunks
+    (3, 88, 37, 1, False, True),         # of 3, K 37
 ])
 @pytest.mark.parametrize("dtype,dy_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
@@ -1186,7 +1188,9 @@ def test_rwkv_chunk_bwd_kernel_matches_plain(card, BH, T_, K, U, strong,
                                              final, dtype, dy_dtype):
     """dr, dk, dv, dw and du against the plain adjoint recurrences; f32
     within the chunked wkv's 2e-3, bf16 inputs within 1e-2 + 2e-2 |want|
-    (dr, dk, dv round to bf16); bitwise the same on a second call."""
+    (dr, dk, dv round to bf16); bitwise the same on a second call. The
+    shapes reach every length of the kernel's last stretch of 32 steps
+    (1 to 4 sub-chunks of 8)."""
     r, k, v, w, u = _rwkv_inputs(BH, T_, K, dtype, 11, strong=strong)
     u = u[:U].contiguous()
     dy = _rand((BH, T_, K), 12, dy_dtype)
@@ -1212,8 +1216,10 @@ def test_rwkv_chunk_bwd_kernel_matches_plain(card, BH, T_, K, U, strong,
 def test_mamba_chunk_bwd_kernel_matches_plain(card, B, T_, d, n, final,
                                               dtype):
     """da, du, dC against the plain adjoint recurrence, a = exp(dt A) as
-    the model makes it (down to 0); f32 within 2e-3, bf16 within 1e-2 +
-    2e-2 |want|; bitwise the same on a second call."""
+    the model makes it (down to 0), from the checkpoints that the forward
+    kernel writes (h every 16 steps, held against the plain recurrence's);
+    f32 within 2e-3, bf16 within 1e-2 + 2e-2 |want|; bitwise the same on
+    a second call."""
     g = torch.Generator(device="cuda").manual_seed(14)
     dt = torch.nn.functional.softplus(
         torch.randn((B, T_, d), generator=g, device="cuda") * 3)
@@ -1224,14 +1230,33 @@ def test_mamba_chunk_bwd_kernel_matches_plain(card, B, T_, d, n, final,
     dy = torch.randn((B, T_, d), generator=g, device="cuda").to(dtype)
     dh = torch.randn((B, d, n), generator=g, device="cuda") if final \
         else None
-    got = mamba_chunk_bwd(a, u, C, dy, dh)
-    again = mamba_chunk_bwd(a, u, C, dy, dh)
+    y, h, ck = mamba_chunk(a, u, C, checkpoints=True)
+    y0, h0 = mamba_chunk(a, u, C)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    _close(ck, ref.mamba_checkpoints_ref(a, u), torch.float32)
+    got = mamba_chunk_bwd(a, u, C, dy, dh, ck=ck)
+    again = mamba_chunk_bwd(a, u, C, dy, dh, ck=ck)
     want = ref.mamba_chunk_bwd_ref(a, u, C, dy, dh)
     tol = dict(rtol=2e-3, atol=2e-3) if dtype == torch.float32 \
         else dict(rtol=2e-2, atol=1e-2)
     for x, y, z in zip(got, again, want):
         _close(x, z, dtype, tol)
         assert torch.equal(x, y)
+
+
+def test_mamba_chunk_bwd_refuses_wrong_checkpoints(card):
+    """The backward kernel takes the forward's checkpoints or raises: it
+    never recomputes them."""
+    a = torch.rand((1, 40, 8, 4), device="cuda")
+    u, C = torch.randn_like(a), torch.randn((1, 40, 4), device="cuda")
+    dy = torch.randn((1, 40, 8), device="cuda")
+    with pytest.raises(ValueError, match="checkpoints"):
+        mamba_chunk_bwd(a, u, C, dy)
+    ck = mamba_chunk(a, u, C, checkpoints=True)[2]
+    with pytest.raises(ValueError, match="checkpoints"):
+        mamba_chunk_bwd(a, u, C, dy, ck=ck[:, :2].contiguous())
+    with pytest.raises(TypeError):
+        mamba_chunk_bwd(a, u, C, dy, ck=ck.double())
 
 
 @pytest.mark.parametrize("B,H,KH,S,Skv,causal", [

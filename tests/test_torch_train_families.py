@@ -10,7 +10,8 @@ versions of the two recurrences (``ref.rwkv_chunk_bwd_ref``,
 the reference's oracles and against torch autograd through the port's
 own; and whisper's encoder under remat.
 
-Weights from the reference's ``init_params`` cast to float32 and carried
+Weights drawn in float32 as the reference's ``init_params`` draws them,
+from a numpy seed (``np_init``: the same in every process), and carried
 across with ``from_jax_tree``; batches from ``batch_for`` (numpy). The
 reference's jitted functions are built once a family (module fixtures).
 Tolerances: 1e-4 for the losses and gradients (f32, other summation
@@ -30,7 +31,7 @@ from repro.data import batch_for as jax_batch_for
 from repro.kernels import ref as JREF
 from repro.launch.steps import step_fn_for as jax_step_fn_for
 from repro.models import transformer as RT
-from repro.models.params import init_params as jax_init
+from repro.models.params import is_def
 from repro.optim import adafactor as JAF
 from repro.optim import adamw_init as jax_adamw_init
 from repro.train import TrainStepConfig as JTrainStepConfig
@@ -57,6 +58,30 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+def _np_leaf(pd, rng):
+    """A float32 leaf drawn as the reference's ``_materialize`` draws it."""
+    if pd.init in ("zeros", "ones"):
+        return np.full(pd.shape, float(pd.init == "ones"), np.float32)
+    if pd.init == "decay":
+        return (np.log(rng.uniform(1e-3, 1.0, pd.shape)) * pd.scale
+                ).astype(np.float32)
+    std = pd.scale * (0.02 if pd.init == "small_normal"
+                      else pd.fan_in() ** -0.5)
+    return (rng.standard_normal(pd.shape) * std).astype(np.float32)
+
+
+def np_init(defs):
+    """float32 weights drawn as ``init_params`` draws them, leaf by leaf
+    from a numpy seed, the same in every process. ``init_params`` folds
+    ``hash()`` of each leaf's path into its key, which Python salts per
+    process, so its weights, and with them how far float32 roundoff
+    carries two summation orders apart, change from run to run."""
+    rng = np.random.default_rng(0)
+    leaves, treedef = jax.tree_util.tree_flatten(defs, is_leaf=is_def)
+    return jax.tree_util.tree_unflatten(
+        treedef, [jnp.asarray(_np_leaf(pd, rng)) for pd in leaves])
+
+
 def _cfgs(name, **kw):
     return (dataclasses.replace(jax_arch(name).reduced(), dtype="float32",
                                 **kw),
@@ -70,9 +95,7 @@ class Family:
 
     def __init__(self, name):
         self.ref, self.port = _cfgs(name)
-        self.pj = jax.jit(lambda key: jax.tree.map(
-            lambda a: a.astype(jnp.float32),
-            jax_init(RT.param_defs(self.ref), key)))(jax.random.PRNGKey(0))
+        self.pj = np_init(RT.param_defs(self.ref))
         self.pt = from_jax_tree(jax.tree.map(np.asarray, self.pj))
         self.grad = jax.jit(jax.value_and_grad(
             lambda p, b: RT.loss_fn(self.ref, p, b), has_aux=True))
