@@ -25,7 +25,12 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      frames) shapes and a ragged one, beside SDPA without a mask, where
      the plain version with one KV tile dropped must fail the bound;
      decode attention at whisper's cross cache (B 8, 1,500 frames, G 1) and
-     pixtral's (D 160); gpt2-xl's, gpt2-2.5b's, whisper's and pixtral's
+     pixtral's (D 160), and in its partial mode (o and the log-sum-exp) at
+     phase 21a's shard (B 8, 48 heads on one KV head of 128, 512
+     positions, lengths 0 to 512 in it; the lse to 1e-4 / 1e-3, beside
+     PyTorch's memory-efficient attention with its log-sum-exp, where the
+     plain version with the second split's keys dropped must fail the
+     bound); gpt2-xl's, gpt2-2.5b's, whisper's and pixtral's
      decode FCs and norms, qwen3-moe's k/v FC, kimi-k2's prefill norm and
      whisper's and pixtral's prefill-step norms) plus ragged cases, in
      float32 and bfloat16 (tolerances of the reference's kernel tests:
@@ -299,11 +304,40 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
   20c. training gpt2-2.5b at full width cut to 2 of 54 layers (d 1920,
      20 heads of 96, tied), ``SyntheticLM`` batches of 4 x 1024, 10 steps
      as 17: flash 4 and its backward 2 a step at D 96.
+  21. two ranks on the one card, spawned once (gloo over a file store; a
+     150 s limit on the group, 300 s on the spawn; a rank that fails fails
+     the run). Every collective is an all-gather over gloo, its CUDA
+     payload staged through pinned host buffers and counted
+     (``sharding/comm.py``); whether gloo also takes CUDA tensors itself
+     is logged. (a) granite-20b at full width (d 6144, 48 heads on one KV
+     head of 128) cut to 4 of 52 layers, bf16, mesh (data 1, model 2):
+     layout B, each rank 512 of the 1,024 cache positions; phase 3's 8
+     prompts, 32 new tokens: decode attention in its partial mode exactly
+     once a layer a decode step, flash, the GEMV and the norm launched,
+     one gather a layer a dispatch and no other collective, both ranks'
+     tokens equal; at depth 2 in float32 the tokens, dispatches and host
+     syncs of one rank's layout-A serve; (b) qwen3-moe-30b-a3b at its
+     widths (128 experts, top 8, d_ff 768) cut to 4 of 48 layers,
+     ``moe_impl="ep"``, 64 experts a rank: the same serve, one psum over
+     'model' a MoE layer a dispatch, and at depth 2 in float32 the
+     one-rank serve's tokens; (c) llama3.2-1b at full width cut to 4 of
+     16 layers, bf16, ``remat="full"``, AdamW at 1e-3 on one
+     ``SyntheticLM`` batch, mesh (data 2, model 1), B 2 x S 1024 a rank, 5
+     steps with the plain all-reduce and 5 with ``compress_grads``: the
+     plain first step's loss and gradient norm within 1e-2 of one rank's
+     on the whole batch (a float32 depth-2 variant at S 64 within 1e-4),
+     losses falling and equal on both ranks, 2 collectives a plain step
+     (gradients, metrics) and 3 a compressed one (amaxes, the int8
+     payload, a quarter of float32's bytes, metrics). Logged for each:
+     ms a decode or train step, each rank's peak memory, the collectives
+     and their ms (CUDA events), rank 0's busy share (a profiled serve or
+     step), and the phase's seconds (at most 120).
 
-``--phases 2,12,12b,12c,14,15,16,17,18,19,20,20c`` (any of them) builds
-the kernels and runs only the named phases (14 with 14b, 15 with 15b, 16
-with 16b and 16c, 17 with 17b, 18 with 18b, 20 with 20b) and phase 13's
-checks of their traces, printing no result lines (a development run).
+``--phases 2,12,12b,12c,14,15,16,17,18,19,20,20c,21`` (any of them)
+builds the kernels and runs only the named phases (14 with 14b, 15 with
+15b, 16 with 16b and 16c, 17 with 17b, 18 with 18b, 20 with 20b) and
+phase 13's checks of their traces, printing no result lines (a
+development run).
 
 The last two lines of standard output are the kernel table as one JSON
 object (a row a kernel at its main-path shape, then flash at D 96 in both
@@ -316,7 +350,8 @@ wkv's backward by phase 17, the Mamba scan's and the flash backward at D
 128 by phase 18, the flash backward at whisper's two non-causal
 shapes by phase 19, the flash backward at D 96 by phase 20c and at D
 160 by phase 20, and at D 112, which no path launches: 0 launches, its
-``checked_calls`` those of phase 2), then
+``checked_calls`` those of phase 2; then decode attention's partial mode
+with rank 0's launches in phase 21a's serve), then
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when there is no CUDA device, when the port's sources are missing,
 or when any phase fails.
@@ -465,12 +500,47 @@ NORM_BWD_SHAPES = tuple((m, r, 2048) for m in ("rmsnorm", "layernorm",
                         for r in (4096, 1027))
 
 
+def partial_flat(torch, out):
+    """The partial mode's (o, lse) as one float tensor, lse's -inf (a row
+    of length 0) as -1e30 so that equal answers subtract to 0."""
+    o, lse = out
+    return torch.cat([o.float().flatten(),
+                      torch.nan_to_num(lse, neginf=-1e30).flatten()])
+
+
+def efficient_attention_lse(torch, q, k, v, lengths):
+    """The library call for the partial mode: PyTorch's memory-efficient
+    attention with its log-sum-exp, the key mask as an additive bias and
+    the KV head expanded to the query heads; None (logged) where it
+    refuses the shape."""
+    B, H, D = q.shape
+    L = k.shape[2]
+    bias = torch.where(torch.arange(L, device="cuda")[None, :]
+                       < lengths[:, None], 0.0, float("-inf")).to(q.dtype)
+    bias = bias[:, None, None, :].expand(B, H, 1, L)
+    kx = k.expand(B, H, L, D)
+    vx = v.expand(B, H, L, D)
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            q[:, :, None], kx, vx, bias, True)
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"the partial mode's library call refused: {str(e)[:160]}")
+        return None
+    return call
+
+
 def kernel_cases(torch, dtype):
     """(kernel, label, kernel call, plain call, library call, bytes, flops)
     at the serving path's full-width shapes and ragged ones."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import plan as decode_plan
+    from repro_torch.kernels.decode_attention import share as decode_share
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_segmented)
     from repro_torch.kernels.layernorm import layernorm
@@ -596,6 +666,39 @@ def kernel_cases(torch, dtype):
                     q[:, :, None], k, v, attn_mask=m, enable_gqa=True),
             bytes=(2 * q.numel() + 2 * kh * hd * sum(lens)) * es + 4 * B,
             flops=4.0 * h * hd * sum(lens)))
+    # decode's partial mode (a layout-B shard, phase 21a's granite-20b:
+    # 48 heads on one KV head of 128, the 512 positions of one shard of a
+    # 1,024 cache), at lengths in the shard of 0, 1, 63, 64, 65, 511, 512
+    # and 300: o held as above, the lse to 1e-4 (f32) and 1e-3 (bf16) and
+    # -inf exactly where the length is 0; the plain version with the keys
+    # of the second split dropped must fail the bound
+    B, L, h, kh, hd = 8, 512, 48, 1, 128
+    lens = (0, 1, 63, 64, 65, 511, 512, 300)
+    q, k, v = rn(B, h, hd), rn(B, kh, L, hd), rn(B, kh, L, hd)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    lo, hi = decode_share(L, 1, decode_plan(B, h, kh, L))
+    kept = torch.cat([torch.arange(lo), torch.arange(hi, L)]).cuda()
+    cut = torch.where(lengths > hi, lengths - (hi - lo),
+                      torch.clamp(lengths, max=lo)).to(torch.int32)
+    lse_tol = {"float32": 1e-4, "bfloat16": 1e-3}
+    cases.append(dict(
+        kernel="decode_attention", tol=TIGHT_TOL, deterministic=True,
+        label=f"B{B} L{L}" + heads_label(h, kh, hd) + " partial",
+        run=lambda q=q, k=k, v=v, n=lengths: partial_flat(
+            torch, decode_attention(q, k, v, n, return_lse=True)),
+        plain=lambda q=q, k=k, v=v, n=lengths: partial_flat(
+            torch, ref.decode_attention_ref(q, k, v, n, return_lse=True)),
+        broken=lambda q=q, k=k, v=v, i=kept, n=cut: partial_flat(
+            torch, ref.decode_attention_ref(q, k[:, :, i], v[:, :, i], n,
+                                            return_lse=True)),
+        limit=lambda want, dname, n=q.numel(): torch.cat([
+            TIGHT_TOL[dname][0] + TIGHT_TOL[dname][1] * want[:n].abs()
+            if dname == "bfloat16" else torch.full_like(want[:n], 1e-4),
+            torch.full_like(want[n:], lse_tol[dname])]),
+        library=efficient_attention_lse(torch, q, k, v, lengths),
+        bytes=(2 * q.numel() + 2 * kh * hd * sum(lens)) * es + 4 * B
+        + 4 * B * h,
+        flops=4.0 * h * hd * sum(lens)))
     # matvec: llama's decode FCs -- wg/wi (d -> f), wo of the MLP (f -> d),
     # wq/wo of attention (d -> d), wk/wv (d -> KH*D) -- at n in {1, 3, 8}
     # slot rows; then rwkv6-7b's (4096 -> 4096, 4096 -> 14336, 14336 ->
@@ -1172,7 +1275,8 @@ def check_kernels(torch) -> dict:
             if "rows" in c:       # padded query rows: finite garbage
                 got, want = got[c["rows"]], want[c["rows"]]
             err = (got.float() - want.float()).abs()
-            limit = atol + rtol * want.float().abs()
+            limit = c["limit"](want.float(), dname) if "limit" in c \
+                else atol + rtol * want.float().abs()
             bad = err > limit
             max_err = float(err.max())
             if not finite or bool(bad.any()):
@@ -2874,9 +2978,9 @@ def attention_shapes(ops):
         tally["flash", bool(causal), q.shape[2], k.shape[2], q.shape[3]] += 1
         return flash(q, k, v, causal=causal, q_offset=q_offset)
 
-    def counted_decode(q, k, v, lengths):
+    def counted_decode(q, k, v, lengths, return_lse=False):
         tally["decode", k.shape[2], q.shape[2]] += 1
-        return decode(q, k, v, lengths)
+        return decode(q, k, v, lengths, return_lse=return_lse)
     ops._flash, ops._decode = counted_flash, counted_decode
     try:
         yield tally
@@ -4061,14 +4165,447 @@ def family_train_phases(torch, checks=None) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 21: two ranks on the one card -- layout B, expert parallelism and
+# data-parallel training over gloo
+# --------------------------------------------------------------------------- #
+MULTIRANK_JOIN_S = 300        # the spawn's limit; the gloo group's is 150 s
+
+
+def multirank_cfgs(small: bool):
+    """21a's granite-20b cut to 4 of 52 layers, 21b's qwen3-moe-30b-a3b
+    cut to 4 of 48 (``moe_impl="ep"``), 21c's llama3.2-1b cut to 4 of 16;
+    ``small``: their ``.reduced()`` widths (a run on the CPU)."""
+    from repro_torch.configs import get_arch
+    out = []
+    for name, impl in (("granite-20b", None), ("qwen3-moe-30b-a3b", "ep"),
+                       ("llama3.2-1b", None)):
+        cfg = get_arch(name)
+        cfg = cfg.reduced() if small else cfg
+        cfg = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, 4))
+        if impl:
+            cfg = dataclasses.replace(cfg, moe_impl=impl)
+        out.append(cfg)
+    return out
+
+
+class HostClock:
+    """Recorder hooks that keep the host's clock at each prefill and
+    decode dispatch (each decode ends in the engine's one host sync)."""
+
+    def __init__(self):
+        self.marks = []
+
+    def bind(self, engine) -> None:
+        pass
+
+    def on_prefill(self, *a, **k) -> None:
+        self.marks.append(("prefill", time.perf_counter()))
+
+    def on_decode(self, *a, **k) -> None:
+        self.marks.append(("decode", time.perf_counter()))
+
+    def __getattr__(self, hook):
+        return lambda *a, **k: None
+
+    def ms_per_decode(self) -> float:
+        kinds = [k for k, _ in self.marks]
+        last = max(i for i, k in enumerate(kinds) if k == "prefill")
+        dec = [t for k, t in self.marks[last + 1:] if k == "decode"]
+        return 1e3 * (dec[-1] - dec[0]) / max(1, len(dec) - 1)
+
+
+def mesh_serve(torch, cfg, params, mesh, dev: str, prompts, max_new: int,
+               profile: bool = False) -> dict:
+    """One serve of ``prompts`` (8 slots, max_len 1024, chunks of 128)
+    under ``mesh`` (None: one rank, no collectives), its launches,
+    collectives, dispatches and host syncs counted from 0."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.axes import use_mesh
+
+    clock = HostClock()
+    scope = use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    with scope:
+        eng = ServeEngine(cfg, params, ServeConfig(
+            max_slots=8, max_len=1024, prefill_chunk=128), recorder=clock,
+            device=dev)
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=max_new)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        if profile:
+            prof = device_profile(torch, eng.run_until_done)
+            return dict(profile=prof)
+        results = eng.run_until_done()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return dict(
+        tokens={str(k): [int(t) for t in v] for k, v in results.items()},
+        dispatches=dict(eng.dispatch_counts), host_syncs=eng.host_syncs,
+        launches=ops.launch_counts(), comm=comm.stats(), wall_s=wall,
+        ms_per_decode_step=clock.ms_per_decode(),
+        peak_bytes=(torch.cuda.max_memory_allocated() if dev == "cuda"
+                    else 0))
+
+
+def _serve_checks(tag: str, run: dict, per_dispatch: int, dev: str,
+                  kernels) -> None:
+    """A mesh serve's collectives: ``per_dispatch`` a prefill chunk or
+    decode step, no other; on the card each kernel of ``kernels`` ran."""
+    dc = run["dispatches"]
+    dispatches = dc["prefill"] + dc["decode"] + dc.get("fused", 0)
+    want = per_dispatch * dispatches
+    if run["comm"]["collectives"] != want:
+        raise RuntimeError(f"{tag}: {run['comm']['collectives']} "
+                           f"collectives, the plan gives {want} "
+                           f"({per_dispatch} x {dc})")
+    if dev == "cuda":
+        for k in kernels:
+            if not run["launches"].get(k):
+                raise RuntimeError(f"{tag}: {k} never launched")
+
+
+def multirank_serves(torch, rank: int, dev: str, small: bool) -> dict:
+    """21a (layout B) and 21b (expert parallelism) on this rank."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import (init_params, resident_axes,
+                                           shard_tree)
+
+    granite, qwen, _ = multirank_cfgs(small)
+    mesh = make_host_mesh(model=2)
+    out = {}
+    for tag, cfg in (("21a", granite), ("21b", qwen)):
+        n_attn = cfg.layer_kinds().count("attn")
+        # layout B: one gather a layer a dispatch; EP: one psum over
+        # 'model' a MoE layer (the data axes have extent 1)
+        per = n_attn if tag == "21a" else cfg.ffn_kinds().count("moe")
+        defs = T.param_defs(cfg)
+        full = init_params(defs, device=dev, seed=0)
+        params = shard_tree(full, defs, mesh, resident_axes(cfg))
+        del full
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        prompts = serve_prompts(cfg.vocab_size)
+        run = mesh_serve(torch, cfg, params, mesh, dev, prompts, 32)
+        _serve_checks(tag, run, per, dev,
+                      ("decode_attention", "flash_attention", "pim_matvec",
+                       "layernorm"))
+        if tag == "21a" and dev == "cuda" and run["launches"][
+                "decode_attention"] != n_attn * run["dispatches"]["decode"]:
+            raise RuntimeError(f"21a: decode_attention launched "
+                               f"{run['launches']['decode_attention']} times "
+                               f"in {run['dispatches']['decode']} decode "
+                               f"steps of {n_attn} layers")
+        run["layers"] = cfg.num_layers
+        run["collectives_per_decode_step"] = per
+        # the busy share: a short serve of the same prompts, rank 0's
+        # kernels traced
+        short = mesh_serve(torch, cfg, params, mesh, dev, prompts, 4,
+                           profile=(rank == 0 and dev == "cuda"))
+        run["profile"] = short.get("profile")
+        del params
+        # depth 2 in float32: the mesh serve against the one-rank serve
+        cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+        defs2 = T.param_defs(cfg2)
+        full2 = init_params(defs2, device=dev, seed=1)
+        leaves_to_f32(torch, full2)
+        short_prompts = [p[:96] for p in prompts]
+        one = mesh_serve(torch, cfg2, full2, None, dev, short_prompts, 16)
+        two = mesh_serve(torch, cfg2, shard_tree(
+            full2, defs2, mesh, resident_axes(cfg2)), mesh, dev,
+            short_prompts, 16)
+        for key in ("tokens", "dispatches", "host_syncs"):
+            if one[key] != two[key]:
+                raise RuntimeError(f"{tag}: depth-2 float32 {key} differ "
+                                   f"between the mesh serve and one rank: "
+                                   f"{two[key]} vs {one[key]}")
+        run["parity_f32"] = dict(tokens=sum(map(len, one["tokens"].values())),
+                                 dispatches=one["dispatches"],
+                                 host_syncs=one["host_syncs"])
+        del full2
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        out[tag] = run
+        log(f"{tag} rank {rank}: {run['ms_per_decode_step']:.2f} ms a decode "
+            f"step, {run['comm']['collectives']} collectives, peak "
+            f"{run['peak_bytes']} B; depth-2 float32 parity held")
+    return out
+
+
+def one_rank_step(torch, cfg, dev: str, batch) -> dict:
+    """The one-rank loss and gradient norm of the whole batch at the
+    seed-0 weights (the data-parallel first step's yardstick)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train import loss_and_grads
+
+    params = init_params(T.param_defs(cfg), device=dev, seed=0)
+    if cfg.dtype == "float32":
+        leaves_to_f32(torch, params)
+    loss, _, grads = loss_and_grads(cfg, params, {
+        k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    out = dict(loss=float(loss), grad_norm=float(global_norm(grads)))
+    del grads, params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_first_step(cfg, got: dict, want: dict, tol: float) -> dict:
+    for k in want:
+        if not abs(got[k] - want[k]) <= tol * abs(want[k]):
+            raise RuntimeError(f"21c: the data-parallel first step's {k} "
+                               f"{got[k]} vs one rank's {want[k]} (tol "
+                               f"{tol} relative, {cfg.dtype})")
+    return dict(dp=got, one_rank=want)
+
+
+def dp_first_step(torch, cfg, mesh, dev: str, B: int, S: int, tol: float
+                  ) -> dict:
+    """One data-parallel AdamW step's loss and gradient norm against the
+    one-rank loss and gradient of the whole batch."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainStepConfig, make_train_step
+
+    batch = SyntheticLM(cfg.vocab_size, S, B, seed=0).batch(0)
+    want = one_rank_step(torch, cfg, dev, batch)
+    params = init_params(T.param_defs(cfg), device=dev, seed=0)
+    if cfg.dtype == "float32":
+        leaves_to_f32(torch, params)
+    step = make_train_step(cfg, TrainStepConfig(
+        learning_rate=lambda s: 1e-3), mesh, device=dev)
+    _, _, m = step(params, adamw_init(params), batch)
+    return check_first_step(cfg, dict(loss=float(m["loss"]),
+                                      grad_norm=float(m["grad_norm"])),
+                            want, tol)
+
+
+def dp_train(torch, rank: int, dev: str, small: bool) -> dict:
+    """21c: data-parallel training, plain and compressed all-reduce."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import comm
+    from repro_torch.train import TrainStepConfig, compression, make_train_step
+
+    _, _, cfg = multirank_cfgs(small)
+    mesh = make_host_mesh(data=2, model=1)
+    B, S, steps = 4, (64 if small else 1024), 5     # B 2 x S a rank
+    out = dict(layers=cfg.num_layers, B_per_rank=B // 2, S=S, steps=steps,
+               params=param_count(T.param_defs(cfg)))
+    batch = SyntheticLM(cfg.vocab_size, S, B, seed=0).batch(0)
+    want = one_rank_step(torch, cfg, dev, batch)
+    for mode, compress in (("plain", False), ("compressed", True)):
+        params = init_params(T.param_defs(cfg), device=dev, seed=0)
+        opt = adamw_init(params)
+        err = compression.init_error_state(params) if compress else None
+        step = make_train_step(cfg, TrainStepConfig(
+            learning_rate=lambda s: 1e-3, compress_grads=compress), mesh,
+            device=dev)
+        losses, ms, per_step = [], [], []
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        traced = None
+        for i in range(steps):
+            comm.reset_stats()
+            t0 = time.perf_counter()
+            args = (params, opt, batch, err) if compress else \
+                (params, opt, batch)
+            if not compress and i == steps - 1:
+                # rank 0 traces the last plain step's kernels (its time is
+                # left out of the means); rank 1 runs it beside
+                res = []
+                if rank == 0 and dev == "cuda":
+                    traced = device_profile(
+                        torch, lambda: res.append(step(*args)))
+                else:
+                    res.append(step(*args))
+                out_step = res[0]
+            else:
+                out_step = step(*args)
+            if compress:
+                params, opt, err, m = out_step
+            else:
+                params, opt, m = out_step
+            losses.append(float(m["loss"]))      # waits for the step
+            ms.append(1e3 * (time.perf_counter() - t0))
+            per_step.append(comm.stats())
+            if not compress and len(losses) == 1:
+                # the plain run's first step against one rank's whole batch
+                out["first_step_bf16"] = check_first_step(cfg, dict(
+                    loss=losses[0], grad_norm=float(m["grad_norm"])), want,
+                    1e-2)
+        plan = 3 if compress else 2
+        for s in per_step:
+            if s["collectives"] != plan:
+                raise RuntimeError(f"21c {mode}: {s['collectives']} "
+                                   f"collectives a step, the plan gives "
+                                   f"{plan}: {s['by_kind']}")
+        if not all(x == x for x in losses) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"21c {mode}: losses {losses} do not fall")
+        # the means leave out the first step (it builds Triton's kernels)
+        # and a traced one
+        timed = slice(1, steps - 1 if not compress else steps)
+        n_timed = len(ms[timed])
+        run = dict(losses=losses, ms_per_step=sum(ms[timed]) / n_timed,
+                   ms_runs=ms, collectives_per_step=plan,
+                   collective_ms_per_step=sum(s["ms"] for s in
+                                              per_step[timed]) / n_timed,
+                   by_kind=per_step[-1]["by_kind"],
+                   peak_bytes=(torch.cuda.max_memory_allocated()
+                               if dev == "cuda" else 0))
+        if traced is not None:
+            run["profile"] = traced
+        if compress:
+            n = out["params"]
+            payload = per_step[-1]["by_kind"]["psum"]["bytes"]
+            if payload != n:
+                raise RuntimeError(f"21c: the int8 payload is {payload} "
+                                   f"bytes for {n} parameters")
+            run.update(payload_bytes=payload, f32_payload_bytes=4 * n)
+        out[mode] = run
+        log(f"21c rank {rank} {mode}: {run['ms_per_step']:.1f} ms a step, "
+            f"losses {losses}")
+        del params, opt, err
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    out["first_step_f32"] = dp_first_step(torch, cfg2, mesh, dev, 4,
+                                          min(S, 64), 1e-4)
+    return out
+
+
+def multirank_rank(rank: int, world: int, store: str, outdir: str,
+                   dev: str = "cuda", small: bool = False) -> None:
+    """One rank of phase 21 (a spawned process): joins the gloo group,
+    runs 21a, 21b and 21c, and writes its results to
+    ``outdir/rank<r>.json``; any failure exits non-zero."""
+    import datetime
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+    try:
+        if dev == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=150))
+        res = dict(transport=gloo_cuda_probe(torch, dist, dev))
+        t0 = time.perf_counter()
+        res.update(multirank_serves(torch, rank, dev, small))
+        res["serves_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["21c"] = dp_train(torch, rank, dev, small)
+        res["train_s"] = time.perf_counter() - t0
+        with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def gloo_cuda_probe(torch, dist, dev: str) -> str:
+    """Whether gloo takes an all-gather of CUDA tensors itself (the port
+    stages every collective through pinned host buffers either way)."""
+    if dev != "cuda":
+        return "cpu tensors"
+    x = torch.full((4,), float(dist.get_rank()), device="cuda")
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    try:
+        dist.all_gather(parts, x)
+        return "gloo took CUDA tensors in all_gather"
+    except RuntimeError as e:
+        return f"gloo refused CUDA tensors in all_gather: {str(e)[:120]}"
+
+
+def multirank_phase(torch, dev: str = "cuda", small: bool = False) -> dict:
+    """Phase 21: two ranks on ``cuda:0`` over gloo, spawned once. Fails
+    if a rank fails or the spawn outlives its limit, if the ranks' tokens
+    or losses differ, or if any rank's check failed."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        empty_card(torch)      # the ranks share the card with this process
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=multirank_rank, args=(
+            r, 2, os.path.join(tmp, "store"), tmp, dev, small))
+            for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + MULTIRANK_JOIN_S
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) \
+                    or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            fail(f"21: the ranks exited {codes}")
+        res = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for tag in ("21a", "21b"):
+        if res[0][tag]["tokens"] != res[1][tag]["tokens"]:
+            fail(f"{tag}: the two ranks' tokens differ")
+    for mode in ("plain", "compressed"):
+        if res[0]["21c"][mode]["losses"] != res[1]["21c"][mode]["losses"]:
+            fail(f"21c {mode}: the two ranks' losses differ")
+    took = time.perf_counter() - t0
+    log(f"phase 21 took {took:.1f} s (serves {res[0]['serves_s']:.1f} s, "
+        f"training {res[0]['train_s']:.1f} s on rank 0)")
+    log(f"21 transport: {res[0]['transport']}; every collective an "
+        f"all-gather over gloo, CUDA payloads staged through pinned host "
+        f"buffers")
+    for r, out in enumerate(res):
+        for tag in ("21a", "21b"):
+            run = dict(out[tag])
+            run.pop("tokens")
+            log(f"{tag} rank {r} " + json.dumps(run))
+        log(f"21c rank {r} " + json.dumps(out["21c"]))
+    return dict(took_s=took, ranks=res)
+
+
 def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases (2, 12, 12b, 12c, 14, 15, "
-                         "16, 17, 18, 19, 20, 20c; 16 runs 16b and 16c, 17 "
-                         "17b, 18 18b, 20 20b) to run alone after the "
+                         "16, 17, 18, 19, 20, 20c, 21; 16 runs 16b and 16c, "
+                         "17 17b, 18 18b, 20 20b) to run alone after the "
                          "build, printing no result lines")
     only = ap.parse_args().phases
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -4109,7 +4646,8 @@ def main() -> None:
                 "14": whisper_phases, "15": pixtral_phases,
                 "16": train_phases, "17": rwkv_train_phases,
                 "18": jamba_train_phases, "19": whisper_train_phase,
-                "20": pixtral_train_phases, "20c": gpt2_train_phase})
+                "20": pixtral_train_phases, "20c": gpt2_train_phase,
+                "21": lambda torch, checks: multirank_phase(torch)})
             for phase in only.split(","):
                 t0 = time.perf_counter()
                 alone[phase](torch, checks)
@@ -4163,6 +4701,8 @@ def main() -> None:
         pixtral = pixtral_phases(torch, checks)
         train = train_phases(torch)
         train.update(family_train_phases(torch))
+        empty_card(torch)
+        multi = multirank_phase(torch)
         checks.run(card)
     except SystemExit:
         raise
@@ -4234,7 +4774,11 @@ def main() -> None:
                   bwd_shapes["bwd False 1500 1500 64"])),
         ("flash_attention_bwd non-causal cross", "flash_attention_bwd",
          "B2 Sq448 Skv1500 non-causal H16/16",
-         launched("flash_attention_bwd", bwd_shapes["bwd False 448 1500 64"]))]
+         launched("flash_attention_bwd", bwd_shapes["bwd False 448 1500 64"])),
+        ("decode_attention partial", "decode_attention",
+         "B8 L512 D128 H48/1 partial",
+         launched("decode_attention",
+                  multi["ranks"][0]["21a"]["launches"]["decode_attention"]))]
     kernels = []
     for name, kernel, label, run in rows:
         route, source, replaces = SOURCES[kernel]

@@ -1,9 +1,12 @@
 """Architecture registry of the port: the architectures it serves, by
 ``--arch`` name -- every configuration of the reference (``dense``,
 ``moe``, ``ssm``, ``hybrid``, the ``encdec`` whisper-medium and the
-``vlm`` pixtral-12b) and the paper's own models (``paper_models``)."""
+``vlm`` pixtral-12b) and the paper's own models (``paper_models``); and
+the assigned input-shape cells (``SHAPES``)."""
 from repro_torch.configs import paper_models
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (DECODE_32K, LONG_500K, PREFILL_32K,
+                                      SHAPES, TRAIN_4K, ModelConfig,
+                                      ShapeSpec, applicable_shapes)
 from repro_torch.configs.granite_20b import CONFIG as GRANITE_20B
 from repro_torch.configs.jamba_v01_52b import CONFIG as JAMBA_V01_52B
 from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as KIMI_K2_1T_A32B
@@ -29,4 +32,25 @@ def get_arch(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ModelConfig", "ARCHS", "get_arch"]
+def get_shape(name: str) -> ShapeSpec:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+ASSIGNED = [
+    "rwkv6-7b",
+    "pixtral-12b",
+    "kimi-k2-1t-a32b",
+    "qwen3-moe-30b-a3b",
+    "olmo-1b",
+    "phi3-medium-14b",
+    "granite-20b",
+    "llama3.2-1b",
+    "whisper-medium",
+    "jamba-v0.1-52b",
+]
+
+__all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "ARCHS", "ASSIGNED",
+           "get_arch", "get_shape", "applicable_shapes", "TRAIN_4K",
+           "PREFILL_32K", "DECODE_32K", "LONG_500K"]

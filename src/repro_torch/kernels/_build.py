@@ -33,8 +33,8 @@ ARGTYPES = {
                                _I, _I, _I, _I, _LL, _I, _I, _F, _I, _P],
     "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "decode_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                _I, _I, _P],
+    "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _F, _I, _I, _P],
     "pim_matvec_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _P],
     "rwkv_chunk_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

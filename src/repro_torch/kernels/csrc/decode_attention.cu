@@ -47,6 +47,13 @@
 //    memory in rank order:
 //    o = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30). Two
 //    calls on the same inputs give bitwise-equal outputs.
+//  * The partial mode (lse != null, the sequence-sharded cache of layout B):
+//    rank 0 of the cluster also writes each head's log-sum-exp of its
+//    scaled scores, M + log(sum_s e^(m_s - M) l_s), which the combine has
+//    in hand; a row of length 0 gets lse = -inf and o = 0 (every split's
+//    neutral partial), so an empty shard adds nothing to a cross-shard
+//    combine. Without lse the kernel takes the same path and writes o
+//    alone.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -85,7 +92,8 @@ __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ lengths, T* __restrict__ o,
-                        int H, int KH, int S, float scale) {
+                        float* __restrict__ lse, int H, int KH, int S,
+                        float scale) {
   using DS = DShape<T, D>;
   constexpr int kDP = DS::kDP;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -331,6 +339,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       lsum += e * cluster.map_shared_rank(part, r)[kHeads + tid];
     }
     den[tid] = fmaxf(lsum, 1e-30f);
+    if (lse != nullptr && rank == 0)
+      lse[(size_t)b * H + h0 + tid] = lsum > 0.f ? M + logf(lsum) : -INFINITY;
   }
   __syncthreads();
   const int total = gc * D, mine_n = (total + splits - 1) / splits;
@@ -352,8 +362,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch_dim(const void* q, const void* k, const void* v,
-                       const int* lengths, void* o, int B, int H, int KH,
-                       int S, float scale, int splits, cudaStream_t stream) {
+                       const int* lengths, void* o, float* lse, int B, int H,
+                       int KH, int S, float scale, int splits,
+                       cudaStream_t stream) {
   using DS = DShape<T, D>;
   auto kern = decode_attention_kernel<T, D>;
   static cudaError_t configured = cudaFuncSetAttribute(
@@ -374,17 +385,17 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v,
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q),
                             static_cast<const T*>(k), static_cast<const T*>(v),
-                            lengths, static_cast<T*>(o), H, KH, S, scale);
+                            lengths, static_cast<T*>(o), lse, H, KH, S, scale);
 }
 
 template <typename T>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         const int* lengths, void* o, int B, int H, int KH,
-                         int S, int D, float scale, int splits,
+                         const int* lengths, void* o, float* lse, int B, int H,
+                         int KH, int S, int D, float scale, int splits,
                          cudaStream_t s) {
 #define RT_DECODE_CASE(DIM) \
   case DIM:                 \
-    return launch_dim<T, DIM>(q, k, v, lengths, o, B, H, KH, S, scale, splits, s);
+    return launch_dim<T, DIM>(q, k, v, lengths, o, lse, B, H, KH, S, scale, splits, s);
   switch (D) {
     RT_DECODE_CASE(16)
     RT_DECODE_CASE(32)
@@ -401,24 +412,26 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, o: (B, H, D); k, v: (B, KH, S, D); lengths: (B,) int32; all
-// contiguous; k and v 16-byte aligned, q 4-byte aligned. D in {16, 32, 64,
-// 96, 112, 128, 160}, H % KH == 0; 1 <= splits <= 8 CTAs per (head group,
-// KV head, row), one cluster (kernels/decode_attention.py::plan).
+// q, o: (B, H, D); k, v: (B, KH, S, D); lengths: (B,) int32; lse: null,
+// or (B, H) f32 for the partial mode; all contiguous; k and v 16-byte
+// aligned, q 4-byte aligned. D in {16, 32, 64, 96, 112, 128, 160},
+// H % KH == 0; 1 <= splits <= 8 CTAs per (head group, KV head, row), one
+// cluster (kernels/decode_attention.py::plan).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* lengths,
-                                       void* o, int B, int H, int KH, int S,
-                                       int D, float scale, int dtype,
-                                       int splits, void* stream) {
+                                       void* o, void* lse, int B, int H,
+                                       int KH, int S, int D, float scale,
+                                       int dtype, int splits, void* stream) {
   if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || S < 1 || B > 65535 ||
       splits < 1 || splits > kMaxSplits ||
       (long long)KH * ((H / KH + kHeads - 1) / kHeads) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* lp = static_cast<const int*>(lengths);
+  float* ls = static_cast<float*>(lse);
   if (dtype == RT_F32)
-    return static_cast<int>(launch_typed<float>(q, k, v, lp, o, B, H, KH, S, D, scale, splits, s));
+    return static_cast<int>(launch_typed<float>(q, k, v, lp, o, ls, B, H, KH, S, D, scale, splits, s));
   if (dtype == RT_BF16)
-    return static_cast<int>(launch_typed<__nv_bfloat16>(q, k, v, lp, o, B, H, KH, S, D, scale, splits, s));
+    return static_cast<int>(launch_typed<__nv_bfloat16>(q, k, v, lp, o, ls, B, H, KH, S, D, scale, splits, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,7 +5,10 @@ Replaces the TPU kernel
 hand-written CUDA (``csrc/decode_attention.cu``, whose header says what
 bounds it on an H100 and what its design does about that);
 ``ref.decode_attention_ref`` is its plain PyTorch version. It computes what
-``repro.models.attention.decode_attention`` computes in layout A. ``plan``
+``repro.models.attention.decode_attention`` computes in layout A, and in
+its partial mode (``return_lse``) what one shard of layout B's
+sequence-sharded cache contributes: the shard's attention and its
+log-sum-exp, which ``models/attention.py`` combines across shards. ``plan``
 (how many CTAs split each row's keys) and ``share`` (which keys each one
 takes) are the kernel's arithmetic in Python, so that the CPU tests read
 what the card runs.
@@ -50,11 +53,13 @@ def share(length: int, split: int, splits: int) -> Tuple[int, int]:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, return_lse: bool = False):
     """q: (B, H, D); k, v: (B, KH, S, D); lengths: (B,) int32, each at least
     1 (positions >= lengths[b] are masked) -> (B, H, D) in q.dtype.
-    Launches the CUDA kernel once (one count), which merges its splits
-    itself."""
+    ``return_lse`` (the partial mode) also returns the f32 (B, H)
+    log-sum-exp of each head's scaled scores, and takes lengths of 0: such
+    a row gives o = 0 and lse = -inf. Launches the CUDA kernel once (one
+    count), which merges its splits itself."""
     on_cuda(q, k, v, lengths)
     code = dtype_code(q, k, v)
     contiguous(q=q, k=k, v=v, lengths=lengths)
@@ -73,14 +78,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention needs k and v 16-byte aligned "
                          "and q 4-byte aligned")
     o = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     lib = _build.load("decode_attention")
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        o.data_ptr(), B, H, KH, S, D, 1.0 / math.sqrt(D), code,
-        plan(B, H, KH, S), stream_of(q))
+        o.data_ptr(), None if lse is None else lse.data_ptr(), B, H, KH, S,
+        D, 1.0 / math.sqrt(D), code, plan(B, H, KH, S), stream_of(q))
     _build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 decode_attention.launches = 0

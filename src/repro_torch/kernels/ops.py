@@ -216,18 +216,22 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return o.to(out_dtype)
 
 
-def decode_attention(q, k, v, lengths):
-    """q: (B, H, D); k, v: (B, KH, S, D); lengths (B,) -> (B, H, D)."""
+def decode_attention(q, k, v, lengths, return_lse: bool = False):
+    """q: (B, H, D); k, v: (B, KH, S, D); lengths (B,) -> (B, H, D);
+    ``return_lse`` (the partial mode of layout B's cache shards) -> (o,
+    the f32 (B, H) log-sum-exp), lengths of 0 allowed."""
     out_dtype = q.dtype
     q, k, v = _common(q, k, v)
     _no_backward_on_card("decode_attention", q, k, v)
     lengths = lengths.to(torch.int32)
     if not _use_kernel(q):
-        o = ref.decode_attention_ref(q, k, v, lengths)
+        out = ref.decode_attention_ref(q, k, v, lengths, return_lse)
     else:
-        o = _decode(q.contiguous(), k.contiguous(), v.contiguous(),
-                    lengths.contiguous())
-    return o.to(out_dtype)
+        out = _decode(q.contiguous(), k.contiguous(), v.contiguous(),
+                      lengths.contiguous(), return_lse=return_lse)
+    if return_lse:
+        return out[0].to(out_dtype), out[1]
+    return out.to(out_dtype)
 
 
 def layernorm(x, scale=None, bias=None, *, mode: str = "layernorm",
@@ -273,7 +277,7 @@ class RwkvChunkFn(torch.autograd.Function):
     def backward(ctx, dy, ds):
         r, k, v, w, u = ctx.saved_tensors
         if dy is None:
-            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+            dy = torch.zeros(r.shape, dtype=w.dtype, device=r.device)
         if _use_kernel(r):
             grads = _rwkv_chunk_bwd(r, k, v, w, u, dy.contiguous(),
                                     None if ds is None else ds.contiguous())
@@ -293,11 +297,12 @@ def rwkv_chunk(r, k, v, w, u, *, out_dtype=None):
     """The RWKV6 wkv from a zero state. r, k, v, w: (BH, T, K); u: (BH, K)
     as in the reference's ops, or (H, K) broadcast over the batch (row bh
     takes u[bh % H]). r, k, v compute in f32 whatever their dtype; w and u
-    are taken in f32. Returns (y (BH, T, K) in ``out_dtype``, r.dtype by
+    are taken in f32 (float64 stays float64 on the CPU: ``ref.wide``).
+    Returns (y (BH, T, K) in ``out_dtype``, r.dtype by
     default; S_T (BH, K, K) f32, k-major). Under a gradient it runs
     through ``RwkvChunkFn``."""
     r, k, v = (t.contiguous() for t in _common(r, k, v))
-    w, u = w.float().contiguous(), u.float().contiguous()
+    w, u = ref.wide(w).contiguous(), ref.wide(u).contiguous()
     if _wants_grad(r, k, v, w, u):
         return RwkvChunkFn.apply(r, k, v, w, u, out_dtype)
     return _rwkv_forward(r, k, v, w, u, out_dtype)

@@ -14,6 +14,13 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """t in float32, the plain versions' arithmetic; a float64 t stays
+    float64, so that the whole plain path runs in float64 as a yardstick
+    for float32 results."""
+    return t if t.dtype == torch.float64 else t.float()
 NORM_EPS = {"rmsnorm": 1e-6, "layernorm": 1e-5, "np_layernorm": 1e-5}
 
 
@@ -127,9 +134,11 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True):
             dv.to(v.dtype))
 
 
-def decode_attention_ref(q, k, v, lengths) -> torch.Tensor:
+def decode_attention_ref(q, k, v, lengths, return_lse: bool = False):
     """q: (B, H, D); k, v: (B, KH, S, D); lengths: (B,) valid prefix
-    lengths (at least 1) -> (B, H, D)."""
+    lengths (at least 1) -> (B, H, D). ``return_lse`` (the partial mode)
+    also returns the f32 (B, H) log-sum-exp of the scaled scores and takes
+    lengths of 0, for which o = 0 and lse = -inf."""
     B, H, D = q.shape
     KH, S = k.shape[1], k.shape[2]
     qg = q.reshape(B, KH, H // KH, D).float() * (1.0 / math.sqrt(D))
@@ -141,7 +150,13 @@ def decode_attention_ref(q, k, v, lengths) -> torch.Tensor:
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgc,bkcd->bkgd", p, v.float())
     o = o / torch.clamp(l, min=1e-30)
-    return o.reshape(B, H, D).to(q.dtype)
+    if not return_lse:
+        return o.reshape(B, H, D).to(q.dtype)
+    seen = (lengths > 0)[:, None, None, None]
+    o = torch.where(seen, o, torch.zeros_like(o))
+    lse = torch.where(seen, m + torch.log(l),
+                      torch.full_like(m, -math.inf))
+    return o.reshape(B, H, D).to(q.dtype), lse.reshape(B, H)
 
 
 def norm_ref(x, scale=None, bias=None, *, mode: str = "layernorm",
@@ -152,16 +167,16 @@ def norm_ref(x, scale=None, bias=None, *, mode: str = "layernorm",
     if mode not in NORM_EPS:
         raise ValueError(f"unknown norm mode {mode!r}")
     eps = NORM_EPS[mode] if eps is None else eps
-    xf = x.float()
+    xf = wide(x)
     if mode == "rmsnorm":
         y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-        y = y * scale.float()
+        y = y * wide(scale)
     else:
         mean = xf.mean(-1, keepdim=True)
         var = (xf - mean).square().mean(-1, keepdim=True)
         y = (xf - mean) * torch.rsqrt(var + eps)
         if mode == "layernorm":
-            y = y * scale.float() + bias.float()
+            y = y * wide(scale) + wide(bias)
     return y.to(x.dtype)
 
 
@@ -174,14 +189,14 @@ def norm_bwd_ref(x, scale, bias, dy, *, mode: str = "layernorm",
     if mode not in NORM_EPS:
         raise ValueError(f"unknown norm mode {mode!r}")
     eps = NORM_EPS[mode] if eps is None else eps
-    xf, g = x.float(), dy.float()
+    xf, g = wide(x), wide(dy)
     d = x.shape[-1]
     dscale = dbias = None
     if mode == "rmsnorm":
         r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
         xhat = xf * r
         dscale = (g * xhat).sum(0).to(scale.dtype)
-        gs = g * scale.float()
+        gs = g * wide(scale)
         dx = r * (gs - xhat * (gs * xhat).sum(-1, keepdim=True) / d)
     else:
         mean = xf.mean(-1, keepdim=True)
@@ -192,7 +207,7 @@ def norm_bwd_ref(x, scale, bias, dy, *, mode: str = "layernorm",
         if mode == "layernorm":
             dscale = (g * xhat).sum(0).to(scale.dtype)
             dbias = g.sum(0).to(bias.dtype)
-            gs = g * scale.float()
+            gs = g * wide(scale)
         dx = r * (gs - gs.mean(-1, keepdim=True)
                   - xhat * (gs * xhat).mean(-1, keepdim=True))
     return dx.to(x.dtype), dscale, dbias
@@ -219,9 +234,9 @@ def rwkv_chunk_ref(r, k, v, w, u, out_dtype=None):
     Returns (y (BH, T, K) in ``out_dtype``, r.dtype by default; S_T
     (BH, K, K) f32, k-major)."""
     BH, T, K = r.shape
-    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
-    uf = u.float()
-    s = torch.zeros((BH, K, K), dtype=torch.float32, device=r.device)
+    rf, kf, vf, wf = (wide(a) for a in (r, k, v, w))
+    uf = wide(u)
+    s = torch.zeros((BH, K, K), dtype=rf.dtype, device=r.device)
     ys = []
     for t in range(T):
         kv = kf[:, t, :, None] * vf[:, t, None, :]                # (BH, K, K)
@@ -278,17 +293,17 @@ def rwkv_chunk_bwd_ref(r, k, v, w, u, dy, ds=None):
     Returns (dr, dk, dv in r.dtype; dw (BH, T, K) f32; du (U, K) f32)."""
     BH, T, K = r.shape
     U = u.shape[0]
-    rf, kf, vf, wf, gy = (a.float() for a in (r, k, v, w, dy))
-    uf = u.float().repeat(BH // U, 1)                        # (BH, K)
+    rf, kf, vf, wf, gy = (wide(a) for a in (r, k, v, w, dy))
+    uf = wide(u).repeat(BH // U, 1)                          # (BH, K)
     vdy = (vf * gy).sum(-1, keepdim=True)                    # (BH, T, 1)
-    s = torch.zeros((BH, K, K), dtype=torch.float32, device=r.device)
+    s = torch.zeros((BH, K, K), dtype=rf.dtype, device=r.device)
     states, dr = [], torch.empty_like(rf)
     for t in range(T):
         states.append(s)
         dr[:, t] = torch.einsum("bij,bj->bi", s, gy[:, t]) \
             + uf * kf[:, t] * vdy[:, t]
         s = wf[:, t, :, None] * s + kf[:, t, :, None] * vf[:, t, None, :]
-    g = s.new_zeros(s.shape) if ds is None else ds.float()
+    g = s.new_zeros(s.shape) if ds is None else wide(ds)
     dk, dv, dw = (torch.empty_like(rf) for _ in range(3))
     for t in reversed(range(T)):
         dk[:, t] = torch.einsum("bij,bj->bi", g, vf[:, t]) \

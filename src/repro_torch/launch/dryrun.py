@@ -1,0 +1,122 @@
+"""Multi-pod dry run of the port: the copy of ``repro/launch/dryrun.py``
+that the port can fill.
+
+For every (architecture x input shape x mesh) cell of ``cell_list``, each
+rank's bytes of parameters, optimizer state (Adafactor's, as the
+reference's train step), KV cache or recurrent state, and batch on the
+production meshes -- (16, 16) single pod, (2, 16, 16) multi-pod -- from
+``launch/specs.py``'s meta tensors and the logical rules' specs: nothing
+is allocated and no rank is needed. A leaf's per-rank bytes are its shard
+shape's, so the sum is what the reference's resident layout puts on one
+device.
+
+The reference also fills keys that only XLA's compiler gives:
+``memory`` (``memory_analysis``: temporaries, outputs, aliasing),
+``cost_raw``, ``flops_hlo`` and ``bytes_hlo`` (``cost_analysis``) and
+``collective_bytes`` (parsed from the optimized HLO by ``launch/hlo.py``).
+Nothing in PyTorch produces them; each record names them under
+``not_filled``.
+
+  python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape decode_32k
+  python -m repro_torch.launch.dryrun --all [--mesh both] [--out DIR]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+
+from repro_torch.configs import ASSIGNED, applicable_shapes, get_arch, get_shape
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.specs import input_specs
+from repro_torch.launch.steps import train_microbatches
+from repro_torch.models import transformer as T
+from repro_torch.models.params import tree_leaves
+from repro_torch.sharding.axes import _active_profile, local_shape, set_profile
+
+NOT_FILLED = ("memory", "cost_raw", "flops_hlo", "bytes_hlo",
+              "collective_bytes")
+
+
+def _mesh_for(name: str):
+    return make_production_mesh(multi_pod=(name == "multi"))
+
+
+def rank_bytes(abstract, shardings) -> int:
+    """Bytes of one rank's shards of a tree of meta tensors."""
+    total = 0
+    for t, sh in zip(tree_leaves(abstract), tree_leaves(shardings)):
+        shape = local_shape(tuple(t.shape), sh.spec, sh.mesh)
+        total += int(np.prod(shape, dtype=np.int64)) * t.element_size()
+    return total
+
+
+def run_cell(arch: str, shape_name: str, mesh_name: str) -> dict:
+    cfg = get_arch(arch)
+    token = set_profile(cfg.rules_profile)
+    try:
+        shape = get_shape(shape_name)
+        mesh = _mesh_for(mesh_name)
+        p = T.superblock_period(cfg)
+        spec = input_specs(cfg, shape, mesh)
+        names = {"train": ("params", "opt_state", "batch"),
+                 "prefill": ("params", "batch"),
+                 "decode": ("params", "tokens", "cache", "lengths")}
+        per = {n: rank_bytes(a, s) for n, a, s in zip(
+            names[spec["kind"]], spec["args"], spec["shardings"])}
+    finally:
+        _active_profile.reset(token)
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+           "chips": mesh.size, "n_super": cfg.num_layers // p, "period": p,
+           "kind": spec["kind"],
+           "microbatches": (train_microbatches(arch)
+                            if spec["kind"] == "train" else 1),
+           "bytes_per_rank": dict(per, total=sum(per.values())),
+           "not_filled": list(NOT_FILLED), "ok": True}
+    return rec
+
+
+def cell_list(mesh_mode: str):
+    cells = []
+    for arch in ASSIGNED:
+        cfg = get_arch(arch)
+        for shape in applicable_shapes(cfg):
+            for mesh in (("single", "multi") if mesh_mode == "both"
+                         else (mesh_mode,)):
+                cells.append((arch, shape.name, mesh))
+    return cells
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch")
+    ap.add_argument("--shape")
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default=None,
+                    help="write one JSON a cell into this directory")
+    args = ap.parse_args(argv)
+    cells = cell_list(args.mesh) if args.all else [
+        (args.arch, args.shape, m) for m in
+        (("single", "multi") if args.mesh == "both" else (args.mesh,))]
+    out = []
+    for arch, shape, mesh in cells:
+        rec = run_cell(arch, shape, mesh)
+        out.append(rec)
+        b = rec["bytes_per_rank"]
+        print(f"[{arch} {shape} {mesh}] kind={rec['kind']} chips="
+              f"{rec['chips']} per rank: " + " ".join(
+                  f"{k}={v / 2**30:.3f}GiB" for k, v in b.items()))
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out,
+                                   f"{arch}__{shape}__{mesh}.json"), "w") as f:
+                json.dump(rec, f, indent=1)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -10,6 +10,13 @@ Runs on the card unless ``--device cpu`` is given (the plain versions of
 the kernels). Weights come from ``init_params`` with seed 0, the data
 from ``SyntheticLM`` or ``ByteCorpus`` over ``--corpus``; AdamW under a
 20-step linear warmup and cosine decay.
+
+Started by ``torchrun --nproc-per-node N`` (RANK and WORLD_SIZE set), the
+ranks join one gloo process group and train data-parallel over
+``make_host_mesh()``: each takes its share of every batch, the step
+averages the gradients (``--compress-grads``: the int8 all-reduce), and
+rank 0 alone logs and writes checkpoints. On the card each rank takes
+``cuda:LOCAL_RANK`` modulo the cards there are.
 """
 from __future__ import annotations
 
@@ -25,7 +32,10 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.data import ByteCorpus, SyntheticLM
 from repro_torch.models import transformer as T
-from repro_torch.models.params import init_params, param_count, resolve_device
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.params import (init_params, param_count,
+                                       resident_axes, resolve_device,
+                                       shard_tree)
 from repro_torch.optim import adamw_init, linear_warmup_cosine
 from repro_torch.train import TrainStepConfig, compression, make_train_step
 
@@ -75,6 +85,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        import torch.distributed as dist
+        dist.init_process_group("gloo", rank=int(os.environ["RANK"]),
+                                world_size=world)
+        if dev.type == "cuda":
+            dev = torch.device(
+                "cuda", int(os.environ.get("LOCAL_RANK", "0"))
+                % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+    mesh = make_host_mesh()
+    lead = mesh.rank == 0
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
@@ -84,18 +106,21 @@ def main(argv=None):
     else:
         data = SyntheticLM(cfg.vocab_size, args.seq, args.batch)
 
-    params = init_params(T.param_defs(cfg), device=dev, seed=0)
+    params = shard_tree(init_params(T.param_defs(cfg), device=dev, seed=0),
+                        T.param_defs(cfg), mesh, resident_axes(cfg))
     opt_state = adamw_init(params)
     n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    print(f"[train] arch={cfg.name} params={param_count(T.param_defs(cfg)):,} "
-          f"devices={n_dev}")
+    say = print if lead else (lambda *a, **k: None)
+    say(f"[train] arch={cfg.name} params={param_count(T.param_defs(cfg)):,} "
+        f"devices={n_dev} ranks={mesh.size}")
 
     tcfg = TrainStepConfig(
         microbatches=args.microbatches,
         learning_rate=linear_warmup_cosine(args.lr, 20, args.steps),
         compress_grads=args.compress_grads,
     )
-    step_fn = make_train_step(cfg, tcfg, device=dev)
+    step_fn = make_train_step(cfg, tcfg, mesh if mesh.size > 1 else None,
+                              device=dev)
 
     start = 0
     mgr = None
@@ -109,8 +134,8 @@ def main(argv=None):
             params = restored["tree"]["params"]
             opt_state = restored["tree"]["opt"]
             start = restored["step"]
-            print(f"[train] resumed from step {start} "
-                  f"(elastic: {n_dev} devices now)")
+            say(f"[train] resumed from step {start} "
+                f"(elastic: {n_dev} devices now)")
 
     wd = StragglerWatchdog()
     losses = []
@@ -121,7 +146,7 @@ def main(argv=None):
             # the in-flight write" (atomicity has its own test)
             if mgr:
                 mgr.wait()
-            print(f"[train] INJECTED FAILURE at step {step}", flush=True)
+            say(f"[train] INJECTED FAILURE at step {step}", flush=True)
             os._exit(17)
         batch = data.batch(step)
         t0 = time.time()
@@ -133,19 +158,22 @@ def main(argv=None):
         losses.append(float(metrics["loss"]))    # waits for the step
         dt = time.time() - t0
         if wd.observe(dt):
-            print(f"[watchdog] step {step} straggling: {dt*1e3:.0f}ms")
+            say(f"[watchdog] step {step} straggling: {dt*1e3:.0f}ms")
         if step % args.log_every == 0:
-            print(f"step {step:5d} loss {losses[-1]:.4f} "
-                  f"({dt*1e3:.0f}ms/step)", flush=True)
-        if mgr and step and step % args.ckpt_every == 0:
+            say(f"step {step:5d} loss {losses[-1]:.4f} "
+                f"({dt*1e3:.0f}ms/step)", flush=True)
+        if mgr and lead and step and step % args.ckpt_every == 0:
             mgr.save(step, {"params": params, "opt": opt_state},
                      {"loss": losses[-1]})
-    if mgr:
+    if mgr and lead:
         mgr.save(args.steps, {"params": params, "opt": opt_state},
                  {"loss": losses[-1]})
         mgr.wait()
-    print(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-          f"(stragglers flagged: {wd.flagged})")
+    say(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(stragglers flagged: {wd.flagged})")
+    if world > 1:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return losses
 
 

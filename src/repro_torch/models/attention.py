@@ -6,9 +6,16 @@ Counterpart of ``repro/models/attention.py``, with its layouts: q is
 (B, KH, L). Prefill attention goes through the flash kernel (every chunk
 shape, ragged ones included; packed rows through its segmented mode;
 whisper's encoder and the full-sequence cross attention through its
-non-causal mode) and decode attention through the decode kernel (layout
-A: heads unsharded; the cross attention at every encoder position); the
-decode step's projections go through the GEMV kernel. An int8 cache is
+non-causal mode) and decode attention through the decode kernel (the
+cross attention at every encoder position too); the decode step's
+projections go through the GEMV kernel. Decode takes the reference's two
+layouts: A, the heads whole on each rank, and, under a mesh whose 'model'
+extent does not divide the KV heads, B: each rank holds the positions
+[shard S/m, (shard + 1) S/m) of the cache, the decode kernel's partial
+mode gives the shard's attention and log-sum-exp, and one all-gather over
+'model' combines them. A prefill chunk writes the positions its rank owns
+and all-gathers the prefix it reads (the reference leaves that gather to
+GSPMD). An int8 cache is
 dequantized to bf16 in plain PyTorch before the kernels, as the reference
 does it outside its kernels.
 
@@ -30,6 +37,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import apply_rope, mm
 from repro_torch.models.params import ParamDef
+from repro_torch.sharding import comm
+from repro_torch.sharding.axes import _current_mesh, model_extent
 
 
 def attn_defs(cfg: ModelConfig, stacked: Optional[int] = None,
@@ -169,14 +178,16 @@ def _write_span(cache: torch.Tensor, new: torch.Tensor,
                 tok_valid: torch.Tensor, offset: int) -> None:
     """cache (B, KH, L, ...) <- new (B, KH, C, ...) at positions
     [offset, offset + C) of every row, in place, where ``tok_valid`` (B, C)
-    holds and the position lies in the cache."""
-    span = min(new.shape[2], cache.shape[2] - offset)
-    if span <= 0:
+    holds and the position lies in the cache. ``offset`` is relative to the
+    cache's first position and may be negative (a layout-B shard holds a
+    chunk's tail only)."""
+    j0, j1 = max(0, -offset), min(new.shape[2], cache.shape[2] - offset)
+    if j1 <= j0:
         return
-    keep = tok_valid[:, None, :span].reshape(
-        (new.shape[0], 1, span) + (1,) * (new.dim() - 3))
-    region = cache[:, :, offset:offset + span]
-    region.copy_(torch.where(keep, new[:, :, :span].to(cache.dtype), region))
+    keep = tok_valid[:, None, j0:j1].reshape(
+        (new.shape[0], 1, j1 - j0) + (1,) * (new.dim() - 3))
+    region = cache[:, :, offset + j0:offset + j1]
+    region.copy_(torch.where(keep, new[:, :, j0:j1].to(cache.dtype), region))
 
 
 def write_kv_chunk(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -220,6 +231,10 @@ def attention_prefill_cached(cfg: ModelConfig, p: dict, x: torch.Tensor,
     positions = offset + torch.arange(C, device=x.device)[None].expand(B, C)
     q, k_new, v_new = qkv_project(cfg, p, x, positions)
     new_cache = {}
+    mesh, first = _seq_shard(cache["k"])
+    if mesh is not None and cfg.kv_dtype == "int8":
+        raise NotImplementedError(
+            "the int8 cache is not sequence-sharded (layout B) in the port")
     if cfg.kv_dtype == "int8":
         kq, ks = _quantize_kv(k_new)                 # scales (B, KH, C)
         vq, vs = _quantize_kv(v_new)
@@ -230,9 +245,12 @@ def attention_prefill_cached(cfg: ModelConfig, p: dict, x: torch.Tensor,
         new_cache.update(k_scale=k_sc, v_scale=v_sc)
     else:
         k_cache, v_cache = write_kv_chunk(cache["k"], cache["v"], k_new, v_new,
-                                          tok_valid, offset)
-    span = min(offset + C, k_cache.shape[2])
-    k_att, v_att = k_cache[:, :, :span], v_cache[:, :, :span]
+                                          tok_valid, offset - first)
+    if mesh is None:
+        span = min(offset + C, k_cache.shape[2])
+        k_att, v_att = k_cache[:, :, :span], v_cache[:, :, :span]
+    else:
+        k_att, v_att = _gather_prefix(k_cache, v_cache, offset + C, mesh)
     if cfg.kv_dtype == "int8":
         k_att = _dequantize(k_att, k_sc[:, :, :span])
         v_att = _dequantize(v_att, v_sc[:, :, :span])
@@ -336,6 +354,10 @@ def attention_prefill_packed(cfg: ModelConfig, p: dict, x: torch.Tensor,
     through the flash kernel's segmented mode. Padding rows give finite
     garbage that callers discard; their cache writes are dropped. Returns
     (out (R, C, d), cache)."""
+    if _seq_shard(cache["k"])[0] is not None:
+        raise NotImplementedError(
+            "packed prefill does not write a sequence-sharded cache "
+            "(layout B) in the port")
     q, k_new, v_new = qkv_project(cfg, p, x, seg_pos)
     new_cache = {}
     if cfg.kv_dtype == "int8":
@@ -423,14 +445,66 @@ def encoder_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor):
 # --------------------------------------------------------------------------- #
 # Decode (generation stage): one token against the KV cache
 # --------------------------------------------------------------------------- #
+def _seq_shard(k_cache: torch.Tensor, mesh=None):
+    """(the mesh, the shard's first global position) when ``k_cache`` (B,
+    KH, S_loc, hd) is a layout-B shard: under a mesh whose 'model' extent
+    m > 1 does not divide the KV heads; else (None, 0)."""
+    mesh = mesh or _current_mesh()
+    m = model_extent(mesh)
+    if m == 1 or k_cache.shape[1] % m == 0:
+        return None, 0
+    return mesh, comm.axis_index(mesh, "model") * k_cache.shape[2]
+
+
+def _gather_prefix(k_cache: torch.Tensor, v_cache: torch.Tensor, end: int,
+                   mesh):
+    """Positions [0, min(end, S)) of a layout-B cache, all-gathered over
+    'model' in one collective: each rank sends the same number of its
+    first positions, the fewest that cover the span."""
+    S_loc = k_cache.shape[2]
+    span = min(end, S_loc * model_extent(mesh))
+    n = min(S_loc, span)
+    parts = comm.gather_parts(torch.stack([k_cache[:, :, :n],
+                                           v_cache[:, :, :n]]), mesh, "model")
+    kv = torch.cat([part[:, :, :, :min(n, span - r * S_loc)]
+                    for r, part in enumerate(parts) if span > r * S_loc],
+                   dim=3)
+    return kv[0], kv[1]
+
+
 def decode_attention(cfg: ModelConfig, q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cur_len: torch.Tensor
-                     ) -> torch.Tensor:
-    """q: (B, H, 1, hd); caches (B, KH, S_max, hd) valid on [0, cur_len).
-    Layout A of the reference (heads unsharded): the decode kernel."""
+                     v_cache: torch.Tensor, cur_len: torch.Tensor,
+                     mesh=None) -> torch.Tensor:
+    """q: (B, H, 1, hd); caches (B, KH, S, hd) valid on [0, cur_len), or
+    this rank's shard of them in layout B (``_seq_shard``): its partial
+    through the decode kernel's partial mode, then the combine over
+    'model' -- one all-gather of every rank's (o, lse), merged on each rank
+    in rank order (global max, rescaled sums, then the divide), so every
+    rank gets the same bits. An empty shard (lse = -inf) adds nothing."""
     B, H, _, hd = q.shape
-    o = ops.decode_attention(q.reshape(B, H, hd), k_cache, v_cache, cur_len)
-    return o.reshape(B, H, 1, hd)
+    mesh, first = _seq_shard(k_cache, mesh)
+    if mesh is None:
+        o = ops.decode_attention(q.reshape(B, H, hd), k_cache, v_cache,
+                                 cur_len)
+        return o.reshape(B, H, 1, hd)
+    S_loc = k_cache.shape[2]
+    lengths = torch.clamp(cur_len - first, 0, S_loc)
+    o, lse = ops.decode_attention(q.reshape(B, H, hd), k_cache, v_cache,
+                                  lengths, return_lse=True)
+    parts = comm.gather_parts(torch.cat([o.float(), lse[..., None]], -1),
+                              mesh, "model")
+    lses = [part[..., hd] for part in parts]
+    top = lses[0]
+    for x in lses[1:]:
+        top = torch.maximum(top, x)
+    top = torch.where(torch.isinf(top), torch.zeros_like(top), top)
+    num, den = 0.0, 0.0
+    for part, x in zip(parts, lses):
+        w = torch.exp(x - top)
+        num = num + w[..., None] * part[..., :hd]
+        den = den + w
+    out = num / torch.clamp(den, min=1e-30)[..., None]
+    return out.to(q.dtype).reshape(B, H, 1, hd)
 
 
 def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -489,6 +563,9 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     rows = x.reshape(B, d)
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     positions = cur_len[:, None]                                  # (B, 1)
+    # a layout-B shard writes the positions it owns
+    first = _seq_shard(cache["k"])[1]
+    at = cur_len - first if first else cur_len
     q = apply_rope(_project_rows(p, rows, "wq").reshape(B, H, 1, hd),
                    positions[:, None, :], cfg.rope_theta)
     k_new = apply_rope(_project_rows(p, rows, "wk").reshape(B, KH, 1, hd),
@@ -501,17 +578,16 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
         kq, ks = _quantize_kv(k_new)
         vq, vs = _quantize_kv(v_new)
         k_cache, v_cache = update_kv_cache(cache["k"], cache["v"], kq, vq,
-                                           cur_len, method=cfg.kv_update)
+                                           at, method=cfg.kv_update)
         k_sc, v_sc = update_kv_cache(
             cache["k_scale"][..., None], cache["v_scale"][..., None],
-            ks[..., None], vs[..., None], cur_len, method=cfg.kv_update)
+            ks[..., None], vs[..., None], at, method=cfg.kv_update)
         k_sc, v_sc = k_sc[..., 0], v_sc[..., 0]
         new_cache.update(k_scale=k_sc, v_scale=v_sc)
         k_att, v_att = _dequantize(k_cache, k_sc), _dequantize(v_cache, v_sc)
     else:
         k_cache, v_cache = update_kv_cache(cache["k"], cache["v"], k_new,
-                                           v_new, cur_len,
-                                           method=cfg.kv_update)
+                                           v_new, at, method=cfg.kv_update)
         k_att, v_att = k_cache, v_cache
     o = decode_attention(cfg, q, k_att, v_att, cur_len + 1)
     wo = p["wo"]

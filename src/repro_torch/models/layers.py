@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import wide
 from repro_torch.models.params import ParamDef
 
 
@@ -140,10 +141,10 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     """Mean NLL in f32 over (..., V) logits and (...) integer labels; with
     ``mask`` (nonzero = counted) the masked mean, its denominator at
     least 1. Plain PyTorch, as the reference leaves it to XLA."""
-    lf = logits.float()
+    lf = wide(logits)
     nll = torch.logsumexp(lf, dim=-1) \
         - lf.gather(-1, labels.long()[..., None])[..., 0]
     if mask is not None:
-        m = mask.float()
+        m = mask.to(lf.dtype)
         return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
     return nll.mean()

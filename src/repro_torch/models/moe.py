@@ -1,14 +1,14 @@
 """Mixture-of-Experts FFN of the port: top-k routing and sort-based
 capacity dispatch.
 
-Counterpart of ``repro/models/moe.py`` on one device: the ``gspmd`` path
-with no mesh, so one routing group holds every token (``_num_groups``
-gives 1). Within it each expert takes at most ``C`` tokens (``capacity``);
+Counterpart of ``repro/models/moe.py``: the ``gspmd`` path routes in
+``_num_groups`` groups (one without a mesh), and ``apply_moe_ep`` is the
+expert-parallel ``shard_map`` path on a rank's resident experts. Within a
+group each expert takes at most ``C`` tokens (``capacity``);
 a token past its expert's capacity, in the stable order of token index,
 is dropped from that expert, as in the reference. The expert products
 (``gecd,edf`` there) are plain batched matmuls, as the reference leaves
-them to XLA outside any Pallas kernel. ``apply_moe_ep`` (the expert-
-parallel ``shard_map`` path) waits for sharding.
+them to XLA outside any Pallas kernel.
 
 Nothing here reads a device value on the host: ``counts`` comes from
 ``scatter_add_``, the (E, C + 1) table from an index ``scatter_`` and the
@@ -30,6 +30,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import activation, mm
 from repro_torch.models.params import ParamDef
+from repro_torch.sharding import comm
+from repro_torch.sharding.axes import _current_mesh, axis_sizes
 
 
 def moe_defs(cfg: ModelConfig, stacked: Optional[int] = None) -> dict:
@@ -102,48 +104,161 @@ def _dispatch_tables(expert_idx: torch.Tensor, k: int, E: int, C: int):
     return token_for_slot, table, valid
 
 
-def apply_moe_ep(cfg: ModelConfig, p: dict, x: torch.Tensor, mesh):
-    raise NotImplementedError(
-        "not ported yet: the expert-parallel MoE (shard_map) waits for "
-        "sharding, ROADMAP queue 1 item 7")
+def _num_groups(batch: int, mesh) -> int:
+    """One routing group per data shard of the logical batch (sort and
+    gather stay local), as the reference counts them."""
+    if mesh is None:
+        return 1
+    sizes = axis_sizes(mesh)
+    g = 1
+    for ax in ("pod", "data"):
+        e = sizes.get(ax, 1)
+        if batch % (g * e) == 0:
+            g *= e
+    return g
+
+
+def _data_axes(mesh) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _route_group(cfg: ModelConfig, xg: torch.Tensor, weights, idx, C: int,
+                 wi, wg, wo, e0: int = 0, f_sum=None):
+    """One routing group: xg (T, d) with its top-k ``weights``/``idx``
+    (T, k) through experts [e0, e0 + wi.shape[0]) of capacity C each.
+    ``f_sum`` (the EP path) sums the experts' partial outputs over the d_ff
+    slices before the routing weights scale them. -> (T, d)."""
+    T, d = xg.shape
+    k = cfg.experts_per_token
+    e_loc = wi.shape[0]
+    local = idx - e0
+    ours = (local >= 0) & (local < e_loc)
+    # another rank's experts go to row e_loc of the table, which is cut off
+    token_for_slot, weight_sel, valid = _dispatch_tables(
+        torch.where(ours, local, torch.full_like(local, e_loc)), k,
+        e_loc + 1, C)
+    token_for_slot, weight_sel, valid = (token_for_slot[:e_loc],
+                                         weight_sel[:e_loc], valid[:e_loc])
+    x_pad = torch.cat([xg, xg.new_zeros((1, d))], dim=0)
+    inp = x_pad[token_for_slot]                             # (e, C, d)
+    w_flat = torch.cat([weights.reshape(-1), weights.new_zeros((1,))])
+    w_slot = w_flat[torch.where(valid, weight_sel,
+                                torch.full_like(weight_sel, T * k))]
+    h = mm(inp, wi)                                         # (e, C, f)
+    h = activation(cfg, mm(inp, wg)) * h
+    out = mm(h, wo)                                         # (e, C, d)
+    if f_sum is not None:
+        out = f_sum(out)
+    out = out * w_slot[..., None].to(out.dtype)
+    # each token's k slots (row e * C, zeros, for an assignment dropped by
+    # the capacity or routed to another rank), summed in top-k order;
+    # empty slots write the sentinel entry T * k, which is cut off
+    slot_of = torch.full((T * k + 1,), e_loc * C, dtype=torch.long,
+                         device=xg.device)
+    slot_of.scatter_(0, weight_sel.reshape(-1),
+                     torch.arange(e_loc * C, device=xg.device))
+    out_pad = torch.cat([out.reshape(e_loc * C, d), out.new_zeros((1, d))])
+    return out_pad[slot_of[:T * k].reshape(T, k)].sum(dim=1)
+
+
+def apply_moe_ep(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                 mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Resident expert-parallel MoE: the reference's ``shard_map`` body on
+    this rank. p holds the rank's resident slices: experts over 'model'
+    (E / m of them) and, with ``fsdp_params``, d_ff over the data axes;
+    without it the rank takes its d_ff slice of the full d_ff here. x is
+    the rank's tokens (B, S, d).
+
+    The tokens are all-gathered over the data axes, routed as one group
+    (capacity from all T tokens), run through the local experts' d_ff
+    slice, the partial outputs psummed over the data axes (the d_ff
+    slices) and, weighted and combined per token, over 'model' (the
+    experts); each rank returns its own tokens and the (replicated)
+    balance loss. Differentiable through ``sharding/comm.py``'s
+    collectives."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    sizes = axis_sizes(mesh)
+    m_ext = sizes.get("model", 1)
+    data_axes = _data_axes(mesh)
+    d_ext = 1
+    for a in data_axes:
+        d_ext *= sizes[a]
+    assert E % m_ext == 0 and cfg.d_ff % d_ext == 0
+    x_all = x
+    for ax in data_axes:
+        x_all = comm.all_gather(x_all, mesh, ax, dim=0)
+    T = x_all.shape[0] * S
+    C = capacity(T, k, E, cfg.capacity_factor)
+    xf = x_all.reshape(T, d)
+    logits = mm(xf, p["router"]).float()                # router replicated
+    weights, idx = route(logits, k)
+    probs = torch.softmax(logits, dim=-1)
+    aux = load_balance_loss(probs, idx, E)
+
+    # this rank's index among the data shards: its d_ff slice and tokens
+    shard = 0
+    for ax in data_axes:
+        shard = shard * sizes[ax] + comm.axis_index(mesh, ax)
+    wi, wg, wo = p["wi"], p["wg"], p["wo"]
+    f_loc = cfg.d_ff // d_ext
+    if wi.shape[-1] != f_loc:            # d_ff replicated: take our slice
+        wi = wi.narrow(-1, shard * f_loc, f_loc)
+        wg = wg.narrow(-1, shard * f_loc, f_loc)
+        wo = wo.narrow(-2, shard * f_loc, f_loc)
+
+    def f_sum(z):
+        for ax in reversed(data_axes):                  # sum f slices
+            z = comm.psum(z, mesh, ax)
+        return z
+
+    e0 = comm.axis_index(mesh, "model") * wi.shape[0]
+    y = _route_group(cfg, xf, weights, idx, min(C, T * k), wi, wg, wo,
+                     e0=e0, f_sum=f_sum)
+    y = comm.psum(y, mesh, "model")                     # combine experts
+    t_loc = B * S                        # this rank's tokens: undo the gather
+    return y[shard * t_loc:(shard + 1) * t_loc].reshape(B, S, d), aux
 
 
 def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor,
               mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (y (B, S, d), aux_loss f32 scalar). One routing
-    group of all B * S tokens; ``mesh`` is for the expert-parallel path,
-    which is not ported."""
-    if mesh is not None:
+    """x: (B, S, d) -> (y (B, S, d), aux_loss f32 scalar). Under a mesh
+    (``mesh`` or the current one) with more than one rank,
+    ``cfg.moe_impl == "ep"`` takes the expert-parallel path; otherwise the
+    tokens route in the reference's ``_num_groups`` groups, one per data
+    shard of the logical batch. x is the rank's share of that batch (split
+    over the data axes, as the train step splits it; a serve runs under a
+    data extent of 1), so its rows are one group."""
+    mesh = mesh or _current_mesh()
+    if cfg.moe_impl == "ep" and mesh is not None and mesh.size > 1:
         return apply_moe_ep(cfg, p, x, mesh)
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
-    Tg = B * S
-    C = capacity(Tg, k, E, cfg.capacity_factor)
+    n_data = 1
+    if mesh is not None:
+        for a in _data_axes(mesh):
+            n_data *= axis_sizes(mesh)[a]
+    # the reference routes one group a data shard of the logical batch;
+    # this rank's rows are its shard: one group
+    assert _num_groups(B * n_data, mesh) == n_data
+    T = B * S
+    C = capacity(T, k, E, cfg.capacity_factor)
 
-    xg = x.reshape(Tg, d)
+    xg = x.reshape(T, d)
     logits = mm(xg, p["router"]).float()
     probs = torch.softmax(logits, dim=-1)
-    weights, idx = route(logits, k)                         # (Tg, k) each
-    aux = load_balance_loss(probs, idx, E)
-
-    token_for_slot, weight_sel, valid = _dispatch_tables(idx, k, E, C)
-    x_pad = torch.cat([xg, xg.new_zeros((1, d))], dim=0)
-    inp = x_pad[token_for_slot]                             # (E, C, d)
-    w_flat = torch.cat([weights.reshape(-1), weights.new_zeros((1,))])
-    w_slot = w_flat[torch.where(valid, weight_sel,
-                                torch.full_like(weight_sel, Tg * k))]
-
-    h = mm(inp, p["wi"])                                    # (E, C, f)
-    h = activation(cfg, mm(inp, p["wg"])) * h
-    out = mm(h, p["wo"])                                    # (E, C, d)
-    out = out * w_slot[..., None].to(out.dtype)
-    # each token's k slots (row E * C, zeros, for an assignment dropped by
-    # the capacity), summed in top-k order; empty slots write the sentinel
-    # entry Tg * k, which is cut off
-    slot_of = torch.full((Tg * k + 1,), E * C, dtype=torch.long,
-                         device=x.device)
-    slot_of.scatter_(0, weight_sel.reshape(-1),
-                     torch.arange(E * C, device=x.device))
-    out_pad = torch.cat([out.reshape(E * C, d), out.new_zeros((1, d))])
-    y = out_pad[slot_of[:Tg * k].reshape(Tg, k)].sum(dim=1)
+    weights, idx = route(logits, k)                         # (T, k) each
+    if n_data == 1:
+        aux = load_balance_loss(probs, idx, E)
+    else:
+        # the balance loss of the logical batch: its two means over every
+        # data shard's tokens (each shard holds as many), one psum
+        experts = torch.arange(E, device=idx.device)
+        means = torch.stack([probs.mean(dim=0), (
+            idx[:, 0, None] == experts).float().mean(dim=0)])
+        for a in _data_axes(mesh):
+            means = comm.psum(means, mesh, a)
+        means = means / n_data
+        aux = E * (means[1] * means[0]).sum()
+    y = _route_group(cfg, xg, weights, idx, C, p["wi"], p["wg"], p["wo"])
     return y.reshape(B, S, d), aux

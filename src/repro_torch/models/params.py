@@ -10,6 +10,12 @@ nesting, shapes and dtypes. Two ways to fill one:
   * ``from_jax_tree`` — carry a reference param or cache tree (as numpy
                         arrays) across with the same nesting and shapes.
 
+``abstract_params`` gives a tree's tensors on the ``meta`` device (no
+allocation) and ``shardings_for`` its specs on a mesh. Under a mesh a rank
+holds its resident part of a tree (``sharding/axes.py::resident_spec``):
+``local_defs`` shrinks a ParamDef tree to those shapes and ``shard_tree``
+cuts a full tree down to them.
+
 As in the reference, ``ParamDef.dtype`` defaults to ``"bfloat16"`` whatever
 ``ModelConfig.dtype`` says; only the cache follows ``cfg.dtype``.
 """
@@ -22,7 +28,7 @@ import numpy as np
 import torch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-          "float16": torch.float16, "int8": torch.int8}
+          "float16": torch.float16, "int8": torch.int8, "int32": torch.int32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +136,62 @@ def from_jax_tree(tree, device="cpu"):
     and dtypes."""
     dev = torch.device(device)
     return tree_map(lambda a: _to_torch(a).to(dev), tree)
+
+
+def abstract_params(defs):
+    """The tree's tensors on the ``meta`` device: shapes and dtypes, no
+    storage (the reference's ShapeDtypeStruct tree)."""
+    return tree_map(lambda pd: torch.empty(pd.shape, dtype=DTYPES[pd.dtype],
+                                           device="meta")
+                    if is_def(pd) else pd, defs)
+
+
+def shardings_for(defs, mesh, rules=None):
+    """Each leaf's ``Sharding`` (spec and mesh) by the logical rules."""
+    from repro_torch.sharding.axes import logical_sharding
+    return tree_map(lambda pd: logical_sharding(pd.shape, pd.logical_axes,
+                                                mesh, rules), defs)
+
+
+def resident_axes(cfg) -> tuple:
+    """The logical axes a rank of ``cfg``'s model keeps sharded: a layout-B
+    cache's sequence, and the experts (with their ZeRO-3 d_ff slices)
+    under the expert-parallel MoE."""
+    return ("kv_seq",) + (("experts", "fsdp") if cfg.moe_impl == "ep"
+                          else ())
+
+
+def _resident(pd: ParamDef, mesh, resident) -> tuple:
+    from repro_torch.sharding.axes import resident_spec
+    return resident_spec(pd.shape, pd.logical_axes, mesh, resident)
+
+
+def local_defs(defs, mesh, resident):
+    """``defs`` with each leaf's shape cut to what a rank of ``mesh`` holds
+    of it (the dims of ``resident`` logical axes split); no mesh: defs."""
+    if mesh is None:
+        return defs
+    from repro_torch.sharding.axes import local_shape
+    return tree_map(lambda pd: dataclasses.replace(
+        pd, shape=local_shape(pd.shape, _resident(pd, mesh, resident), mesh))
+        if is_def(pd) else pd, defs)
+
+
+def shard_tree(tree, defs, mesh, resident):
+    """A full tree (leaves shaped as ``defs``) cut to this rank's resident
+    parts, each a contiguous copy; no mesh: the tree."""
+    if mesh is None:
+        return tree
+    from repro_torch.sharding.axes import local_slice
+    coords = mesh.coords()
+    return tree_map(lambda x, pd: local_slice(
+        x, _resident(pd, mesh, resident), mesh, coords).contiguous(),
+        tree, defs)
+
+
+def resident_specs(defs, mesh, resident):
+    """Each leaf's resident spec (a tuple per leaf)."""
+    return tree_map(lambda pd: _resident(pd, mesh, resident), defs)
 
 
 def param_count(defs) -> int:

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import wide
 from repro_torch.models.layers import mm
 from repro_torch.models.params import ParamDef
 
@@ -141,13 +142,14 @@ def _wkv_scan(r, k, v, w, u, s0):
 
 
 def _group_norm(y: torch.Tensor, scale, bias) -> torch.Tensor:
-    """Per-head LayerNorm of the wkv output (RWKV's ln_x), in f32."""
-    yf = y.float()
+    """Per-head LayerNorm of the wkv output (RWKV's ln_x), in f32 (float64
+    for float64 inputs: ``ref.wide``)."""
+    yf = wide(y)
     mean = yf.mean(-1, keepdim=True)
     var = (yf - mean).square().mean(-1, keepdim=True)
     yn = (yf - mean) * torch.rsqrt(var + 1e-5)
-    return yn * scale.float()[None, :, None, :] \
-        + bias.float()[None, :, None, :]
+    return yn * wide(scale)[None, :, None, :] \
+        + wide(bias)[None, :, None, :]
 
 
 def rwkv_time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -177,9 +179,9 @@ def rwkv_time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
     # data-dependent decay (the Finch contribution), in f32
     xw = _ddlerp(x, xp, p["mu_w"])
     dd = torch.einsum("btr,rhk->bthk",
-                      torch.tanh(mm(xw, p["w_lora_a"]).float()),
-                      p["w_lora_b"].float())
-    logw = p["w0"].float()[None, None] + dd               # (B, T, H, hd)
+                      torch.tanh(wide(mm(xw, p["w_lora_a"]))),
+                      wide(p["w_lora_b"]))
+    logw = wide(p["w0"])[None, None] + dd                 # (B, T, H, hd)
     w = torch.exp(-torch.exp(torch.clamp(logw, -10.0, 4.0)))
     w = w.permute(0, 2, 1, 3)                             # (B, H, T, hd)
 
@@ -187,7 +189,7 @@ def rwkv_time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
         y, s_fin = ops.rwkv_chunk(
             r.reshape(B * H, T, hd), k.reshape(B * H, T, hd),
             v.reshape(B * H, T, hd), w.reshape(B * H, T, hd), p["u"],
-            out_dtype=torch.float32)
+            out_dtype=w.dtype)
         y, s_fin = y.reshape(B, H, T, hd), s_fin.reshape(B, H, hd, hd)
     else:
         y, s_fin = _wkv_scan(r, k, v, w, p["u"], state["wkv"])

@@ -14,7 +14,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import ParamDef, tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
@@ -27,6 +27,25 @@ class AdafactorConfig:
 
 def _factored(shape) -> bool:
     return len(shape) >= 2
+
+
+def adafactor_state_defs(param_defs) -> dict:
+    """The optimizer state as a ParamDef tree mirroring a ParamDef tree
+    (for the dry run: shapes and logical axes, no allocation)."""
+    def one(pd: ParamDef):
+        if _factored(pd.shape):
+            return {
+                "v_row": ParamDef(pd.shape[:-1], pd.logical_axes[:-1],
+                                  "zeros", dtype="float32"),
+                "v_col": ParamDef(pd.shape[:-2] + pd.shape[-1:],
+                                  pd.logical_axes[:-2] + pd.logical_axes[-1:],
+                                  "zeros", dtype="float32"),
+            }
+        return {"v": ParamDef(pd.shape, pd.logical_axes, "zeros",
+                              dtype="float32")}
+
+    return {"v": tree_map(one, param_defs),
+            "step": ParamDef((), (), "zeros", dtype="int32")}
 
 
 def adafactor_init(params) -> dict:

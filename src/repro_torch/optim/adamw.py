@@ -44,20 +44,40 @@ def adamw_init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """The f32 L2 norm over every leaf."""
-    return torch.sqrt(torch.stack(
-        [g.float().square().sum() for g in tree_leaves(tree)]).sum())
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """The f32 L2 norm over every leaf. With ``specs`` (each leaf's spec on
+    ``mesh``: the leaves are a rank's parts) a sharded leaf's squared sum
+    adds its shards', one psum over each axis that shards it (leaves
+    sharded alike share it), and a replicated leaf counts once: the norm of
+    the full tree, the same on every rank."""
+    sq = [g.float().square().sum() for g in tree_leaves(tree)]
+    if specs is None:
+        return torch.sqrt(torch.stack(sq).sum())
+    from repro_torch.sharding import comm
+    groups: dict = {}
+    for part, spec in zip(sq, tree_leaves(specs)):
+        axes = tuple(sorted({a for e in spec if e is not None
+                             for a in (e if isinstance(e, tuple) else (e,))}))
+        groups.setdefault(axes, []).append(part)
+    total = 0.0
+    for axes, parts in sorted(groups.items()):
+        part = torch.stack(parts).sum()
+        for a in axes:
+            part = comm.psum_raw(part, mesh, a)
+        total = total + part
+    return torch.sqrt(total)
 
 
-def adamw_update(params, grads, state, lr, cfg: AdamWConfig = AdamWConfig()
-                 ) -> Tuple[dict, dict, dict]:
+def adamw_update(params, grads, state, lr, cfg: AdamWConfig = AdamWConfig(),
+                 specs=None, mesh=None) -> Tuple[dict, dict, dict]:
     """Returns (new_params, new_state, {"grad_norm", "clip_scale"}); the
-    gradients are clipped to ``cfg.grad_clip`` in global norm first.
+    gradients are clipped to ``cfg.grad_clip`` in global norm first (over
+    the full tree when the leaves are a rank's parts: ``global_norm``'s
+    ``specs`` and ``mesh``).
     ``state["m"]`` and ``state["v"]`` are emptied leaf by leaf (their
     tensors are not written); the new moments are in ``new_state``."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     b1c = 1.0 - cfg.b1 ** step.float()

@@ -73,6 +73,14 @@ like a dense one (the engine takes no patch prefix, as the reference's
 takes none). An ``encdec`` stack prefills sequentially under ``serial``,
 whatever the configuration asks, and its cross cache stays the zeros
 ``cache_defs`` gives: as in the reference, the engine encodes no frames.
+
+Under a mesh (``sharding.axes.use_mesh``, a 'data' extent of 1) every
+rank runs the same engine over the same requests: the collectives give
+every rank the same bits, so the host's decisions agree. Each rank holds
+its resident part of the cache (``models.params.local_defs``): under
+decode layout B the positions of its sequence shard, so a rank's cache
+does not snapshot. The params are the caller's, cut to the rank's part
+(``models.params.shard_tree``).
 """
 from __future__ import annotations
 
@@ -87,9 +95,11 @@ from repro_torch.checkpoint.store import flatten_tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pas import phase_log_entry
 from repro_torch.models import transformer as T
-from repro_torch.models.params import init_params, resolve_device
+from repro_torch.models.params import (init_params, local_defs,
+                                       resident_axes, resolve_device)
 from repro_torch.sched import (PackedPrefillJob, PrefillJob, make_scheduler,
                                plan_packed_job)
+from repro_torch.sharding.axes import _current_mesh, axis_sizes
 
 
 @dataclass
@@ -180,7 +190,14 @@ class ServeEngine:
         self.params = params
         self.scfg = scfg
         B, L = scfg.max_slots, scfg.max_len
-        self.cache = init_params(T.cache_defs(cfg, B, L), device=self.device)
+        mesh = _current_mesh()
+        if mesh is not None and mesh.size > 1 and \
+                axis_sizes(mesh).get("data", 1) > 1:
+            raise ValueError("a serve under a mesh replicates its requests "
+                             "over 'data': the mesh's data extent must be 1")
+        self.cache = init_params(
+            local_defs(T.cache_defs(cfg, B, L), mesh, resident_axes(cfg)),
+            device=self.device)
         zeros = lambda: torch.zeros((B,), dtype=torch.int32,  # noqa: E731
                                     device=self.device)
         self.lens = zeros()           # device (decode input)

@@ -5,19 +5,20 @@ int8 quantization with error feedback (EF-SGD): each rank adds its error
 buffer to its gradient, quantizes it against a scale shared by all ranks
 (the max-reduced amax / 127), all-reduces the int8 payload as int32,
 dequantizes the mean, and keeps the local residual for the next step.
-Over a ``torch.distributed`` group the amax is a MAX all-reduce and the
-payload a SUM all-reduce of int32; with no initialised process group the
-world is one rank and no collective runs, which is what the reference
-computes on its 1 x 1 mesh. The multi-rank path is ROADMAP queue 1 item
-7's to test.
+Over a mesh's ``axis`` (``sharding/comm.py``) the leaves travel packed:
+one collective takes every leaf's amax (reduced with MAX), one the int8
+payload of every leaf (summed as int32 on each rank), so the payload is a
+quarter of float32's bytes. With no mesh, or an axis of extent 1, the world
+is one rank and nothing is sent, which is what the reference computes on
+its 1 x 1 mesh.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.sharding import comm
 
 
 def init_error_state(params):
@@ -25,35 +26,49 @@ def init_error_state(params):
                                           device=p.device), params)
 
 
-def _world(group=None) -> int:
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(group)
-    return 1
+def _quantize(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
 
 
-def compressed_psum_leaf(g: torch.Tensor, err: torch.Tensor, group=None):
-    """One leaf: (the mean over ranks of the dequantized gradient, the new
-    local error)."""
-    n = _world(group)
-    g = g.float() + err
-    amax = g.abs().max()
+def compressed_psum_leaf(g: torch.Tensor, err: torch.Tensor, mesh=None,
+                         axis: str = "data"):
+    """One leaf: (the mean over the axis's ranks of the dequantized
+    gradient, the new local error)."""
+    (mean,), (new_err,) = _compressed([g], [err], mesh, axis)
+    return mean, new_err
+
+
+def _compressed(gs, errs, mesh, axis):
+    n = comm.axis_size(mesh, axis)
+    gs = [g.float() + e for g, e in zip(gs, errs)]
+    amax = torch.stack([g.abs().max() for g in gs])
     if n > 1:
-        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
-    scale = torch.clamp(amax / 127.0, min=1e-12)
-    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
-    total = q.to(torch.int32)
+        parts = comm.gather_parts(amax, mesh, axis, "pmax")
+        amax = torch.stack(parts).amax(dim=0)
+    scales = torch.clamp(amax / 127.0, min=1e-12)
+    qs = [_quantize(g, scales[i]) for i, g in enumerate(gs)]
     if n > 1:
-        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
-    mean = total.float() * scale / n
-    return mean, g - q.float() * scale   # local residual (EF)
+        flat = comm.psum_raw(torch.cat([q.reshape(-1) for q in qs]), mesh,
+                             axis, out_dtype=torch.int32)
+        totals = list(torch.split(flat, [q.numel() for q in qs]))
+    else:
+        totals = [q.to(torch.int32) for q in qs]
+    means = [t.reshape(q.shape).float() * scales[i] / n
+             for i, (t, q) in enumerate(zip(totals, qs))]
+    new_errs = [g - q.float() * scales[i]        # local residual (EF)
+                for i, (g, q) in enumerate(zip(gs, qs))]
+    return means, new_errs
 
 
-def compressed_grad_allreduce(grads, err_state, group=None):
-    """Every leaf: returns (the quantized mean gradients, the new error
-    buffers), trees like ``grads``."""
-    pairs = tree_map(lambda g, e: compressed_psum_leaf(g, e, group), grads,
-                     err_state)
-    return (tree_map(lambda p: p[0], pairs), tree_map(lambda p: p[1], pairs))
+def compressed_grad_allreduce(grads, err_state, mesh=None,
+                              axis: str = "data"):
+    """Every leaf, over ``mesh``'s ``axis``: returns (the quantized mean
+    gradients, the new error buffers), trees like ``grads``."""
+    means, errs = _compressed(tree_leaves(grads), tree_leaves(err_state),
+                              mesh, axis)
+    it_m, it_e = iter(means), iter(errs)
+    return (tree_map(lambda _: next(it_m), grads),
+            tree_map(lambda _: next(it_e), grads))
 
 
 def payload_bytes(params, compressed: bool) -> int:

@@ -325,6 +325,38 @@ def test_decode_kernel_is_deterministic(card, dtype):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("B,H,KH,L,D,lens", [
+    # phase 21a's shard: granite-20b's MQA heads on 512 of 1,024 positions
+    (8, 48, 1, 512, 128, (0, 1, 63, 64, 65, 511, 512, 300)),
+    (3, 32, 8, 300, 64, (0, 299, 130)),
+    (2, 4, 2, 70, 16, (0, 0)),
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_partial_mode(card, B, H, KH, L, D, lens, dtype):
+    """``return_lse``: o as without it, the f32 log-sum-exp of the scaled
+    scores within 1e-4 (f32) or 1e-3 (bf16), and a row of length 0 gives
+    o = 0 and lse = -inf; two calls agree bitwise; layout A's output is
+    the partial mode's o."""
+    q = _rand((B, H, D), 1, dtype)
+    k, v = _rand((B, KH, L, D), 2, dtype), _rand((B, KH, L, D), 3, dtype)
+    n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    o, lse = decode_attention(q, k, v, n, return_lse=True)
+    want_o, want_lse = ref.decode_attention_ref(q, k, v, n, return_lse=True)
+    _close_tight(o, want_o, dtype)
+    empty = n == 0
+    assert bool(torch.isneginf(lse[empty]).all())
+    assert bool((o[empty] == 0).all())
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(lse[~empty], want_lse[~empty], rtol=0,
+                               atol=tol)
+    o2, lse2 = decode_attention(q, k, v, n, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    full = ~empty
+    if bool(full.any()):
+        assert torch.equal(decode_attention(q, k, v, n)[full], o[full])
+
+
 def test_decode_kernel_refuses_unaligned_cache(card):
     """K/V tiles arrive by 16-byte copies: a k that starts off a 16-byte
     boundary raises, it is not copied or read wrong."""

@@ -139,7 +139,19 @@ def test_moe_defs_match_reference():
 
 
 def test_expert_parallel_moe_is_not_ported():
+    """The expert-parallel path is ported now (its multi-rank cases are in
+    ``test_torch_multirank.py``): under a mesh of one rank ``apply_moe``
+    routes as without one, ``moe_impl="ep"`` or not, and
+    ``apply_moe_ep`` on that rank gives the same output and balance
+    loss."""
+    from repro_torch.launch.mesh import make_host_mesh
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        M.apply_moe(cfg, {}, torch.zeros((1, 2, cfg.d_model)),
-                    mesh=object())
+    cfg = dataclasses.replace(cfg, moe_impl="ep")
+    p = {k: torch.from_numpy(v) for k, v in _moe_params(cfg, 3).items()}
+    x = torch.from_numpy(_x((2, 5, cfg.d_model), 4))
+    mesh = make_host_mesh()
+    want_y, want_aux = M.apply_moe(cfg, p, x)
+    for y, aux in (M.apply_moe(cfg, p, x, mesh=mesh),
+                   M.apply_moe_ep(cfg, p, x, mesh)):
+        np.testing.assert_allclose(y.numpy(), want_y.numpy(), **TOL)
+        np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
