@@ -562,8 +562,10 @@ def kernel_cases(torch, dtype):
     # llama's prefill chunks (the third overhangs L), jamba's prefill step
     # (S 2048 from 0, hd 128; its yardstick SDPA with is_causal, the same
     # mask), llama's training shape (B 4, S 1024: the forward without the
-    # lse that phase 16 writes), and WIDE_FLASH
+    # lse that phase 16 writes), llama's prefill chunk on one of two
+    # tensor-parallel ranks (16 / 4 heads, phase 22a), and WIDE_FLASH
     for B, S, L, off, h, kh, hd in ((8, 128, 1024, 512, H, KH, D),
+                                    (8, 128, 1024, 512, H // 2, KH // 2, D),
                                     (4, 128, 300, 256, H, KH, D),
                                     (2, 37, 300, 128, H, KH, D),
                                     (2, 2048, 2048, 0, H, KH, 128),
@@ -644,9 +646,12 @@ def kernel_cases(torch, dtype):
     # decode: llama's cache (lengths of 1 and off every tile) and a ragged
     # one; jamba's (head dim 128, max_len 256, lengths off every tile);
     # whisper-medium's cross cache (16 / 16 heads, every length the 1,500
-    # frames) and pixtral-12b's cache (32 / 8 heads of 160)
+    # frames), pixtral-12b's cache (32 / 8 heads of 160) and llama's on
+    # one of two tensor-parallel ranks (16 / 4 heads, phase 22a)
     for B, L, lens, h, kh, hd in (
             (8, 1024, (1, 77, 700, 1023, 1024, 5, 333, 512), H, KH, D),
+            (8, 1024, (1, 77, 700, 1023, 1024, 5, 333, 512), H // 2,
+             KH // 2, D),
             (3, 300, (1, 299, 130), H, KH, D),
             (8, 256, (3, 67, 130, 200, 255, 19, 101, 250), H, KH, 128),
             (8, 1500, (1500,) * 8, 16, 16, D),
@@ -708,7 +713,10 @@ def kernel_cases(torch, dtype):
     # 256), whisper-medium's (1024 -> 1024 for q, k, v, o and the cross
     # attention's q and o; 1024 -> 4096 gelu, 4096 -> 1024) and
     # pixtral-12b's (5120 -> 5120 for q and o, 5120 -> 1280 for k and v,
-    # 5120 -> 14336 silu, 14336 -> 5120), at the 8 rows the engine decodes
+    # 5120 -> 14336 silu, 14336 -> 5120), and llama's on one of two
+    # tensor-parallel ranks (phase 22a: q d -> d/2, k and v d -> 256 as
+    # qwen3-moe's, the row-parallel o d/2 -> d, wg and wi d -> f/2, wo
+    # f/2 -> d), at the 8 rows the engine decodes
     shapes = [(n, d, f, "silu") for n in (1, 3, 8)] \
         + [(n, f, d, "none") for n in (1, 3, 8)] \
         + [(8, d, d, "none"), (8, d, KH * D, "none")] \
@@ -721,7 +729,10 @@ def kernel_cases(torch, dtype):
         + [(8, 1024, 1024, "none"), (8, 1024, 4096, "gelu"),
            (8, 4096, 1024, "none"), (8, 5120, 5120, "none"),
            (8, 5120, 1280, "none"), (8, 5120, 14336, "silu"),
-           (8, 14336, 5120, "none")]
+           (8, 14336, 5120, "none")] \
+        + [(8, d, d // 2, "none"), (8, d // 2, d, "none"),
+           (8, d, f // 2, "silu"), (8, d, f // 2, "none"),
+           (8, f // 2, d, "none")]
     for n, din, dout, act in shapes:
         x, w = rn(n, din), rn(din, dout, scale=din ** -0.5)
         lib_act = {"silu": F.silu, "none": lambda t: t,
@@ -4214,6 +4225,10 @@ class HostClock:
         dec = [t for k, t in self.marks[last + 1:] if k == "decode"]
         return 1e3 * (dec[-1] - dec[0]) / max(1, len(dec) - 1)
 
+    def prefill_s(self, t0: float) -> float:
+        """Seconds from ``t0`` to the last prefill dispatch's mark."""
+        return max(t for k, t in self.marks if k == "prefill") - t0
+
 
 def mesh_serve(torch, cfg, params, mesh, dev: str, prompts, max_new: int,
                profile: bool = False) -> dict:
@@ -4250,30 +4265,65 @@ def mesh_serve(torch, cfg, params, mesh, dev: str, prompts, max_new: int,
         tokens={str(k): [int(t) for t in v] for k, v in results.items()},
         dispatches=dict(eng.dispatch_counts), host_syncs=eng.host_syncs,
         launches=ops.launch_counts(), comm=comm.stats(), wall_s=wall,
+        prefill_s=clock.prefill_s(t0),
         ms_per_decode_step=clock.ms_per_decode(),
         peak_bytes=(torch.cuda.max_memory_allocated() if dev == "cuda"
                     else 0))
 
 
-def _serve_checks(tag: str, run: dict, per_dispatch: int, dev: str,
-                  kernels) -> None:
-    """A mesh serve's collectives: ``per_dispatch`` a prefill chunk or
-    decode step, no other; on the card each kernel of ``kernels`` ran."""
+def _serve_checks(tag: str, run: dict, per_prefill: int, per_decode: int,
+                  dev: str, kernels) -> None:
+    """A mesh serve's collectives: ``per_prefill`` a prefill chunk and
+    ``per_decode`` a decode step (both in a fused step), no other; on the
+    card each kernel of ``kernels`` ran."""
     dc = run["dispatches"]
-    dispatches = dc["prefill"] + dc["decode"] + dc.get("fused", 0)
-    want = per_dispatch * dispatches
+    want = per_prefill * dc["prefill"] + per_decode * dc["decode"] \
+        + (per_prefill + per_decode) * dc.get("fused", 0)
     if run["comm"]["collectives"] != want:
         raise RuntimeError(f"{tag}: {run['comm']['collectives']} "
                            f"collectives, the plan gives {want} "
-                           f"({per_dispatch} x {dc})")
+                           f"({per_prefill} a chunk, {per_decode} a step: "
+                           f"{dc})")
     if dev == "cuda":
         for k in kernels:
             if not run["launches"].get(k):
                 raise RuntimeError(f"{tag}: {k} never launched")
 
 
+def depth2_mesh_parity(torch, tag: str, cfg, mesh, dev: str,
+                       prompts) -> dict:
+    """``cfg`` at depth 2 in float32: the mesh serve of the prompts' first
+    96 tokens against the one-rank serve (tokens, dispatches, host
+    syncs)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import (init_params, resident_axes,
+                                           shard_tree)
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    defs2 = T.param_defs(cfg2)
+    full2 = init_params(defs2, device=dev, seed=1)
+    leaves_to_f32(torch, full2)
+    short_prompts = [p[:96] for p in prompts]
+    one = mesh_serve(torch, cfg2, full2, None, dev, short_prompts, 16)
+    two = mesh_serve(torch, cfg2, shard_tree(
+        full2, defs2, mesh, resident_axes(cfg2)), mesh, dev,
+        short_prompts, 16)
+    for key in ("tokens", "dispatches", "host_syncs"):
+        if one[key] != two[key]:
+            raise RuntimeError(f"{tag}: depth-2 float32 {key} differ "
+                               f"between the mesh serve and one rank: "
+                               f"{two[key]} vs {one[key]}")
+    del full2
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return dict(tokens=sum(map(len, one["tokens"].values())),
+                dispatches=one["dispatches"], host_syncs=one["host_syncs"])
+
+
 def multirank_serves(torch, rank: int, dev: str, small: bool) -> dict:
-    """21a (layout B) and 21b (expert parallelism) on this rank."""
+    """21a (granite-20b: tensor parallelism, its cache in layout B) and
+    21b (qwen3-moe: tensor-parallel attention, expert-parallel MoE) on
+    this rank."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as T
     from repro_torch.models.params import (init_params, resident_axes,
@@ -4284,9 +4334,17 @@ def multirank_serves(torch, rank: int, dev: str, small: bool) -> dict:
     out = {}
     for tag, cfg in (("21a", granite), ("21b", qwen)):
         n_attn = cfg.layer_kinds().count("attn")
-        # layout B: one gather a layer a dispatch; EP: one psum over
-        # 'model' a MoE layer (the data axes have extent 1)
-        per = n_attn if tag == "21a" else cfg.ffn_kinds().count("moe")
+        # a prefill chunk: the embedding's psum, and a layer's psums of
+        # attention's and the FFN's outputs (the MLP's, or the EP MoE's
+        # over 'model'), with layout B's gather of the prefix before them;
+        # a decode step the same and the sampled argmax's gather, with
+        # layout B's gather of the query heads and its combine a layer
+        # for the prefix's gather
+        layers = cfg.num_layers
+        if tag == "21a":
+            per_prefill, per_decode = 1 + 3 * n_attn, 2 + 4 * n_attn
+        else:
+            per_prefill, per_decode = 1 + 2 * layers, 2 + 2 * layers
         defs = T.param_defs(cfg)
         full = init_params(defs, device=dev, seed=0)
         params = shard_tree(full, defs, mesh, resident_axes(cfg))
@@ -4295,7 +4353,7 @@ def multirank_serves(torch, rank: int, dev: str, small: bool) -> dict:
             torch.cuda.empty_cache()
         prompts = serve_prompts(cfg.vocab_size)
         run = mesh_serve(torch, cfg, params, mesh, dev, prompts, 32)
-        _serve_checks(tag, run, per, dev,
+        _serve_checks(tag, run, per_prefill, per_decode, dev,
                       ("decode_attention", "flash_attention", "pim_matvec",
                        "layernorm"))
         if tag == "21a" and dev == "cuda" and run["launches"][
@@ -4305,34 +4363,16 @@ def multirank_serves(torch, rank: int, dev: str, small: bool) -> dict:
                                f"in {run['dispatches']['decode']} decode "
                                f"steps of {n_attn} layers")
         run["layers"] = cfg.num_layers
-        run["collectives_per_decode_step"] = per
+        run["collectives_per_prefill_chunk"] = per_prefill
+        run["collectives_per_decode_step"] = per_decode
         # the busy share: a short serve of the same prompts, rank 0's
         # kernels traced
         short = mesh_serve(torch, cfg, params, mesh, dev, prompts, 4,
                            profile=(rank == 0 and dev == "cuda"))
         run["profile"] = short.get("profile")
         del params
-        # depth 2 in float32: the mesh serve against the one-rank serve
-        cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
-        defs2 = T.param_defs(cfg2)
-        full2 = init_params(defs2, device=dev, seed=1)
-        leaves_to_f32(torch, full2)
-        short_prompts = [p[:96] for p in prompts]
-        one = mesh_serve(torch, cfg2, full2, None, dev, short_prompts, 16)
-        two = mesh_serve(torch, cfg2, shard_tree(
-            full2, defs2, mesh, resident_axes(cfg2)), mesh, dev,
-            short_prompts, 16)
-        for key in ("tokens", "dispatches", "host_syncs"):
-            if one[key] != two[key]:
-                raise RuntimeError(f"{tag}: depth-2 float32 {key} differ "
-                                   f"between the mesh serve and one rank: "
-                                   f"{two[key]} vs {one[key]}")
-        run["parity_f32"] = dict(tokens=sum(map(len, one["tokens"].values())),
-                                 dispatches=one["dispatches"],
-                                 host_syncs=one["host_syncs"])
-        del full2
-        if dev == "cuda":
-            torch.cuda.empty_cache()
+        run["parity_f32"] = depth2_mesh_parity(torch, tag, cfg, mesh, dev,
+                                               prompts)
         out[tag] = run
         log(f"{tag} rank {rank}: {run['ms_per_decode_step']:.2f} ms a decode "
             f"step, {run['comm']['collectives']} collectives, peak "
@@ -4360,36 +4400,42 @@ def one_rank_step(torch, cfg, dev: str, batch) -> dict:
     return out
 
 
-def check_first_step(cfg, got: dict, want: dict, tol: float) -> dict:
+def check_first_step(cfg, got: dict, want: dict, tol: float,
+                     tag: str = "21c") -> dict:
     for k in want:
         if not abs(got[k] - want[k]) <= tol * abs(want[k]):
-            raise RuntimeError(f"21c: the data-parallel first step's {k} "
+            raise RuntimeError(f"{tag}: the mesh step's first {k} "
                                f"{got[k]} vs one rank's {want[k]} (tol "
                                f"{tol} relative, {cfg.dtype})")
-    return dict(dp=got, one_rank=want)
+    return dict(mesh=got, one_rank=want)
 
 
-def dp_first_step(torch, cfg, mesh, dev: str, B: int, S: int, tol: float
-                  ) -> dict:
-    """One data-parallel AdamW step's loss and gradient norm against the
-    one-rank loss and gradient of the whole batch."""
+def dp_first_step(torch, cfg, mesh, dev: str, B: int, S: int, tol: float,
+                  tag: str = "21c") -> dict:
+    """One AdamW step on ``mesh`` (data-parallel, tensor-parallel or both;
+    each rank its resident part of the seed-0 weights): its loss and
+    gradient norm against the one-rank loss and gradient of the whole
+    batch."""
     from repro_torch.data import SyntheticLM
     from repro_torch.models import transformer as T
-    from repro_torch.models.params import init_params
+    from repro_torch.models.params import (init_params, resident_axes,
+                                           shard_tree)
     from repro_torch.optim import adamw_init
     from repro_torch.train import TrainStepConfig, make_train_step
 
     batch = SyntheticLM(cfg.vocab_size, S, B, seed=0).batch(0)
     want = one_rank_step(torch, cfg, dev, batch)
-    params = init_params(T.param_defs(cfg), device=dev, seed=0)
+    defs = T.param_defs(cfg)
+    params = init_params(defs, device=dev, seed=0)
     if cfg.dtype == "float32":
         leaves_to_f32(torch, params)
+    params = shard_tree(params, defs, mesh, resident_axes(cfg))
     step = make_train_step(cfg, TrainStepConfig(
         learning_rate=lambda s: 1e-3), mesh, device=dev)
     _, _, m = step(params, adamw_init(params), batch)
     return check_first_step(cfg, dict(loss=float(m["loss"]),
                                       grad_norm=float(m["grad_norm"])),
-                            want, tol)
+                            want, tol, tag)
 
 
 def dp_train(torch, rank: int, dev: str, small: bool) -> dict:
@@ -4490,11 +4536,247 @@ def dp_train(torch, rank: int, dev: str, small: bool) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 22: tensor parallelism of llama3.2-1b on two ranks
+# --------------------------------------------------------------------------- #
+def first_decode_logits(torch, cfg, params, mesh, dev: str, prompts,
+                        plain: bool = False):
+    """The float32 logits (B, V) of the first decode step after the
+    prompts' prefill (the engine's own flash chunks), under ``mesh``
+    (None: one rank) and, with ``plain``, through the plain versions; a
+    tensor-parallel rank's vocabulary columns gathered."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.axes import use_mesh
+
+    with (use_mesh(mesh) if mesh is not None else contextlib.nullcontext()), \
+            (plain_path(ops) if plain else contextlib.nullcontext()):
+        eng = ServeEngine(cfg, params, ServeConfig(
+            max_slots=8, max_len=1024, prefill_chunk=128), device=dev)
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=1)
+        eng.prefill_wave(eng.admit_wave())
+        logits, _ = T.decode_step(cfg, params, eng.last_tok[:, None],
+                                  eng.cache, eng.lens)
+        logits = torch.cat(comm.gather_parts(logits.float(), mesh, "model"),
+                           -1)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return logits
+
+
+def tp_bf16_step(torch, cfg, mesh, dev: str, prompts) -> dict:
+    """22a's bf16 bound: the first decode step's logits on the two ranks
+    and on one rank through the kernels, each against the one-rank plain
+    path in float32 (the seed-0 weights cast in place); the mesh's max
+    |error| at most twice the one rank's (phase 3d's form)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import (init_params, resident_axes,
+                                           shard_tree)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    defs = T.param_defs(cfg)
+    full = init_params(defs, device=dev, seed=0)
+    runs = {"one rank": first_decode_logits(torch, cfg, full, None, dev,
+                                            prompts),
+            "two ranks": first_decode_logits(
+                torch, cfg, shard_tree(full, defs, mesh, resident_axes(cfg)),
+                mesh, dev, prompts)}
+    leaves_to_f32(torch, full)
+    f32 = first_decode_logits(torch, dataclasses.replace(
+        cfg, dtype="float32"), full, None, dev, prompts, plain=True)
+    del full
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    err = {k: float((v - f32).abs().max()) for k, v in runs.items()}
+    if not all(bool(torch.isfinite(v).all()) for v in runs.values()):
+        raise RuntimeError("22a: non-finite bf16 logits")
+    if err["two ranks"] > 2 * err["one rank"]:
+        raise RuntimeError(f"22a: the two ranks' bf16 max |err| "
+                           f"{err['two ranks']:.4g} against float32 exceeds "
+                           f"twice one rank's {err['one rank']:.4g}")
+    return dict(max_abs_err=err, bound=2 * err["one rank"],
+                max_abs_f32=float(f32.abs().max()), shape=list(f32.shape))
+
+
+def tp_serve(torch, rank: int, dev: str, small: bool) -> dict:
+    """22a: llama3.2-1b at full size (``small``: ``.reduced()``) on (1, 2),
+    every dense leaf but the norms halved over 'model'."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import (init_params, local_defs,
+                                           param_bytes, resident_axes,
+                                           shard_tree)
+
+    cfg = get_arch("llama3.2-1b")
+    cfg = cfg.reduced() if small else cfg
+    mesh = make_host_mesh(model=2)
+    L = cfg.num_layers
+    defs = T.param_defs(cfg)
+    params = shard_tree(init_params(defs, device=dev, seed=0), defs, mesh,
+                        resident_axes(cfg))
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    held = sum(t.numel() * t.element_size() for t in leaves(params))
+    want = param_bytes(local_defs(defs, mesh, resident_axes(cfg)))
+    if held != want or held > 0.51 * param_bytes(defs):
+        raise RuntimeError(f"22a: rank {rank} holds {held} parameter bytes, "
+                           f"local_defs gives {want} of the tree's "
+                           f"{param_bytes(defs)}")
+    prompts = serve_prompts(cfg.vocab_size)
+    run = mesh_serve(torch, cfg, params, mesh, dev, prompts, 32)
+    # a prefill chunk: the embedding's psum and two a layer (attention's
+    # and the MLP's wo); a decode step the same and the sampled argmax's
+    # gather
+    per_prefill, per_decode = 1 + 2 * L, 2 + 2 * L
+    _serve_checks("22a", run, per_prefill, per_decode, dev,
+                  ("decode_attention", "flash_attention", "pim_matvec",
+                   "layernorm"))
+    steps = run["dispatches"]["decode"]
+    # one rank's GEMVs a step: q, k, v, o, wg, wi and wo a layer
+    if dev == "cuda" and run["launches"]["pim_matvec"] != 7 * L * steps:
+        raise RuntimeError(f"22a: pim_matvec launched "
+                           f"{run['launches']['pim_matvec']} times in "
+                           f"{steps} decode steps of {L} layers, one rank "
+                           f"launches {7 * L} a step")
+    run.update(layers=L, param_bytes=held, tree_param_bytes=param_bytes(defs),
+               collectives_per_prefill_chunk=per_prefill,
+               collectives_per_decode_step=per_decode)
+    short = mesh_serve(torch, cfg, params, mesh, dev, prompts, 4,
+                       profile=(rank == 0 and dev == "cuda"))
+    run["profile"] = short.get("profile")
+    del params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    run["parity_f32"] = depth2_mesh_parity(torch, "22a", cfg, mesh, dev,
+                                           prompts)
+    run["bf16_step"] = tp_bf16_step(torch, cfg, mesh, dev, prompts)
+    log(f"22a rank {rank}: {run['ms_per_decode_step']:.2f} ms a decode "
+        f"step, {run['comm']['collectives']} collectives "
+        f"({run['comm']['ms']:.1f} ms), peak {run['peak_bytes']} B, "
+        f"{held} parameter bytes; depth-2 float32 parity held; bf16 "
+        + json.dumps(run["bf16_step"]["max_abs_err"]))
+    return run
+
+
+def tp_train(torch, rank: int, dev: str, small: bool) -> dict:
+    """22b: llama3.2-1b at full width cut to 4 of 16 layers, remat full,
+    AdamW, B 4 x S 1024 on both ranks of (1, 2), 5 steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import (init_params, resident_axes,
+                                           shard_tree)
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import comm
+    from repro_torch.train import TrainStepConfig, make_train_step
+
+    cfg = get_arch("llama3.2-1b")
+    cfg = dataclasses.replace(cfg.reduced() if small else cfg, num_layers=4,
+                              remat="full")
+    mesh = make_host_mesh(model=2)
+    L, (B, S, steps) = cfg.num_layers, (4, 64 if small else 1024, 5)
+    batch = SyntheticLM(cfg.vocab_size, S, B, seed=0).batch(0)
+    want = one_rank_step(torch, cfg, dev, batch)
+    defs = T.param_defs(cfg)
+    params = shard_tree(init_params(defs, device=dev, seed=0), defs, mesh,
+                        resident_axes(cfg))
+    opt = adamw_init(params)
+    step = make_train_step(cfg, TrainStepConfig(
+        learning_rate=lambda s: 1e-3), mesh, device=dev)
+    # a step: the forward's embedding psum, two psums a layer and the
+    # loss's gather; in the backward, a layer's forward recomputed (remat
+    # full) up to its last saved activation, attention's psum (the
+    # checkpoint stops there, before the MLP's), two means a layer
+    # (attention's and the MLP's inputs), the LM head's and the loss
+    # gather's transpose; the replicated leaves' sum and the clip norm's
+    # psum
+    plan = 6 + 5 * L
+    out = dict(layers=L, B=B, S=S, steps=steps, collectives_per_step=plan)
+    losses, ms, per_step, traced = [], [], [], None
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for i in range(steps):
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        res = []
+        if i == steps - 1 and rank == 0 and dev == "cuda":
+            # rank 0 traces the last step's kernels (left out of the
+            # means); rank 1 runs it beside
+            traced = device_profile(
+                torch, lambda: res.append(step(params, opt, batch)))
+        else:
+            res.append(step(params, opt, batch))
+        params, opt, m = res[0]
+        losses.append(float(m["loss"]))          # waits for the step
+        ms.append(1e3 * (time.perf_counter() - t0))
+        per_step.append(comm.stats())
+        if i == 0:
+            out["first_step_bf16"] = check_first_step(cfg, dict(
+                loss=losses[0], grad_norm=float(m["grad_norm"])), want,
+                1e-2, "22b")
+    launches = ops.launch_counts()
+    for s_ in per_step:
+        if s_["collectives"] != plan:
+            raise RuntimeError(f"22b: {s_['collectives']} collectives a "
+                               f"step, the plan gives {plan}: "
+                               f"{s_['by_kind']}")
+    if not all(x == x for x in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"22b: losses {losses} do not fall")
+    if dev == "cuda":
+        for k in ("flash_attention_bwd", "layernorm_bwd", "flash_attention",
+                  "layernorm"):
+            if not launches.get(k):
+                raise RuntimeError(f"22b: {k} never launched")
+    timed = slice(1, steps - 1)
+    out.update(losses=losses, ms_runs=ms,
+               ms_per_step=sum(ms[timed]) / len(ms[timed]),
+               collective_ms_per_step=sum(x["ms"] for x in per_step[timed])
+               / len(ms[timed]), by_kind=per_step[-1]["by_kind"],
+               launches=launches,
+               peak_bytes=(torch.cuda.max_memory_allocated()
+                           if dev == "cuda" else 0))
+    if traced is not None:
+        out["profile"] = traced
+    del params, opt
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    out["first_step_f32"] = dp_first_step(torch, cfg2, mesh, dev, 4,
+                                          min(S, 64), 1e-4, "22b")
+    log(f"22b rank {rank}: {out['ms_per_step']:.1f} ms a step, "
+        f"{out['collective_ms_per_step']:.1f} ms of collectives, losses "
+        f"{losses}, peak {out['peak_bytes']} B")
+    return out
+
+
+# each multi-rank phase: what a rank runs, the spawn's limit, and the keys
+# whose tokens or losses both ranks must agree on
+MULTIRANK = {
+    "21": (lambda torch, rank, dev, small: dict(
+        multirank_serves(torch, rank, dev, small),
+        **{"21c": dp_train(torch, rank, dev, small)}), MULTIRANK_JOIN_S,
+        (("21a", "tokens"), ("21b", "tokens"), ("21c", "plain", "losses"),
+         ("21c", "compressed", "losses"))),
+    "22": (lambda torch, rank, dev, small: {
+        "22a": tp_serve(torch, rank, dev, small),
+        "22b": tp_train(torch, rank, dev, small)}, 120,
+        (("22a", "tokens"), ("22b", "losses")))}
+
+
 def multirank_rank(rank: int, world: int, store: str, outdir: str,
-                   dev: str = "cuda", small: bool = False) -> None:
-    """One rank of phase 21 (a spawned process): joins the gloo group,
-    runs 21a, 21b and 21c, and writes its results to
-    ``outdir/rank<r>.json``; any failure exits non-zero."""
+                   dev: str = "cuda", small: bool = False,
+                   phase: str = "21") -> None:
+    """One rank of a multi-rank phase (a spawned process): joins the gloo
+    group, runs the phase's part (``MULTIRANK``), and writes its results
+    to ``outdir/rank<r>.json``; any failure exits non-zero."""
     import datetime
     sys.path.insert(0, SRC)
     import torch
@@ -4507,11 +4789,8 @@ def multirank_rank(rank: int, world: int, store: str, outdir: str,
             world_size=world, timeout=datetime.timedelta(seconds=150))
         res = dict(transport=gloo_cuda_probe(torch, dist, dev))
         t0 = time.perf_counter()
-        res.update(multirank_serves(torch, rank, dev, small))
-        res["serves_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        res["21c"] = dp_train(torch, rank, dev, small)
-        res["train_s"] = time.perf_counter() - t0
+        res.update(MULTIRANK[phase][0](torch, rank, dev, small))
+        res["ranks_s"] = time.perf_counter() - t0
         with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
         dist.barrier()
@@ -4536,14 +4815,16 @@ def gloo_cuda_probe(torch, dist, dev: str) -> str:
         return f"gloo refused CUDA tensors in all_gather: {str(e)[:120]}"
 
 
-def multirank_phase(torch, dev: str = "cuda", small: bool = False) -> dict:
-    """Phase 21: two ranks on ``cuda:0`` over gloo, spawned once. Fails
-    if a rank fails or the spawn outlives its limit, if the ranks' tokens
-    or losses differ, or if any rank's check failed."""
+def multirank_phase(torch, dev: str = "cuda", small: bool = False,
+                    phase: str = "21") -> dict:
+    """Phase 21 or 22: two ranks on ``cuda:0`` over gloo, spawned once.
+    Fails if a rank fails or the spawn outlives its limit, if the ranks'
+    tokens or losses differ, or if any rank's check failed."""
     import multiprocessing as mp
     import shutil
     import tempfile
 
+    _, limit, agree = MULTIRANK[phase]
     t0 = time.perf_counter()
     if dev == "cuda":
         empty_card(torch)      # the ranks share the card with this process
@@ -4551,11 +4832,11 @@ def multirank_phase(torch, dev: str = "cuda", small: bool = False) -> dict:
     try:
         ctx = mp.get_context("spawn")
         procs = [ctx.Process(target=multirank_rank, args=(
-            r, 2, os.path.join(tmp, "store"), tmp, dev, small))
+            r, 2, os.path.join(tmp, "store"), tmp, dev, small, phase))
             for r in range(2)]
         for p in procs:
             p.start()
-        deadline = time.perf_counter() + MULTIRANK_JOIN_S
+        deadline = time.perf_counter() + limit
         while any(p.is_alive() for p in procs):
             if any(p.exitcode not in (None, 0) for p in procs) \
                     or time.perf_counter() > deadline:
@@ -4570,31 +4851,30 @@ def multirank_phase(torch, dev: str = "cuda", small: bool = False) -> dict:
                 p.join()
         codes = [p.exitcode for p in procs]
         if codes != [0, 0]:
-            fail(f"21: the ranks exited {codes}")
+            fail(f"{phase}: the ranks exited {codes} (limit {limit} s)")
         res = []
         for r in range(2):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 res.append(json.load(f))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    for tag in ("21a", "21b"):
-        if res[0][tag]["tokens"] != res[1][tag]["tokens"]:
-            fail(f"{tag}: the two ranks' tokens differ")
-    for mode in ("plain", "compressed"):
-        if res[0]["21c"][mode]["losses"] != res[1]["21c"][mode]["losses"]:
-            fail(f"21c {mode}: the two ranks' losses differ")
+    for path in agree:
+        a, b = res
+        for key in path:
+            a, b = a[key], b[key]
+        if a != b:
+            fail(f"{' '.join(path)}: the two ranks differ")
     took = time.perf_counter() - t0
-    log(f"phase 21 took {took:.1f} s (serves {res[0]['serves_s']:.1f} s, "
-        f"training {res[0]['train_s']:.1f} s on rank 0)")
-    log(f"21 transport: {res[0]['transport']}; every collective an "
+    log(f"phase {phase} took {took:.1f} s (ranks {res[0]['ranks_s']:.1f} s "
+        f"on rank 0)")
+    log(f"{phase} transport: {res[0]['transport']}; every collective an "
         f"all-gather over gloo, CUDA payloads staged through pinned host "
         f"buffers")
     for r, out in enumerate(res):
-        for tag in ("21a", "21b"):
+        for tag in sorted({p[0] for p in agree}):
             run = dict(out[tag])
-            run.pop("tokens")
+            run.pop("tokens", None)
             log(f"{tag} rank {r} " + json.dumps(run))
-        log(f"21c rank {r} " + json.dumps(out["21c"]))
     return dict(took_s=took, ranks=res)
 
 
@@ -4604,7 +4884,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases (2, 12, 12b, 12c, 14, 15, "
-                         "16, 17, 18, 19, 20, 20c, 21; 16 runs 16b and 16c, "
+                         "16, 17, 18, 19, 20, 20c, 21, 22; 16 runs 16b and "
+                         "16c, "
                          "17 17b, 18 18b, 20 20b) to run alone after the "
                          "build, printing no result lines")
     only = ap.parse_args().phases
@@ -4647,7 +4928,9 @@ def main() -> None:
                 "16": train_phases, "17": rwkv_train_phases,
                 "18": jamba_train_phases, "19": whisper_train_phase,
                 "20": pixtral_train_phases, "20c": gpt2_train_phase,
-                "21": lambda torch, checks: multirank_phase(torch)})
+                "21": lambda torch, checks: multirank_phase(torch),
+                "22": lambda torch, checks: multirank_phase(
+                    torch, phase="22")})
             for phase in only.split(","):
                 t0 = time.perf_counter()
                 alone[phase](torch, checks)
@@ -4703,6 +4986,7 @@ def main() -> None:
         train.update(family_train_phases(torch))
         empty_card(torch)
         multi = multirank_phase(torch)
+        tp = multirank_phase(torch, phase="22")
         checks.run(card)
     except SystemExit:
         raise
@@ -4721,8 +5005,12 @@ def main() -> None:
     # scan's; the flash backward at D 128), 19 (the flash backward at
     # whisper's two non-causal shapes, its runs' launches at each), 20c
     # (the backward at D 96) and 20 (D 160); at D 112 no path (kimi-k2
-    # trains on no card yet): 0 launches, and phase 2's calls apart
+    # trains on no card yet): 0 launches, and phase 2's calls apart; and
+    # flash, decode attention and the GEMV at llama's shapes on one of two
+    # tensor-parallel ranks, launches from rank 0's serve in phase 22a
+    # (the GEMV's split by its calls a layer: q, k and v, o, wg, wi, wo)
     per_step = whisper["14a"]["flash_by_shape_per_step"]
+    tp22a = tp["ranks"][0]["22a"]
     bwd_shapes = train["19"]["flash_bwd_by_shape"]
 
     def launched(kernel, n):
@@ -4778,7 +5066,17 @@ def main() -> None:
         ("decode_attention partial", "decode_attention",
          "B8 L512 D128 H48/1 partial",
          launched("decode_attention",
-                  multi["ranks"][0]["21a"]["launches"]["decode_attention"]))]
+                  multi["ranks"][0]["21a"]["launches"]["decode_attention"])),
+        ("flash_attention TP2", "flash_attention",
+         "B8 S128 span640 off512 H16/4", tp22a),
+        ("decode_attention TP2", "decode_attention", "B8 L1024 H16/4",
+         tp22a)] + [
+        (f"pim_matvec TP2 {label}", "pim_matvec", label,
+         launched("pim_matvec", n * tp22a["launches"]["pim_matvec"] // 7))
+        for label, n in (("n8 2048->1024 none", 1), ("n8 2048->256 none", 2),
+                         ("n8 1024->2048 none", 1), ("n8 2048->4096 silu", 1),
+                         ("n8 2048->4096 none", 1),
+                         ("n8 4096->2048 none", 1))]
     kernels = []
     for name, kernel, label, run in rows:
         route, source, replaces = SOURCES[kernel]

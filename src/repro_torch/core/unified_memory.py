@@ -199,15 +199,23 @@ def partitioned_plan(cfg: ModelConfig, capacity_bytes: int,
 # --------------------------------------------------------------------------- #
 # the unified property on a mesh
 # --------------------------------------------------------------------------- #
-def assert_unified_layout(param_defs, mesh) -> Dict[str, int]:
+def assert_unified_layout(param_defs, mesh, cfg=None) -> Dict[str, int]:
     """The distributed realization of unified memory: the sharding planned
     for the GEMM phase and for the GEMV phase must be the SAME for every
     parameter (no resharding between prefill and decode). Returns byte
     stats, each parameter counted at 2 bytes an element as the reference
-    counts it. This holds by construction (one rule table)."""
+    counts it. This holds by construction (one rule table).
+
+    With ``cfg`` (the model of ``param_defs``) it also reports
+    ``resident_param_bytes``, what one rank of the port holds
+    (``models.params.local_defs`` under ``resident_axes(cfg)``), and on a
+    mesh whose axes other than 'model' have extent 1 it asserts that a
+    ``dense`` or ``moe`` rank's resident spec of every leaf is the rule
+    table's: the port's resident layout is the unified layout itself."""
     import numpy as np
-    from repro_torch.models.params import is_def, tree_leaves
-    from repro_torch.sharding.axes import logical_sharding
+    from repro_torch.models.params import (is_def, local_defs, resident_axes,
+                                           resident_specs, tree_leaves)
+    from repro_torch.sharding.axes import axis_sizes, logical_sharding
 
     total = 0
     for leaf in tree_leaves(param_defs):
@@ -217,4 +225,18 @@ def assert_unified_layout(param_defs, mesh) -> Dict[str, int]:
         s_decode = logical_sharding(leaf.shape, leaf.logical_axes, mesh)
         assert s_prefill == s_decode
         total += int(np.prod(leaf.shape)) * 2
-    return {"param_bytes": total, "resharded_bytes": 0}
+    out = {"param_bytes": total, "resharded_bytes": 0}
+    if cfg is None:
+        return out
+    resident = resident_axes(cfg)
+    out["resident_param_bytes"] = sum(
+        int(np.prod(leaf.shape)) * 2 for leaf in tree_leaves(
+            local_defs(param_defs, mesh, resident)) if is_def(leaf))
+    if cfg.family in ("dense", "moe") and all(
+            n == 1 for a, n in axis_sizes(mesh).items() if a != "model"):
+        for leaf, spec in zip(
+                [x for x in tree_leaves(param_defs) if is_def(x)],
+                tree_leaves(resident_specs(param_defs, mesh, resident))):
+            rule = logical_sharding(leaf.shape, leaf.logical_axes, mesh).spec
+            assert spec == rule, (leaf, spec, rule)
+    return out

@@ -19,6 +19,16 @@ GSPMD). An int8 cache is
 dequantized to bf16 in plain PyTorch before the kernels, as the reference
 does it outside its kernels.
 
+Tensor parallelism: with the query heads split over 'model' (a ``dense``
+or ``moe`` rank's weights; ``layers.tp_mesh`` reads it off ``wq``), a
+rank projects its heads, and its KV heads where m divides them (layout
+A), attends them, and the row-parallel ``wo`` ends in the psum. Layout B
+is decided from the model's KV heads, not the local cache's: its KV
+weights stay whole, and in decode the local query heads are all-gathered
+before the partial mode (the reference's ``shard_map`` sees every query
+head), the rank's heads taken back from the combined output before
+``wo``.
+
 The reference is functional; the port writes K/V into the cache tensors in
 place (an update returns the same tensors it was given), which saves a copy
 of the cache per layer and step. No cache write reads a device value on the
@@ -35,10 +45,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.models.layers import apply_rope, mm
+from repro_torch.models.layers import apply_rope, mm, tp_mesh
 from repro_torch.models.params import ParamDef
 from repro_torch.sharding import comm
-from repro_torch.sharding.axes import _current_mesh, model_extent
+from repro_torch.sharding.axes import (_current_mesh, active_rules,
+                                       model_extent)
 
 
 def attn_defs(cfg: ModelConfig, stacked: Optional[int] = None,
@@ -62,10 +73,18 @@ def _heads(y: torch.Tensor, n_heads: int) -> torch.Tensor:
     return y.reshape(B, S, n_heads, -1).permute(0, 2, 1, 3)
 
 
+def _heads_mesh(cfg: ModelConfig, p: dict):
+    """The mesh when this rank holds a share of the query heads, else
+    None."""
+    return tp_mesh(p["wq"].shape[-2], cfg.num_heads)
+
+
 def qkv_project(cfg: ModelConfig, p: dict, x: torch.Tensor,
                 positions: Optional[torch.Tensor], rope: bool = True):
-    """x: (B, S, d) -> q (B, H, S, hd), k/v (B, KH, S, hd); GEMM path."""
+    """x: (B, S, d) -> q (B, H, S, hd), k/v (B, KH, S, hd) at the local
+    head counts; GEMM path."""
     d = x.shape[-1]
+    x = comm.copy_to_model(x, _heads_mesh(cfg, p))
     q = _heads(mm(x, p["wq"].reshape(d, -1)), p["wq"].shape[1])
     k = _heads(mm(x, p["wk"].reshape(d, -1)), p["wk"].shape[1])
     v = _heads(mm(x, p["wv"].reshape(d, -1)), p["wv"].shape[1])
@@ -75,11 +94,17 @@ def qkv_project(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return q, k, v
 
 
-def out_project(p: dict, attn_out: torch.Tensor) -> torch.Tensor:
-    """attn_out: (B, H, S, hd) -> (B, S, d); GEMM path."""
+def out_project(p: dict, attn_out: torch.Tensor,
+                cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+    """attn_out: (B, H, S, hd) -> (B, S, d); GEMM path (with ``cfg``, a
+    rank's share of the heads: the row-parallel product, then the
+    psum)."""
     B, H, S, hd = attn_out.shape
     merged = attn_out.permute(0, 2, 1, 3).reshape(B, S, H * hd)
-    return mm(merged, p["wo"].reshape(H * hd, -1))
+    out = mm(merged, p["wo"].reshape(H * hd, -1))
+    if cfg is None:
+        return out
+    return comm.reduce_from_model(out, _heads_mesh(cfg, p))
 
 
 def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -168,7 +193,7 @@ def attention_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
     one, so both values take one path."""
     q, k, v = qkv_project(cfg, p, x, positions)
     o = flash_attention_fused(q, k, v, causal, cfg.chunk_q, cfg.chunk_kv)
-    return out_project(p, o)
+    return out_project(p, o, cfg)
 
 
 # --------------------------------------------------------------------------- #
@@ -231,7 +256,7 @@ def attention_prefill_cached(cfg: ModelConfig, p: dict, x: torch.Tensor,
     positions = offset + torch.arange(C, device=x.device)[None].expand(B, C)
     q, k_new, v_new = qkv_project(cfg, p, x, positions)
     new_cache = {}
-    mesh, first = _seq_shard(cache["k"])
+    mesh, first = _seq_shard(cfg, cache["k"])
     if mesh is not None and cfg.kv_dtype == "int8":
         raise NotImplementedError(
             "the int8 cache is not sequence-sharded (layout B) in the port")
@@ -256,7 +281,7 @@ def attention_prefill_cached(cfg: ModelConfig, p: dict, x: torch.Tensor,
         v_att = _dequantize(v_att, v_sc[:, :, :span])
     o = ops.flash_attention(q, k_att, v_att, causal=True, q_offset=offset)
     new_cache.update(k=k_cache, v=v_cache)
-    return out_project(p, o), new_cache
+    return out_project(p, o, cfg), new_cache
 
 
 # --------------------------------------------------------------------------- #
@@ -354,7 +379,7 @@ def attention_prefill_packed(cfg: ModelConfig, p: dict, x: torch.Tensor,
     through the flash kernel's segmented mode. Padding rows give finite
     garbage that callers discard; their cache writes are dropped. Returns
     (out (R, C, d), cache)."""
-    if _seq_shard(cache["k"])[0] is not None:
+    if _seq_shard(cfg, cache["k"])[0] is not None:
         raise NotImplementedError(
             "packed prefill does not write a sequence-sharded cache "
             "(layout B) in the port")
@@ -396,7 +421,7 @@ def attention_prefill_packed(cfg: ModelConfig, p: dict, x: torch.Tensor,
         v_att = torch.cat([v_pref.to(v_att.dtype), v_att], dim=2)
     info = packed_segment_info(seg_pos, seg_ids, tok_valid, prefix_len, span)
     o = ops.flash_attention(q, k_att, v_att, segment_info=info)
-    return out_project(p, o), new_cache
+    return out_project(p, o, cfg), new_cache
 
 
 # --------------------------------------------------------------------------- #
@@ -411,7 +436,7 @@ def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     d = x.shape[-1]
     q = _heads(mm(x, p["wq"].reshape(d, -1)), p["wq"].shape[1])
     k, v = enc_kv
-    return out_project(p, ops.flash_attention(q, k, v, causal=False))
+    return out_project(p, ops.flash_attention(q, k, v, causal=False), cfg)
 
 
 def cross_attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -445,13 +470,16 @@ def encoder_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor):
 # --------------------------------------------------------------------------- #
 # Decode (generation stage): one token against the KV cache
 # --------------------------------------------------------------------------- #
-def _seq_shard(k_cache: torch.Tensor, mesh=None):
+def _seq_shard(cfg: ModelConfig, k_cache: torch.Tensor, mesh=None):
     """(the mesh, the shard's first global position) when ``k_cache`` (B,
     KH, S_loc, hd) is a layout-B shard: under a mesh whose 'model' extent
-    m > 1 does not divide the KV heads; else (None, 0)."""
+    m > 1 does not divide the model's KV heads (``cfg.num_kv_heads``: a
+    layout-A rank may hold fewer than m of them, one at KH = m) and whose
+    rules put the cache's sequence on 'model'; else (None, 0)."""
     mesh = mesh or _current_mesh()
     m = model_extent(mesh)
-    if m == 1 or k_cache.shape[1] % m == 0:
+    if m == 1 or cfg.num_kv_heads % m == 0 \
+            or "model" not in active_rules().get("kv_seq", ()):
         return None, 0
     return mesh, comm.axis_index(mesh, "model") * k_cache.shape[2]
 
@@ -482,7 +510,7 @@ def decode_attention(cfg: ModelConfig, q: torch.Tensor, k_cache: torch.Tensor,
     in rank order (global max, rescaled sums, then the divide), so every
     rank gets the same bits. An empty shard (lse = -inf) adds nothing."""
     B, H, _, hd = q.shape
-    mesh, first = _seq_shard(k_cache, mesh)
+    mesh, first = _seq_shard(cfg, k_cache, mesh)
     if mesh is None:
         o = ops.decode_attention(q.reshape(B, H, hd), k_cache, v_cache,
                                  cur_len)
@@ -493,6 +521,15 @@ def decode_attention(cfg: ModelConfig, q: torch.Tensor, k_cache: torch.Tensor,
                                   lengths, return_lse=True)
     parts = comm.gather_parts(torch.cat([o.float(), lse[..., None]], -1),
                               mesh, "model")
+    return merge_decode(parts).to(q.dtype).reshape(B, H, 1, hd)
+
+
+def merge_decode(parts) -> torch.Tensor:
+    """The ranks' partial decode outputs (..., hd + 1), o then its
+    log-sum-exp, in rank order, merged to (..., hd) float32: the largest
+    lse, the outputs rescaled to it and summed, then the divide. An empty
+    shard (lse -inf) adds nothing."""
+    hd = parts[0].shape[-1] - 1
     lses = [part[..., hd] for part in parts]
     top = lses[0]
     for x in lses[1:]:
@@ -503,8 +540,7 @@ def decode_attention(cfg: ModelConfig, q: torch.Tensor, k_cache: torch.Tensor,
         w = torch.exp(x - top)
         num = num + w[..., None] * part[..., :hd]
         den = den + w
-    out = num / torch.clamp(den, min=1e-30)[..., None]
-    return out.to(q.dtype).reshape(B, H, 1, hd)
+    return num / torch.clamp(den, min=1e-30)[..., None]
 
 
 def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -561,10 +597,12 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     (out (B, 1, d), cache)."""
     B, _, d = x.shape
     rows = x.reshape(B, d)
-    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    # the local head counts: a tensor-parallel rank's share
+    H, KH, hd = p["wq"].shape[-2], p["wk"].shape[-2], cfg.head_dim
+    heads = _heads_mesh(cfg, p)
     positions = cur_len[:, None]                                  # (B, 1)
     # a layout-B shard writes the positions it owns
-    first = _seq_shard(cache["k"])[1]
+    seq_mesh, first = _seq_shard(cfg, cache["k"])
     at = cur_len - first if first else cur_len
     q = apply_rope(_project_rows(p, rows, "wq").reshape(B, H, 1, hd),
                    positions[:, None, :], cfg.rope_theta)
@@ -589,8 +627,14 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
         k_cache, v_cache = update_kv_cache(cache["k"], cache["v"], k_new,
                                            v_new, at, method=cfg.kv_update)
         k_att, v_att = k_cache, v_cache
+    gather = seq_mesh is not None and heads is not None
+    if gather:
+        # layout B's partial mode takes every query head
+        q = comm.all_gather(q, heads, "model", dim=1)
     o = decode_attention(cfg, q, k_att, v_att, cur_len + 1)
+    if gather:
+        o = o.narrow(1, comm.axis_index(heads, "model") * H, H)
     wo = p["wo"]
     out = ops.fused_matvec(o.reshape(B, H * hd), wo.reshape(H * hd, -1))
     new_cache.update(k=k_cache, v=v_cache)
-    return out.reshape(B, 1, -1), new_cache
+    return comm.reduce_from_model(out, heads).reshape(B, 1, -1), new_cache

@@ -10,6 +10,12 @@ is dropped from that expert, as in the reference. The expert products
 (``gecd,edf`` there) are plain batched matmuls, as the reference leaves
 them to XLA outside any Pallas kernel.
 
+Under tensor parallelism (a ``moe`` rank's resident experts, split over
+'model' whatever ``moe_impl``) the ``gspmd`` path routes every token
+replicated, computes the slots of its E/m experts of the (E, C) dispatch
+and psums the combined output over 'model', as the reference's GSPMD
+partitioning all-reduces it.
+
 Nothing here reads a device value on the host: ``counts`` comes from
 ``scatter_add_``, the (E, C + 1) table from an index ``scatter_`` and the
 combine from a gather of each token's k slots, so the decode step keeps
@@ -28,7 +34,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import activation, mm
+from repro_torch.models.layers import activation, mm, tp_mesh
 from repro_torch.models.params import ParamDef
 from repro_torch.sharding import comm
 from repro_torch.sharding.axes import _current_mesh, axis_sizes
@@ -185,7 +191,9 @@ def apply_moe_ep(cfg: ModelConfig, p: dict, x: torch.Tensor,
     for a in data_axes:
         d_ext *= sizes[a]
     assert E % m_ext == 0 and cfg.d_ff % d_ext == 0
-    x_all = x
+    # the tokens' gradient made whole on every 'model' rank
+    # (``comm._CopyToModel``)
+    x_all = comm.copy_to_model(x, mesh)
     for ax in data_axes:
         x_all = comm.all_gather(x_all, mesh, ax, dim=0)
     T = x_all.shape[0] * S
@@ -244,7 +252,15 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor,
     T = B * S
     C = capacity(T, k, E, cfg.capacity_factor)
 
-    xg = x.reshape(T, d)
+    # experts split over 'model' (else d_ff, where 'model' does not
+    # divide the experts): this rank's slots of every token, then the psum
+    wi = p["wi"]
+    split = tp_mesh(wi.shape[-3], E)
+    e0 = 0 if split is None else \
+        comm.axis_index(split, "model") * wi.shape[-3]
+    if split is None:
+        split = tp_mesh(wi.shape[-1], cfg.d_ff)
+    xg = comm.copy_to_model(x.reshape(T, d), split)
     logits = mm(xg, p["router"]).float()
     probs = torch.softmax(logits, dim=-1)
     weights, idx = route(logits, k)                         # (T, k) each
@@ -260,5 +276,5 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor,
             means = comm.psum(means, mesh, a)
         means = means / n_data
         aux = E * (means[1] * means[0]).sum()
-    y = _route_group(cfg, xg, weights, idx, C, p["wi"], p["wg"], p["wo"])
-    return y.reshape(B, S, d), aux
+    y = _route_group(cfg, xg, weights, idx, C, wi, p["wg"], p["wo"], e0=e0)
+    return comm.reduce_from_model(y, split).reshape(B, S, d), aux

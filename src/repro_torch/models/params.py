@@ -153,12 +153,24 @@ def shardings_for(defs, mesh, rules=None):
                                                 mesh, rules), defs)
 
 
+# the tensor-parallel axes of the decoder-only dense and MoE families
+TP_AXES = ("heads", "kv_heads", "d_ff", "vocab", "experts")
+
+
 def resident_axes(cfg) -> tuple:
-    """The logical axes a rank of ``cfg``'s model keeps sharded: a layout-B
-    cache's sequence, and the experts (with their ZeRO-3 d_ff slices)
-    under the expert-parallel MoE."""
-    return ("kv_seq",) + (("experts", "fsdp") if cfg.moe_impl == "ep"
-                          else ())
+    """The logical axes a rank of ``cfg``'s model keeps sharded. A
+    ``dense`` or ``moe`` model: the tensor-parallel axes (heads, KV heads,
+    d_ff, vocabulary and experts, each over 'model' where the rule table
+    puts it there), a layout-B cache's sequence, and under the
+    expert-parallel MoE the experts' ZeRO-3 d_ff slices. The ``ssm``,
+    ``hybrid``, ``encdec`` and ``vlm`` families keep their dense weights
+    whole (their tensor parallelism is ROADMAP item 8b): the cache's
+    sequence, and the experts with their slices under the expert-parallel
+    MoE."""
+    ep = ("experts", "fsdp") if cfg.moe_impl == "ep" else ()
+    if cfg.family in ("dense", "moe"):
+        return TP_AXES + ("kv_seq",) + ep[1:]
+    return ("kv_seq",) + ep
 
 
 def _resident(pd: ParamDef, mesh, resident) -> tuple:

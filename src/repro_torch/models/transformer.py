@@ -25,6 +25,13 @@ shift_cm}`` (n_super, B, d) in ``cfg.dtype``; of a Mamba position ``conv``
 d_inner, d_state) f32. The reference's ``lax.scan`` over superblocks is a
 Python loop over the leading index of the stacked tensors; cache updates
 land in place in the stacked cache.
+
+Under tensor parallelism (a ``dense`` or ``moe`` rank's resident weights,
+``models/params.py::resident_axes``) the layers find their shares from
+their weights' shapes; the logits are the rank's vocabulary columns, the
+loss the vocabulary-parallel cross-entropy, and sampling merges the
+ranks' (max, global index) in one all-gather (``comm.sharded_argmax``),
+the Gumbel noise hashed from each cell's global index.
 """
 from __future__ import annotations
 
@@ -40,6 +47,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.params import ParamDef
+from repro_torch.sharding import comm
+from repro_torch.sharding.axes import _current_mesh, use_mesh
 
 # --------------------------------------------------------------------------- #
 # superblock structure
@@ -278,7 +287,15 @@ def _remat(cfg: ModelConfig, fn):
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_dots)
-    return lambda *args: ckpt.checkpoint(fn, *args, use_reentrant=False,
+    # the recomputation runs in the backward, on autograd's device thread
+    # for a CUDA tensor, where the caller's ``use_mesh`` is not set: the
+    # body sets it again
+    mesh = _current_mesh()
+
+    def body(*args):
+        with use_mesh(mesh):
+            return fn(*args)
+    return lambda *args: ckpt.checkpoint(body, *args, use_reentrant=False,
                                          **kw)
 
 
@@ -326,7 +343,7 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     through the flash kernel, the RWKV time mix through the ``rwkv_chunk``
     kernel and the Mamba scan through the ``mamba_chunk`` kernel. The aux
     loss is the sum of the MoE layers' balance terms (0 without MoE)."""
-    x = L.embed_tokens(params["embed"], tokens)
+    x = L.embed_tokens(params["embed"], tokens, cfg.vocab_size)
     if cfg.family == "vlm":
         if patch_embeds is None:
             raise ValueError("a vlm forward takes patch_embeds")
@@ -364,7 +381,8 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     if last_only:
         x = x[:, -1:, :]
     x = L.apply_norm(cfg, params["final_norm"], x)
-    logits = L.lm_logits(params["embed"], x, cfg.tie_embeddings)
+    logits = L.lm_logits(params["embed"], x, cfg.tie_embeddings,
+                         cfg.vocab_size)
     return logits, aux
 
 
@@ -380,7 +398,8 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     if cfg.family == "vlm":
         # logits cover [patches; text]; the loss only the text positions
         logits = logits[:, cfg.num_patches:, :]
-    nll = L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    nll = L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"),
+                         vocab=cfg.vocab_size)
     return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
 
@@ -430,7 +449,7 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     """tokens: (B, 1) int; cur_len: (B,) int32 current context lengths.
     Returns (logits (B, V), cache) with this token's K/V (or recurrent
     state) written for every row."""
-    x = L.embed_tokens(params["embed"], tokens)                # (B, 1, d)
+    x = L.embed_tokens(params["embed"], tokens, cfg.vocab_size)  # (B, 1, d)
     kinds = _position_kinds(cfg)
     n_super = cfg.num_layers // len(kinds)
     for i in range(n_super):
@@ -439,7 +458,8 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                                     _layer(params["blocks"][f"pos{j}"], i),
                                     x, _layer(cache[f"pos{j}"], i), cur_len)
     x = L.apply_norm(cfg, params["final_norm"], x)
-    logits = L.lm_logits(params["embed"], x, cfg.tie_embeddings)
+    logits = L.lm_logits(params["embed"], x, cfg.tie_embeddings,
+                         cfg.vocab_size)
     return logits[:, 0, :], cache
 
 
@@ -455,27 +475,34 @@ def _mix32(x):
     return (x >> 16) ^ x
 
 
-def uniform_noise(seed: int, draw: torch.Tensor, shape, device
+def uniform_noise(seed: int, draw: torch.Tensor, shape, device,
+                  offset: int = 0, vocab: Optional[int] = None
                   ) -> torch.Tensor:
     """Uniform float32 noise in [2^-24, 1 - 2^-24] of ``shape`` (B, V) for
     draw number ``draw`` (a () int64 device tensor) of the stream
     ``seed``: element (b, v) is a hash of (seed, draw, b * V + v), so the
     stream needs no generator object and no host value, a round that
     draws nothing leaves the stream where it was, and every device gives
-    the same bits."""
+    the same bits. A vocabulary shard's columns [offset, offset + V_loc)
+    of a ``vocab``-wide draw hash their global cells b * vocab + offset +
+    v, the same noise as the whole draw's."""
     k1 = _mix32(_mix32(draw & _M32) ^ (seed & _M32))
     k2 = _mix32(k1 ^ 0x9E3779B9)
-    idx = torch.arange(shape[0] * shape[1], device=device,
-                       dtype=torch.int64).reshape(shape)
+    V = shape[1] if vocab is None else vocab
+    idx = (torch.arange(shape[0], device=device, dtype=torch.int64)[:, None]
+           * V + offset + torch.arange(shape[1], device=device,
+                                       dtype=torch.int64)[None, :])
     h = _mix32(_mix32(idx ^ k1) ^ k2)
     # 23 bits, centred in their cell
     return ((h >> 9).to(torch.float32) + 0.5) * 2.0 ** -23
 
 
-def gumbel_noise(seed: int, draw: torch.Tensor, shape, device
+def gumbel_noise(seed: int, draw: torch.Tensor, shape, device,
+                 offset: int = 0, vocab: Optional[int] = None
                  ) -> torch.Tensor:
     """Gumbel(0, 1) noise from ``uniform_noise``'s draw ``draw``."""
-    return -torch.log(-torch.log(uniform_noise(seed, draw, shape, device)))
+    return -torch.log(-torch.log(uniform_noise(seed, draw, shape, device,
+                                               offset, vocab)))
 
 
 def decode_and_sample(cfg: ModelConfig, params: dict, cache: dict,
@@ -495,12 +522,16 @@ def decode_and_sample(cfg: ModelConfig, params: dict, cache: dict,
     decoding draws nothing and passes it through). Returns
     (fetch, cache, toks, lens, gen_count, draw)."""
     logits, cache = decode_step(cfg, params, last_tok[:, None], cache, lens)
+    # a vocabulary shard's columns: its (max, global index), merged
+    mesh, lo = L.vocab_shard(params["embed"], cfg.vocab_size)
     if temperature > 0:
-        noise = gumbel_noise(seed, draw, logits.shape, logits.device)
-        toks = torch.argmax(logits.float() / temperature + noise, dim=-1)
+        noise = gumbel_noise(seed, draw, logits.shape, logits.device, lo,
+                             cfg.vocab_size)
+        toks = comm.sharded_argmax(logits.float() / temperature + noise, lo,
+                                   mesh)
         draw = draw + active.any()
     else:
-        toks = torch.argmax(logits, dim=-1)
+        toks = comm.sharded_argmax(logits, lo, mesh)
     toks = torch.where(active, toks.to(torch.int32), last_tok)
     act32 = active.to(torch.int32)
     lens = lens + act32
@@ -552,7 +583,7 @@ def _prefill_stack(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     if not supports_batched_prefill(cfg):
         raise NotImplementedError(
             "batched prefill covers attention mixers only")
-    x = L.embed_tokens(params["embed"], tokens)
+    x = L.embed_tokens(params["embed"], tokens, cfg.vocab_size)
     kinds = _position_kinds(cfg)
     n_super = cfg.num_layers // len(kinds)
     for i in range(n_super):

@@ -6,6 +6,11 @@ row and column statistics over its last two axes (``v_row``, ``v_col``),
 of any other leaf kept whole (``v``); no first moment; ``step`` an int32
 scalar. "Factored" is decided on the stacked leaf, as in the reference: a
 stacked norm scale (L, d) is factored.
+
+On a rank's parts of a tree (``specs`` and ``mesh``, as ``adamw_update``
+takes them) every mean over a sharded dim is the psum of the part's sum
+over the leaf's size, so a tensor-parallel leaf's update is the full
+leaf's.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.models.params import ParamDef, tree_leaves, tree_map
+from repro_torch.sharding.axes import _axes_of
 
 
 @dataclass(frozen=True)
@@ -60,24 +66,50 @@ def adafactor_init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def _rms(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(x.square().mean() + 1e-30)
+def _mean(x: torch.Tensor, dims, spec, mesh, keepdim: bool = False
+          ) -> torch.Tensor:
+    """x's mean over ``dims`` (all of them: None) of the full tensor whose
+    part x is under ``spec``: a psum over each mesh axis that shards a
+    reduced dim."""
+    if not spec or not any(spec):
+        return x.mean() if dims is None else x.mean(dim=dims,
+                                                    keepdim=keepdim)
+    dims = tuple(range(x.dim())) if dims is None else dims
+    axes = [a for d in dims for a in _axes_of(spec[d])]
+    from repro_torch.sharding import comm
+    total = x.sum(dim=dims, keepdim=keepdim)
+    n = 1
+    for d in dims:
+        n *= x.shape[d]
+    for a in axes:
+        total = comm.psum_raw(total, mesh, a)
+        n *= comm.axis_size(mesh, a)
+    return total / n
+
+
+def _rms(x: torch.Tensor, spec=None, mesh=None) -> torch.Tensor:
+    return torch.sqrt(_mean(x.square(), None, spec, mesh) + 1e-30)
 
 
 def adafactor_update(params, grads, state, lr,
-                     cfg: AdafactorConfig = AdafactorConfig()
-                     ) -> Tuple[dict, dict, dict]:
-    """Returns (new_params, new_state, {"beta2"})."""
+                     cfg: AdafactorConfig = AdafactorConfig(),
+                     specs=None, mesh=None) -> Tuple[dict, dict, dict]:
+    """Returns (new_params, new_state, {"beta2"}); with ``specs`` (each
+    leaf's spec on ``mesh``) the leaves are a rank's parts."""
     step = state["step"] + 1
     beta2 = 1.0 - step.float() ** (-cfg.decay)
 
-    def upd(p, g, s):
+    def upd(p, g, s, spec=None):
         g = g.float()
         g2 = g.square() + cfg.eps
         if "v_row" in s:
-            v_row = beta2 * s["v_row"] + (1 - beta2) * g2.mean(-1)
-            v_col = beta2 * s["v_col"] + (1 - beta2) * g2.mean(-2)
-            row_mean = v_row.mean(-1, keepdim=True)
+            n = g.dim()
+            v_row = beta2 * s["v_row"] + (1 - beta2) * _mean(
+                g2, (n - 1,), spec, mesh)
+            v_col = beta2 * s["v_col"] + (1 - beta2) * _mean(
+                g2, (n - 2,), spec, mesh)
+            row_mean = _mean(v_row, (n - 2,), spec and spec[:-1], mesh,
+                             keepdim=True)
             u = g * torch.rsqrt(
                 (v_row / torch.clamp(row_mean, min=1e-30))[..., None]
                 * v_col[..., None, :] + cfg.eps)
@@ -86,13 +118,17 @@ def adafactor_update(params, grads, state, lr,
             v = beta2 * s["v"] + (1 - beta2) * g2
             u = g * torch.rsqrt(v + cfg.eps)
             new_s = {"v": v}
-        u = u / torch.clamp(_rms(u) / cfg.clip_threshold, min=1.0)
+        u = u / torch.clamp(_rms(u, spec, mesh) / cfg.clip_threshold,
+                            min=1.0)
         new_p = p.float() - lr * u
         if cfg.weight_decay and p.ndim >= 2:
             new_p = new_p - lr * cfg.weight_decay * p.float()
         return new_p.to(p.dtype), new_s
 
-    out = tree_map(lambda p, g, s: upd(p, g, s), params, grads, state["v"])
+    if specs is None:
+        out = tree_map(upd, params, grads, state["v"])
+    else:
+        out = tree_map(upd, params, grads, state["v"], specs)
     new_params = tree_map(lambda o: o[0], out)
     new_v = tree_map(lambda o: o[1], out)
     return new_params, {"v": new_v, "step": step}, {"beta2": beta2}

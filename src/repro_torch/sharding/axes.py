@@ -18,11 +18,15 @@ production meshes resolve with no ranks at all.
 
 Placement is the caller's. ``constrain`` returns its input unchanged (a
 sharding constraint never changes values); what the port keeps sharded on
-a rank, its *resident* layout, is ``resident_spec``'s: the sequence of a
-layout-B KV cache and, under expert parallelism, the experts and their
-ZeRO-3 d_ff slices. Every other dim is replicated: tensor parallelism of
-the dense layers is not ported (ROADMAP). ``local_slice`` cuts a rank's
-part of a full tensor by a spec and ``gather_slices`` puts the parts back.
+a rank, its *resident* layout, is ``resident_spec``'s over ``RESIDENT``:
+every logical axis that the rule table maps to 'model' (the tensor-parallel
+heads, KV heads, d_ff, vocabulary and experts, the recurrent d_inner and
+heads, and a layout-B cache's sequence) and the ZeRO-3 ``fsdp`` dim. It
+resolves through the active profile, so under ``dp`` nothing shards over
+'model'. A model family narrows the set (``models/params.py::
+resident_axes``): the recurrent and encoder-decoder families keep their
+dense weights whole (ROADMAP item 8b). ``local_slice`` cuts a rank's part
+of a full tensor by a spec and ``gather_slices`` puts the parts back.
 """
 from __future__ import annotations
 
@@ -81,7 +85,8 @@ _active_mesh: contextvars.ContextVar = contextvars.ContextVar(
     "sharding_mesh", default=None)
 
 # the logical axes a rank keeps sharded (see the module docstring)
-RESIDENT = ("kv_seq", "experts", "fsdp")
+RESIDENT = tuple(a for a, r in LOGICAL_RULES.items() if "model" in r) \
+    + ("fsdp",)
 
 
 def set_profile(name: str):

@@ -28,6 +28,16 @@ summed over the ranks that replicate it otherwise (the train step does
 that). These are the gradients ``jax.grad`` gives through the reference's
 ``shard_map``, whose transpose divides a replicated output's cotangent by
 its replication the same way.
+
+Tensor parallelism (the reference leaves it to GSPMD) takes two more
+operators over 'model', a conjugate pair: ``copy_to_model`` at the input
+of a column-parallel product and ``reduce_from_model`` at the output of a
+row-parallel one. Their backwards follow from the convention above; the
+derivation is ``_CopyToModel``'s docstring. The combines that merge the
+ranks' parts (``merge_argmax``, ``decode_attention``'s merge, the
+vocabulary-parallel loss's ``merge_xent`` in ``models/layers.py``) are
+pure functions of the list of parts, so a test in one process can feed
+them emulated shards.
 """
 from __future__ import annotations
 
@@ -183,6 +193,109 @@ class _Pmax(torch.autograd.Function):
         x, y = ctx.saved_tensors
         total = psum_raw(dy, ctx.mesh, ctx.axis)
         return torch.where(x == y, total, torch.zeros_like(total)), None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; backward: the mean of the ranks' cotangents.
+
+    Why this pair. The train step seeds each rank's loss with 1 and, after
+    summing a leaf over the axes that replicate it, divides every leaf by
+    ``mesh.size`` (``train/step.py::_reduce_grads``); a leaf sharded over
+    'model' is not summed over 'model'. On a (1, m) mesh every rank's loss
+    is the one-rank loss L, so the step gives the one-rank gradient if and
+    only if autograd gives each rank m dL/dw for a sharded leaf, and
+    replicas of a replicated leaf whose gradients sum to m dL/dw. Both
+    hold when every replicated activation's cotangent is dL/d(activation)
+    on every rank, as it is at the loss (seed 1), and it stays so through
+    replicated computation (the norms, the residual adds):
+
+    * at a row-parallel output y = psum(partials): the partial's one-rank
+      cotangent is y's, and its sharded weight must get m times it, so
+      ``reduce_from_model``'s backward is m dy (no collective);
+    * at a column-parallel input x: rank r's cotangent is c_r = m times
+      the part of dL/dx that flows through its shard, so dL/dx is the
+      mean (1/m) sum_r c_r: ``copy_to_model``'s backward is the mean over
+      'model' (one psum), which hands every rank dL/dx again. A
+      replicated leaf read between the two (the router, the KV weights of
+      a layout-B model) gets c_r-shaped parts that sum to m dL/dw.
+
+    Megatron's pair (psum backward here, identity backward there) counts
+    the loss once over the ranks: under this step it leaves a sharded
+    leaf m times short. The exact transposes (identity here, psum there)
+    also satisfy the step but leave the replicated cotangents ranks'
+    parts, which ``reduce_from_model``'s m dy cannot take. The mean is
+    linear and maps any cotangents that sum to m dL/dx (the exact
+    transposes' parts, the expert-parallel MoE's) to dL/dx on every rank,
+    so the expert-parallel path takes this operator at its input too."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        n = axis_size(ctx.mesh, ctx.axis)
+        total = psum_raw(dy, ctx.mesh, ctx.axis, out_dtype=torch.float32,
+                         kind="psum_bwd")
+        return (total / n).to(dy.dtype), None, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """psum forward; backward: m dy (``_CopyToModel``'s docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return psum_raw(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy * axis_size(ctx.mesh, ctx.axis), None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh, axis: str = "model"
+                  ) -> torch.Tensor:
+    """The input of a column-parallel product: x unchanged; its gradient
+    the mean of the ranks' over ``axis``."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _CopyToModel.apply(x, mesh, axis)
+
+
+def reduce_from_model(x: torch.Tensor, mesh, axis: str = "model"
+                      ) -> torch.Tensor:
+    """The output of a row-parallel product: the psum over ``axis``; its
+    gradient ``axis``'s extent times the output's."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _ReduceFromModel.apply(x, mesh, axis)
+
+
+def merge_argmax(parts: List[torch.Tensor]) -> torch.Tensor:
+    """The ranks' (..., 2) float64 (value, global index) pairs, in rank
+    order, merged to the (...) int64 index of the largest value, the
+    lowest global index on a tie (``torch.argmax``'s rule): a later rank
+    replaces the pick only where its value is strictly larger, and its
+    indices are all larger than an earlier rank's."""
+    best = parts[0]
+    for p in parts[1:]:
+        best = torch.where((p[..., 0] > best[..., 0])[..., None], p, best)
+    return best[..., 1].long()
+
+
+def sharded_argmax(x: torch.Tensor, offset: int, mesh,
+                   axis: str = "model") -> torch.Tensor:
+    """``torch.argmax(full, -1)`` of the tensor whose last dim is sharded
+    over ``axis``, x this rank's columns [offset, offset + x.shape[-1]):
+    each rank's (max, global index), one all-gather, ``merge_argmax``.
+    Every rank gets the same int64 indices."""
+    idx = torch.argmax(x, dim=-1)
+    if axis_size(mesh, axis) == 1:
+        return idx + offset
+    val = x.gather(-1, idx[..., None])[..., 0]
+    pair = torch.stack([val.double(), (idx + offset).double()], dim=-1)
+    return merge_argmax(gather_parts(pair, mesh, axis, "argmax"))
 
 
 def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0

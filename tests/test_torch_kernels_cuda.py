@@ -404,6 +404,39 @@ def test_matvec_kernel_at_served_shapes(card, d_in, d_out, n):
                      ref.matvec_ref(x, w, None, act), dtype)
 
 
+# llama3.2-1b on one of two tensor-parallel ranks: q (d -> d/2), k and v
+# (d -> 256), the row-parallel o (d/2 -> d), wg and wi (d -> f/2) and wo
+# (f/2 -> d) at the engine's 8 rows; decode attention and a prefill chunk
+# at 16 / 4 heads
+TP2_GEMV = [(2048, 1024, "none"), (2048, 256, "none"), (1024, 2048, "none"),
+            (2048, 4096, "silu"), (2048, 4096, "none"), (4096, 2048, "none")]
+
+
+@pytest.mark.parametrize("d_in,d_out,act", TP2_GEMV)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_matvec_kernel_at_tensor_parallel_shapes(card, d_in, d_out, act,
+                                                 dtype):
+    x = _rand((8, d_in), 1, dtype)
+    w = _rand((d_in, d_out), 2, dtype, d_in ** -0.5)
+    _close_tight(pim_matvec(x, w, None, act),
+                 ref.matvec_ref(x, w, None, act), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_kernels_at_tensor_parallel_heads(card, dtype):
+    lens = (1, 77, 700, 1023, 1024, 5, 333, 512)
+    q = _rand((8, 16, 64), 1, dtype)
+    k, v = _rand((8, 4, 1024, 64), 2, dtype), _rand((8, 4, 1024, 64), 3, dtype)
+    n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    _close_tight(decode_attention(q, k, v, n),
+                 ref.decode_attention_ref(q, k, v, n), dtype)
+    q = _rand((8, 16, 128, 64), 4, dtype)
+    k, v = k[:, :, :640], v[:, :, :640]
+    _close_tight(flash_attention(q, k, v, causal=True, q_offset=512),
+                 ref.flash_attention_ref(q, k, v, causal=True, q_offset=512),
+                 dtype)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_matvec_kernel_is_deterministic(card, dtype):
     """The K-slices sum in a fixed order: two calls agree bitwise."""

@@ -14,7 +14,13 @@ through files. Float32 results agree within 1e-4.
 What they hold: ``apply_moe_ep``'s output, balance loss and gradients
 (router, wi, wg, wo, x) on 4 ranks at (data 2, model 2) with
 ``fsdp_params`` on and off and at (1, 4), against the reference's and
-the port's one-rank ``apply_moe``; decode layout B on 2 and 4 ranks
+the port's one-rank ``apply_moe``; tensor parallelism on (1, 2):
+llama3.2-1b's logits, loss and every gathered gradient leaf, and the
+decode logits of granite-20b (KH 1, layout B) and qwen3-moe (KH 2 = m,
+non-EP and EP) against the reference under GSPMD on the same weights and
+the port's one rank, four engines (batched, packed, fused with superstep
+4, int8 cache) against the one-rank engine, and AdamW and Adafactor on
+the ranks' parts against the full tree's update; decode layout B on 2 and 4 ranks
 against the reference's layout B and the port's layout A (a row ends
 inside the first shard); a granite-20b ``.reduced()`` (KH 1) engine on
 2 ranks against the port's one-rank engine (the greedy tokens,
@@ -101,12 +107,57 @@ def _err_inputs(rank):
             "b": {"s": _x((24,), 60 + rank, 0.01)}}
 
 
+# tensor parallelism on (1, 2): the configs, the weights' numpy seeds
+TP_ARCHS = {"llama": ("llama3.2-1b", {}), "granite": ("granite-20b", {}),
+            "qwen": ("qwen3-moe-30b-a3b", {}),
+            "qwen_ep": ("qwen3-moe-30b-a3b", {"moe_impl": "ep"})}
+TP_B, TP_S, TP_STEPS, TP_LEN = 2, 16, 10, 16
+
+
+def _tp_cfg(tag):
+    name, kw = TP_ARCHS[tag]
+    return dataclasses.replace(get_arch(name).reduced(), dtype="float32",
+                               **kw)
+
+
+def _np_weights(cfg, seed):
+    """float32 leaves of ``cfg``'s tree in sorted-path order (the order of
+    ``jax.tree.leaves`` too), drawn from a numpy seed."""
+    from repro_torch.models.params import is_def, tree_leaves
+    rng = np.random.default_rng(seed)
+    out = []
+    for pd in tree_leaves(T.param_defs(cfg)):
+        assert is_def(pd)
+        if pd.init in ("ones", "zeros"):
+            out.append(np.full(pd.shape, pd.init == "ones", np.float32))
+            continue
+        std = 0.5 if pd.init == "small_normal" else pd.fan_in() ** -0.5
+        out.append((rng.standard_normal(pd.shape) * std).astype(np.float32))
+    return out
+
+
+def _tree_of(cfg, a, tag):
+    """The port's tree of the arrays ``{tag}_w{i}``."""
+    from repro_torch.models.params import tree_map
+    it = iter(range(10 ** 6))
+    return tree_map(lambda pd: torch.from_numpy(a[f"{tag}_w{next(it)}"]),
+                    T.param_defs(cfg))
+
+
 def _write_inputs(path):
     cfg = _moe_cfg()
     arrays = {f"moe_{k}": v for k, v in _moe_inputs(cfg, EP_B, EP_S).items()}
     arrays.update({f"dec_{k}": v for k, v in _decode_inputs().items()})
     g = _moe_inputs(_moe_cfg(capacity_factor=GROUP_CF), GROUP_B, GROUP_S)
     arrays.update({f"grp_{k}": v for k, v in g.items()})
+    for tag, seed in (("llama", 70), ("granite", 71), ("qwen", 72)):
+        for i, w in enumerate(_np_weights(_tp_cfg(tag), seed)):
+            arrays[f"tp_{tag}_w{i}"] = w
+    rng = np.random.default_rng(73)
+    arrays["tp_tokens"] = rng.integers(0, 256, (TP_B, TP_S + 1)).astype(
+        np.int32)
+    arrays["tp_dec"] = rng.integers(0, 256, (TP_B, TP_STEPS)).astype(
+        np.int32)
     np.savez(path, **arrays)
 
 
@@ -149,6 +200,54 @@ def reference_main(inp: str, out: str) -> None:
         res[f"{tag}_gx"] = np.asarray(gx)
         for k in names:
             res[f"{tag}_g{k}"] = np.asarray(gp[k])
+
+    from repro.models import transformer as JT
+    from repro.models.params import is_def as jax_is_def
+    from repro.models.params import shardings_for as jax_shardings
+    tp_mesh = Mesh(devs[:2].reshape(1, 2), ("data", "model"))
+
+    def tp_tree(cfg, tag):
+        defs = JT.param_defs(cfg)
+        leaves, treedef = jax.tree_util.tree_flatten(defs, is_leaf=jax_is_def)
+        tree = jax.tree_util.tree_unflatten(
+            treedef, [a[f"tp_{tag}_w{i}"] for i in range(len(leaves))])
+        return jax.device_put(tree, jax_shardings(defs, tp_mesh))
+
+    def tp_jcfg(tag):
+        name, kw = TP_ARCHS[tag]
+        return dataclasses.replace(jax_arch(name).reduced(),
+                                   dtype="float32", **kw)
+
+    cfg = tp_jcfg("llama")
+    p = tp_tree(cfg, "llama")
+    toks = a["tp_tokens"]
+    batch = {"tokens": jnp.asarray(toks[:, :-1]),
+             "labels": jnp.asarray(toks[:, 1:])}
+    with tp_mesh:
+        logits, _ = jax.jit(lambda p, t: JT.forward_full(cfg, p, t))(
+            p, batch["tokens"])
+        (loss, _), grads = jax.jit(jax.value_and_grad(
+            lambda p, b: JT.loss_fn(cfg, p, b), has_aux=True))(p, batch)
+    res["tp_logits"], res["tp_loss"] = np.asarray(logits), float(loss)
+    for i, g in enumerate(jax.tree.leaves(grads)):
+        res[f"tp_g{i}"] = np.asarray(g)
+    for tag in ("granite", "qwen", "qwen_ep"):
+        cfg = tp_jcfg(tag)
+        p = tp_tree(cfg, tag.split("_")[0])
+        cdefs = JT.cache_defs(cfg, TP_B, TP_LEN)
+        cache = jax.device_put(
+            jax.tree.map(lambda pd: jnp.zeros(pd.shape, pd.dtype), cdefs,
+                         is_leaf=jax_is_def), jax_shardings(cdefs, tp_mesh))
+        step = jax.jit(lambda p, t, c, n, cfg=cfg: JT.decode_step(
+            cfg, p, t, c, n))
+        lens, steps = jnp.zeros((TP_B,), jnp.int32), []
+        with tp_mesh:
+            for t in range(TP_STEPS):
+                logits, cache = step(p, jnp.asarray(a["tp_dec"][:, t:t + 1]),
+                                     cache, lens)
+                lens = lens + 1
+                steps.append(np.asarray(logits))
+        res[f"tpdec_{tag}"] = np.stack(steps)
 
     cfg = dataclasses.replace(jax_arch("granite-20b").reduced(),
                               dtype="float32")
@@ -348,6 +447,139 @@ def _four_ranks(rank, world, tmp):
     return out
 
 
+def _full_leaves(tree, specs, mesh):
+    """Every leaf of a rank's tree made whole: the ranks' parts gathered
+    over 'model' and put together by each leaf's spec."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.axes import gather_slices
+    out = []
+    for leaf, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+        parts = comm.gather_parts(leaf.contiguous(), mesh, "model")
+        out.append(gather_slices({(0, r): p for r, p in enumerate(parts)},
+                                 spec, mesh))
+    return out
+
+
+def _tp_decode(cfg, params, a, mesh=None):
+    """TP_STEPS teacher-forced decode steps from an empty cache (the
+    rank's part of it under ``mesh``): every step's full logits."""
+    from repro_torch.models.params import local_defs, resident_axes
+    from repro_torch.sharding import comm
+    cache = init_params(local_defs(T.cache_defs(cfg, TP_B, TP_LEN), mesh,
+                                   resident_axes(cfg)), device="cpu")
+    lens, out = torch.zeros((TP_B,), dtype=torch.int32), []
+    for t in range(TP_STEPS):
+        logits, cache = T.decode_step(
+            cfg, params, torch.from_numpy(a["tp_dec"][:, t:t + 1].copy()),
+            cache, lens)
+        lens = lens + 1
+        out.append(torch.cat(comm.gather_parts(logits, mesh, "model"), -1))
+    return torch.stack(out).numpy()
+
+
+def _tp_batch(a):
+    toks = torch.from_numpy(a["tp_tokens"].astype(np.int64))
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _tp_on_ranks(mesh, a, out):
+    """llama3.2-1b's logits, loss and gradients, and the decode logits of
+    granite-20b and qwen3-moe, each rank on its tensor-parallel part."""
+    from repro_torch.models.params import (resident_axes, resident_specs,
+                                           shard_tree)
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.axes import use_mesh
+    from repro_torch.train import loss_and_grads
+    from repro_torch.train.step import _reduce_grads
+    cfg = _tp_cfg("llama")
+    defs, resident = T.param_defs(cfg), resident_axes(cfg)
+    local = shard_tree(_tree_of(cfg, a, "tp_llama"), defs, mesh, resident)
+    specs = resident_specs(defs, mesh, resident)
+    batch = _tp_batch(a)
+    with use_mesh(mesh):
+        logits, _ = T.forward_full(cfg, local, batch["tokens"])
+        loss, _, grads = loss_and_grads(cfg, local, batch)
+    out["tp_logits"] = torch.cat(comm.gather_parts(logits, mesh, "model"),
+                                 -1).numpy()
+    out["tp_loss"] = float(loss)
+    # the train step's reduction: a replicated leaf summed over 'model',
+    # every leaf divided by the mesh's size
+    grads = _reduce_grads(grads, specs, mesh, mesh.axis_names, mesh.size)
+    for i, g in enumerate(_full_leaves(grads, specs, mesh)):
+        out[f"tp_g{i}"] = g.numpy()
+    for tag in ("granite", "qwen", "qwen_ep"):
+        cfg = _tp_cfg(tag)
+        defs = T.param_defs(cfg)
+        local = shard_tree(_tree_of(cfg, a, f"tp_{tag.split('_')[0]}"), defs,
+                           mesh, resident_axes(cfg))
+        comm.reset_stats()
+        with use_mesh(mesh):
+            out[f"tpdec_{tag}"] = _tp_decode(cfg, local, a, mesh)
+        out[f"tpdec_{tag}_comm"] = comm.stats()["collectives"]
+
+
+TP_SERVES = {"batched": ({}, {}), "packed": ({}, {"pack": True}),
+             "fused": ({}, {"policy": "interleaved", "fuse": True,
+                            "superstep": 4}),
+             "int8": ({"kv_dtype": "int8"}, {})}
+
+
+def _tp_serve_params(kind):
+    cfg_kw, scfg_kw = TP_SERVES[kind]
+    cfg = dataclasses.replace(_tp_cfg("llama"), **cfg_kw)
+    return cfg, tree_map(lambda t: t.float(), init_params(
+        T.param_defs(cfg), device="cpu", seed=8)), scfg_kw
+
+
+def _tp_serves(mesh, out):
+    """The four llama3.2-1b engines on the rank's tensor-parallel part."""
+    from repro_torch.models.params import resident_axes, shard_tree
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.axes import use_mesh
+    for kind in TP_SERVES:
+        cfg, params, scfg_kw = _tp_serve_params(kind)
+        local = shard_tree(params, T.param_defs(cfg), mesh,
+                           resident_axes(cfg))
+        comm.reset_stats()
+        with use_mesh(mesh):
+            serve = _serve(cfg, local, **scfg_kw)
+        out[f"tpserve_{kind}"] = json.dumps(
+            dict(serve, comm=comm.stats()["collectives"]))
+
+
+def _tp_optim(mesh, out):
+    """AdamW and Adafactor on the ranks' parts of llama3.2-1b against the
+    full tree's update, the worst difference of any leaf."""
+    from repro_torch.models.params import (resident_axes, resident_specs,
+                                           shard_tree, tree_leaves)
+    from repro_torch.optim import (AdafactorConfig, AdamWConfig,
+                                   adafactor_init, adafactor_update,
+                                   adamw_init, adamw_update)
+    cfg = _tp_cfg("llama")
+    defs, resident = T.param_defs(cfg), resident_axes(cfg)
+    full = tree_map(lambda t: t.float(), init_params(defs, device="cpu",
+                                                     seed=9))
+    rng = np.random.default_rng(10)
+    grads = tree_map(lambda t: torch.from_numpy(
+        rng.standard_normal(tuple(t.shape)).astype(np.float32)), full)
+    specs = resident_specs(defs, mesh, resident)
+    part = lambda tree: shard_tree(tree, defs, mesh, resident)  # noqa: E731
+    for name, init, update, ocfg in (
+            ("adamw", adamw_init, adamw_update, AdamWConfig()),
+            ("adafactor", adafactor_init, adafactor_update,
+             AdafactorConfig(weight_decay=0.1))):
+        want = update(full, grads, init(full), 1e-2, ocfg)[0]
+        got = update(part(full), part(grads), init(part(full)), 1e-2, ocfg,
+                     specs, mesh)[0]
+        out[f"tpopt_{name}"] = max(
+            float((g - w).abs().max()) for g, w in zip(
+                tree_leaves(got), tree_leaves(part(want))))
+        out[f"tpopt_{name}_moved"] = max(
+            float((g - w).abs().max()) for g, w in zip(
+                tree_leaves(got), tree_leaves(part(full))))
+
+
 def _two_ranks(rank, world, tmp):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.params import resident_axes, shard_tree
@@ -405,6 +637,9 @@ def _two_ranks(rank, world, tmp):
         out[f"dp_{k}"] = float(v)
     for i, leaf in enumerate(_leaves(new)):
         out[f"dp_p{i}"] = leaf.numpy()
+    _tp_on_ranks(model2, a, out)
+    _tp_serves(model2, out)
+    _tp_optim(model2, out)
     return out
 
 
@@ -421,10 +656,10 @@ def _dp_batch(cfg):
 SERVE_PROMPTS = (9, 40, 23)
 
 
-def _serve(cfg, params):
+def _serve(cfg, params, **scfg_kw):
     from repro_torch.serve import ServeConfig, ServeEngine
     eng = ServeEngine(cfg, params, ServeConfig(
-        max_slots=4, max_len=64, prefill_chunk=16), device="cpu")
+        max_slots=4, max_len=64, prefill_chunk=16, **scfg_kw), device="cpu")
     rng = np.random.default_rng(7)
     for n in SERVE_PROMPTS:
         eng.add_request(rng.integers(0, cfg.vocab_size, n),
@@ -566,9 +801,13 @@ def test_layout_b_decode_matches_the_reference_and_layout_a(runs, m):
 
 
 def test_layout_b_engine_serve_on_two_ranks_matches_one_rank(runs):
-    """granite-20b .reduced() (KH 1) on (1, 2): each rank holds 32 of the
-    64 positions; greedy tokens, dispatches and host syncs equal the
-    one-rank engine's; one gather an attention layer a dispatch."""
+    """granite-20b .reduced() (KH 1) on (1, 2), tensor-parallel with its
+    cache in layout B: each rank holds 32 of the 64 positions and half the
+    heads, d_ff and vocabulary; greedy tokens, dispatches and host syncs
+    equal the one-rank engine's. The collectives: a prefill chunk psums
+    the embedding, and a layer gathers the prefix and psums ``wo`` and the
+    MLP; a decode step also gathers the query heads and combines the
+    partials a layer, and merges the sampled argmax."""
     cfg = dataclasses.replace(get_arch("granite-20b").reduced(),
                               dtype="float32")
     params = tree_map(lambda t: t.float(), init_params(
@@ -578,9 +817,89 @@ def test_layout_b_engine_serve_on_two_ranks_matches_one_rank(runs):
         got = json.loads(str(r["serve"]))
         comm = got.pop("comm")
         assert got == want
-        dc = want["dispatches"]
-        assert comm == cfg.num_layers * (dc["prefill"] + dc["decode"]
-                                         + dc.get("fused", 0))
+        dc, n = want["dispatches"], cfg.num_layers
+        assert dc.get("fused", 0) == 0
+        assert comm == dc["prefill"] * (1 + 3 * n) + dc["decode"] * (2 + 4 * n)
+
+
+# --------------------------------------------------------------------------- #
+# tensor parallelism on (1, 2)
+# --------------------------------------------------------------------------- #
+def test_tensor_parallel_llama_logits_loss_and_gradients(runs):
+    """llama3.2-1b .reduced() with heads, KV heads, d_ff and the tied
+    vocabulary split over 'model': the gathered logits, the loss and
+    every gradient leaf (after the train step's reduction) against the
+    reference under GSPMD on the same weights and the port's one rank."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import loss_and_grads
+    a, ref = runs["inputs"], runs["ref"]
+    cfg = _tp_cfg("llama")
+    full = _tree_of(cfg, a, "tp_llama")
+    batch = _tp_batch(a)
+    logits, _ = T.forward_full(cfg, full, batch["tokens"])
+    loss, _, grads = loss_and_grads(cfg, full, batch)
+    grads = [g.numpy() for g in tree_leaves(grads)]
+    for r in runs["two"]:
+        for want in (ref["tp_logits"], logits.numpy()):
+            np.testing.assert_allclose(r["tp_logits"], want, **TOL)
+        for want in (ref["tp_loss"], float(loss)):
+            np.testing.assert_allclose(float(r["tp_loss"]), float(want),
+                                       **TOL)
+        for i, g in enumerate(grads):
+            np.testing.assert_allclose(r[f"tp_g{i}"], ref[f"tp_g{i}"], **TOL,
+                                       err_msg=f"leaf {i}")
+            np.testing.assert_allclose(r[f"tp_g{i}"], g, **TOL,
+                                       err_msg=f"leaf {i}")
+
+
+@pytest.mark.parametrize("tag", ["granite", "qwen", "qwen_ep"])
+def test_tensor_parallel_decode_logits(runs, tag):
+    """10 teacher-forced decode steps on (1, 2): granite-20b (KH 1:
+    layout B, the cache's 16 positions over the ranks, the steps crossing
+    into the second shard) and qwen3-moe (KH 2 = m: layout A, one KV head
+    a rank; its experts split over 'model' by the non-EP path and by
+    expert parallelism) against the reference under GSPMD and the port's
+    one rank. Both ranks' logits are the same bits."""
+    a, ref = runs["inputs"], runs["ref"]
+    cfg = _tp_cfg(tag)
+    one = _tp_decode(cfg, _tree_of(cfg, a, f"tp_{tag.split('_')[0]}"), a)
+    for r in runs["two"]:
+        np.testing.assert_allclose(r[f"tpdec_{tag}"], ref[f"tpdec_{tag}"],
+                                   **TOL)
+        np.testing.assert_allclose(r[f"tpdec_{tag}"], one, **TOL)
+        assert int(r[f"tpdec_{tag}_comm"]) > 0
+    np.testing.assert_array_equal(runs["two"][0][f"tpdec_{tag}"],
+                                  runs["two"][1][f"tpdec_{tag}"])
+
+
+@pytest.mark.parametrize("kind", list(TP_SERVES))
+def test_tensor_parallel_engines_match_one_rank(runs, kind):
+    """llama3.2-1b .reduced() served on (1, 2) against the one-rank
+    engine: greedy tokens, dispatches and host syncs, batched, packed,
+    fused with supersteps of 4 and with the int8 cache. The batched
+    serve's collectives are the plan: a prefill chunk psums the embedding
+    and two a layer (attention's and the MLP's ``wo``), a decode step the
+    same and the sampled argmax's gather."""
+    cfg, params, scfg_kw = _tp_serve_params(kind)
+    want = _serve(cfg, params, **scfg_kw)
+    for r in runs["two"]:
+        got = json.loads(str(r[f"tpserve_{kind}"]))
+        comm = got.pop("comm")
+        assert got == want
+        if kind == "batched":
+            dc, n = want["dispatches"], cfg.num_layers
+            assert comm == dc["prefill"] * (1 + 2 * n) \
+                + dc["decode"] * (2 + 2 * n)
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_tensor_parallel_optimizers_update_the_full_tree(runs, name):
+    """AdamW (its clip norm over the ranks' parts) and Adafactor (its row
+    and column means and its RMS over sharded dims) on the ranks' parts
+    give each rank its part of the full tree's update."""
+    for r in runs["two"]:
+        assert float(r[f"tpopt_{name}"]) <= 1e-6
+        assert float(r[f"tpopt_{name}_moved"]) > 1e-4
 
 
 # --------------------------------------------------------------------------- #

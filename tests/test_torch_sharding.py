@@ -415,3 +415,150 @@ def test_compress_grads_without_a_mesh_compresses_nothing():
     assert float(mg["grad_norm"]) == float(mw["grad_norm"])
     for a, b in zip(tree_leaves(got), tree_leaves(want)):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------- #
+# tensor parallelism: the resident layout and the combines on emulated
+# shards (one process: each rank's part computed here, then merged)
+# --------------------------------------------------------------------------- #
+TP_FAMILIES = {"llama3.2-1b": "dense", "granite-20b": "dense",
+               "qwen3-moe-30b-a3b": "moe", "rwkv6-7b": "ssm",
+               "jamba-v0.1-52b": "hybrid", "whisper-medium": "encdec",
+               "pixtral-12b": "vlm"}
+
+
+@pytest.mark.parametrize("arch", sorted(TP_FAMILIES))
+@pytest.mark.parametrize("impl", ["gspmd", "ep"])
+def test_resident_axes_by_family_and_profile(arch, impl):
+    """``dense`` and ``moe``: the tensor-parallel axes, the cache's
+    sequence and (EP) the ZeRO-3 slices, every leaf's resident spec on
+    (1, 2) the rule table's (``assert_unified_layout``); the other four
+    families: the cache's sequence and the experts under EP alone. Under
+    ``dp`` a (1, 2) rank holds every leaf whole whatever the axes."""
+    from repro_torch.core.unified_memory import assert_unified_layout
+    from repro_torch.models.params import resident_axes
+    cfg = dataclasses.replace(get_arch(arch), moe_impl=impl)
+    got = resident_axes(cfg)
+    assert cfg.family == TP_FAMILIES[arch]
+    ep = ("experts", "fsdp") if impl == "ep" else ()
+    mesh = Mesh((1, 2), ("data", "model"))
+    defs = T.param_defs(cfg.reduced())
+    if cfg.family in ("dense", "moe"):
+        assert set(got) == {"heads", "kv_heads", "d_ff", "vocab", "experts",
+                            "kv_seq"} | set(ep)
+        stats = assert_unified_layout(defs, mesh, cfg.reduced())
+        assert stats["resident_param_bytes"] < stats["param_bytes"]
+    else:
+        assert set(got) == {"kv_seq"} | set(ep)
+    token = X.set_profile("dp")
+    try:
+        local = local_defs(defs, mesh, got)
+    finally:
+        X._active_profile.reset(token)
+    assert [pd.shape for pd in tree_leaves(local)] == \
+        [pd.shape for pd in tree_leaves(defs)]
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (16, 16)])
+def test_llama_resident_bytes_are_the_rule_tables(mesh_shape):
+    """llama3.2-1b's resident bytes a rank: its leaves cut by the
+    reference's rule table (heads, KV heads where the extent divides them,
+    d_ff and the vocabulary over 'model'); on (1, 2) at most 0.51 of the
+    tree's 1,235,814,400 parameters, the norms alone whole.
+    ``assert_unified_layout`` reports the same bytes."""
+    from repro_torch.core.unified_memory import assert_unified_layout
+    from repro_torch.models.params import (param_bytes, param_count,
+                                           resident_axes)
+    cfg = get_arch("llama3.2-1b")
+    defs = T.param_defs(cfg)
+    mesh = Mesh(mesh_shape, ("data", "model"))
+    got = param_bytes(local_defs(defs, mesh, resident_axes(cfg)))
+    want = 0
+    for pd in _jax_leaves(RT.param_defs(jax_arch("llama3.2-1b"))):
+        spec = tuple(JX.logical_spec(pd.shape, pd.logical_axes, mesh))
+        want += int(np.prod(X.local_shape(pd.shape, spec, mesh))) * 2
+    assert got == want
+    assert param_count(defs) == 1_235_814_400
+    if mesh_shape == (1, 2):
+        assert got <= 0.51 * 2 * param_count(defs)
+        whole = [pd for pd in tree_leaves(local_defs(
+            defs, mesh, resident_axes(cfg))) if pd in tree_leaves(defs)]
+        assert {pd.logical_axes[-1] for pd in whole} == {"d_model"}
+        assert all(len(pd.shape) <= 2 for pd in whole)     # the norms
+    stats = assert_unified_layout(defs, mesh, cfg)
+    assert stats["resident_param_bytes"] == want
+
+
+def test_vocab_parallel_cross_entropy_on_emulated_shards():
+    """Four vocabulary shards' ``xent_stats`` merged by ``merge_xent``:
+    the one-rank NLL, and through autograd the one-rank logits'
+    gradient (the shards' in order), labels in every shard."""
+    from repro_torch.models import layers as L
+    g = np.random.default_rng(4)
+    V, m = 64, 4
+    full = torch.from_numpy(g.standard_normal((3, 5, V)).astype(np.float32)
+                            * 4).requires_grad_()
+    labels = torch.from_numpy(g.integers(0, V, (3, 5)))
+    want = torch.logsumexp(full, -1) - full.gather(-1, labels[..., None])[
+        ..., 0]
+    (dwant,) = torch.autograd.grad(want.sum(), full)
+    shards = [full.detach()[..., r * V // m:(r + 1) * V // m].clone()
+              .requires_grad_() for r in range(m)]
+    parts = [L.xent_stats(x, labels, r * V // m)
+             for r, x in enumerate(shards)]
+    got = L.merge_xent(parts)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+    dgot = torch.autograd.grad(got.sum(), shards)
+    torch.testing.assert_close(torch.cat(dgot, -1), dwant, rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_sharded_argmax_takes_the_lowest_global_index_on_a_tie():
+    """``merge_argmax`` over emulated shards equals ``torch.argmax`` of
+    the whole row: ties within a shard, across shards and a max held by a
+    later shard alone."""
+    from repro_torch.sharding import comm
+    rows = torch.tensor([[1., 5., 5., 0., 5., 5.],
+                         [0., 1., 2., 7., 3., 7.],
+                         [2., 2., 2., 2., 2., 2.],
+                         [0., 0., 0., 0., 0., 9.]])
+    for m in (1, 2, 3, 6):
+        w = rows.shape[1] // m
+        parts = []
+        for r in range(m):
+            x = rows[:, r * w:(r + 1) * w]
+            idx = torch.argmax(x, -1)
+            parts.append(torch.stack([x.gather(-1, idx[:, None])[:, 0].double(),
+                                      (idx + r * w).double()], -1))
+        assert torch.equal(comm.merge_argmax(parts), torch.argmax(rows, -1))
+
+
+def test_global_index_gumbel_noise_is_the_whole_draws():
+    """A vocabulary shard's noise hashes each cell's global index: the
+    shards side by side are the unsharded draw, bit for bit."""
+    draw = torch.tensor(11)
+    whole = T.gumbel_noise(5, draw, (3, 48), "cpu")
+    for m in (2, 3):
+        w = 48 // m
+        parts = [T.gumbel_noise(5, draw, (3, w), "cpu", r * w, 48)
+                 for r in range(m)]
+        assert torch.equal(torch.cat(parts, -1), whole)
+
+
+def test_seq_shard_takes_kv_heads_equal_to_m_for_layout_a():
+    """qwen3-moe .reduced() (KH 2) on (1, 2): a rank holds one KV head,
+    and 1 % 2 != 0 must not read as layout B; granite-20b (KH 1) is
+    layout B, the second rank's shard starting at S / 2."""
+    from repro_torch.models import attention as A
+    mesh = Mesh((1, 2), ("data", "model"), rank=1)
+    qwen = get_arch("qwen3-moe-30b-a3b").reduced()
+    granite = get_arch("granite-20b").reduced()
+    one_head = torch.zeros(2, 1, 32, 16)
+    assert A._seq_shard(qwen, one_head, mesh) == (None, 0)
+    half = torch.zeros(2, 1, 16, 16)
+    assert A._seq_shard(granite, half, mesh) == (mesh, 16)
+    token = X.set_profile("dp")
+    try:
+        assert A._seq_shard(granite, half, mesh) == (None, 0)
+    finally:
+        X._active_profile.reset(token)
