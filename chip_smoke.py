@@ -96,8 +96,8 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      counts and host syncs must be identical, and on the card the packed
      serve must give the unpacked one's tokens, decode dispatches and
      host syncs;
-  5. serve 8 requests (prompts of 8-64 tokens, 16 new tokens each)
-     through rwkv6-7b at full width (bf16, random weights from a seed):
+  5. serve 8 requests (prompts of 8-64 tokens cut to 24, 16 new tokens
+     each) through rwkv6-7b at full width (bf16, random weights from a seed):
      sequential prefill and decode through ``pim_matvec`` and the norm
      kernel, one host sync per decode step and no hidden one;
   5b. run rwkv6-7b's full-sequence prefill step (B 2, S 2048,
@@ -108,8 +108,8 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      card against the plain versions on the CPU: the serve gives identical
      greedy tokens, dispatch counts and host syncs, the prefill step at
      S 256 logits within 1e-4;
-  7. serve 8 requests (prompts of 8-64 tokens, 16 new tokens each)
-     through jamba-v0.1-52b at full width cut to depth 8 (one whole Jamba
+  7. serve 8 requests (prompts of 8-64 tokens cut to 24, 16 new tokens
+     each) through jamba-v0.1-52b at full width cut to depth 8 (one whole Jamba
      period: 7 Mamba layers, attention at layer 4, MoE on layers 1, 3, 5,
      7; bf16, random weights from a seed; its 32 layers do not fit one
      card): sequential prefill and decode through ``pim_matvec``, the norm
@@ -304,9 +304,10 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
   20c. training gpt2-2.5b at full width cut to 2 of 54 layers (d 1920,
      20 heads of 96, tied), ``SyntheticLM`` batches of 4 x 1024, 10 steps
      as 17: flash 4 and its backward 2 a step at D 96.
-  21. two ranks on the one card, spawned once (gloo over a file store; a
-     150 s limit on the group, 300 s on the spawn; a rank that fails fails
-     the run). Every collective is an all-gather over gloo, its CUDA
+  21. two ranks on the one card, spawned once for phases 21, 22 and 23
+     (gloo over a file store; a 150 s limit on the group, on a rank 300 s
+     for phase 21, 120 for 22 and 150 for 23; a rank that fails fails the
+     run). Every collective is an all-gather over gloo, its CUDA
      payload staged through pinned host buffers and counted
      (``sharding/comm.py``); whether gloo also takes CUDA tensors itself
      is logged. (a) granite-20b at full width (d 6144, 48 heads on one KV
@@ -331,11 +332,35 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      payload, a quarter of float32's bytes, metrics). Logged for each:
      ms a decode or train step, each rank's peak memory, the collectives
      and their ms (CUDA events), rank 0's busy share (a profiled serve or
-     step), and the phase's seconds (at most 120).
+     step), and the phase's seconds.
+  22. the same ranks, tensor-parallel on (1, 2): (a) llama3.2-1b at full
+     size served, (b) 4 of its 16 layers trained.
+  23. the same ranks, tensor-parallel on (1, 2), the other families at
+     full width: (a) rwkv6-7b cut to 4 of 32 layers (32 of 64 heads and
+     half of d_ff a rank): a serve of 4 prompts of at most 12 tokens, 8
+     new, its 2-layer training (B 1 x 2048, 3 AdamW steps: the first
+     step's loss within 1e-2 of one rank's; its gradient on uniform
+     tokens within 1e-2 of one rank's, on the train batch, whose stream
+     falls onto one token, off float32's by at most twice one rank's bf16
+     error; float32 at S 64 within 1e-4), the prefill step at B 1 x 2048;
+     (b)
+     jamba-v0.1-52b at one period (8 of 32; d_inner 4,096, 16 / 4 heads
+     and 8 of 16 experts a rank): the same serve, the prefill step at B 2
+     x 2048; (c) whisper-medium whole (8 of 16 heads, its odd vocabulary
+     whole): a generate of 8 rows over 1,500 frames, the prefill step;
+     (d) pixtral-12b cut to 4 of 40 (16 / 4 heads of 160): phase 3's
+     serve and the prefill step with 256 patches. Each: its collectives
+     exactly the plan (``tp_layer_collectives``), one rank's launches a
+     step (``tp_step_launches``) and, by shape, its plan
+     (``launch_shapes``: ``tp_serve_shapes`` and each run's own), the
+     rank's ``local_defs`` bytes and
+     share, depth-2 float32 serves equal one rank's, and the bf16 logit
+     error at most twice one rank's at depth 2.
 
-``--phases 2,12,12b,12c,14,15,16,17,18,19,20,20c,21`` (any of them)
-builds the kernels and runs only the named phases (14 with 14b, 15 with
-15b, 16 with 16b and 16c, 17 with 17b, 18 with 18b, 20 with 20b) and
+``--phases 2,12,12b,12c,14,15,16,17,18,19,20,20c,21,22,23,21-23`` (any
+of them) builds the kernels and runs only the named phases (14 with 14b,
+15 with 15b, 16 with 16b and 16c, 17 with 17b, 18 with 18b, 20 with 20b,
+21-23 the three in one spawn; 21, 22, 23 each in its own) and
 phase 13's checks of their traces, printing no result lines (a
 development run).
 
@@ -351,7 +376,11 @@ wkv's backward by phase 17, the Mamba scan's and the flash backward at D
 shapes by phase 19, the flash backward at D 96 by phase 20c and at D
 160 by phase 20, and at D 112, which no path launches: 0 launches, its
 ``checked_calls`` those of phase 2; then decode attention's partial mode
-with rank 0's launches in phase 21a's serve), then
+with rank 0's launches in phase 21a's serve, the kernels at llama's
+tensor-parallel shapes with the launches rank 0 counted at each shape in
+phase 22a, and each kernel at phase 23's shapes with those rank 0
+counted there, the Mamba scan's backward at a rank's shape with none),
+then
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when there is no CUDA device, when the port's sources are missing,
 or when any phase fails.
@@ -445,7 +474,8 @@ NORM_SHAPES = (("rmsnorm", 1024, 2048), ("rmsnorm", 8, 2048),
                ("layernorm", 1024, 1920), ("layernorm", 8, 1920),
                ("rmsnorm", 2048, 7168), ("layernorm", 3000, 1024),
                ("layernorm", 8, 1024), ("rmsnorm", 2048, 5120),
-               ("rmsnorm", 8, 5120))
+               ("rmsnorm", 8, 5120), ("layernorm", 896, 1024),
+               ("layernorm", 12000, 1024))
 # the flash shapes at the reference's head dims that are no multiple of 64,
 # as (B, S, cache L, offset, H, KH, D): gpt2-2.5b's prefill chunk (MHA, 20
 # heads of 96), kimi-k2's prefill step (S 1024 causal, 64 / 8 heads of
@@ -458,7 +488,17 @@ WIDE_FLASH = ((8, 128, 1024, 512, 20, 20, 96), (2, 37, 300, 128, 20, 20, 96),
 # attention in the prefill step (448 queries against the 1,500 frames),
 # and a small ragged case
 NON_CAUSAL_FLASH = ((2, 1500, 1500, 16, 16, 64), (2, 448, 1500, 16, 16, 64),
-                    (2, 100, 300, 16, 16, 64))
+                    (2, 100, 300, 16, 16, 64), (2, 1500, 1500, 8, 8, 64),
+                    (2, 448, 1500, 8, 8, 64), (8, 1500, 1500, 8, 8, 64))
+# the causal flash calls of phase 23's prefill steps and pixtral's serve on
+# one of two tensor-parallel ranks, as (B, S, cache L, offset, H, KH, D):
+# jamba's attention layer (16 / 4 heads of 128), pixtral-12b's step (256
+# patches + 768 tokens) and prefill chunk (16 / 4 heads of 160), and
+# whisper-medium's decoder (448 tokens, 8 / 8 heads of 64)
+FAMILY_TP2_FLASH = ((2, 2048, 2048, 0, 16, 4, 128),
+                    (2, 1024, 1024, 0, 16, 4, 160),
+                    (8, 128, 1024, 512, 16, 4, 160),
+                    (2, 448, 448, 0, 8, 8, 64))
 # the flash backward, as (B, S, Skv, H, KH, D, causal): llama3.2-1b's
 # training shape (phase 16's batch of 4 x 1024), a ragged S, jamba's
 # attention layer in phase 18 (B 2 x S 2048, 32 / 8 heads of 128), the
@@ -487,14 +527,19 @@ FLASH_BWD = ((4, 1024, 1024, 32, 8, 64, True),
 # the wkv backward, as (BH, T, K, U, strong decays, with dS_T): rwkv6-7b's
 # training call in phase 17 (B 2 x 64 heads of 64, S 2048, u (H, K)
 # broadcast over the batch, no gradient of S_T), a ragged last sub-chunk
-# with dS_T, U < BH at K 16 and T 37, and the model's strong decays
+# with dS_T, U < BH at K 16 and T 37, the model's strong decays, and
+# phase 23a's training call on one of two tensor-parallel ranks (B 1 x 32
+# heads)
 RWKV_BWD = ((128, 2048, 64, 64, False, False), (4, 200, 64, 4, False, True),
-            (6, 37, 16, 3, False, True), (16, 512, 64, 16, True, False))
+            (6, 37, 16, 3, False, True), (16, 512, 64, 16, True, False),
+            (32, 2048, 64, 32, False, False))
 # the Mamba scan's backward, as (B, T, d_inner, d_state, with dh_T): jamba's
 # training call in phase 18 (B 2 x S 2048), a ragged last checkpoint with
-# dh_T at full width, and the reduced widths at a ragged T
+# dh_T at full width, and the reduced widths at a ragged T; then jamba's
+# B 2 x S 2048 on one of two tensor-parallel ranks (d_inner 4,096)
 MAMBA_BWD = ((2, 2048, 8192, 16, False), (1, 200, 8192, 16, True),
-             (2, 37, 128, 4, True), (2, 37, 100, 5, False))
+             (2, 37, 128, 4, True), (2, 37, 100, 5, False),
+             (2, 2048, 4096, 16, False))
 NORM_BWD_SHAPES = tuple((m, r, 2048) for m in ("rmsnorm", "layernorm",
                                                "np_layernorm")
                         for r in (4096, 1027))
@@ -570,7 +615,7 @@ def kernel_cases(torch, dtype):
                                     (2, 37, 300, 128, H, KH, D),
                                     (2, 2048, 2048, 0, H, KH, 128),
                                     (4, 1024, 1024, 0, H, KH, D)) \
-            + WIDE_FLASH:
+            + WIDE_FLASH + FAMILY_TP2_FLASH:
         q = rn(B, h, S, hd)
         kc, vc = rn(B, kh, L, hd), rn(B, kh, L, hd)
         span = min(off + S, L)
@@ -655,7 +700,14 @@ def kernel_cases(torch, dtype):
             (3, 300, (1, 299, 130), H, KH, D),
             (8, 256, (3, 67, 130, 200, 255, 19, 101, 250), H, KH, 128),
             (8, 1500, (1500,) * 8, 16, 16, D),
-            (8, 1024, (1, 77, 700, 1023, 1024, 5, 333, 512), 32, 8, 160)):
+            (8, 1024, (1, 77, 700, 1023, 1024, 5, 333, 512), 32, 8, 160),
+            # phase 23 on one of two tensor-parallel ranks: whisper's
+            # cross and self caches (8 / 8 heads), jamba's (16 / 4 of 128,
+            # the mesh serve's max_len 1024) and pixtral's (16 / 4 of 160)
+            (8, 1500, (1500,) * 8, 8, 8, D),
+            (8, 448, (1, 8, 9, 24, 63, 64, 65, 448), 8, 8, D),
+            (8, 1024, (1, 64, 65, 341, 342, 700, 1023, 1024), 16, 4, 128),
+            (8, 1024, (1, 77, 700, 1023, 1024, 5, 333, 512), 16, 4, 160)):
         q, k, v = rn(B, h, hd), rn(B, kh, L, hd), rn(B, kh, L, hd)
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         mask = (torch.arange(L, device="cuda")[None, :]
@@ -733,6 +785,13 @@ def kernel_cases(torch, dtype):
         + [(8, d, d // 2, "none"), (8, d // 2, d, "none"),
            (8, d, f // 2, "silu"), (8, d, f // 2, "none"),
            (8, f // 2, d, "none")]
+    # and phase 23's: each family's decode FCs on one of two
+    # tensor-parallel ranks (``tp_gemv_plan``), those not already above
+    for label in family_tp2_gemv():
+        n_, dims, act = label.split()
+        shape = (int(n_[1:]), *map(int, dims.split("->")), act)
+        if shape not in shapes:
+            shapes.append(shape)
     for n, din, dout, act in shapes:
         x, w = rn(n, din), rn(din, dout, scale=din ** -0.5)
         lib_act = {"silu": F.silu, "none": lambda t: t,
@@ -747,8 +806,10 @@ def kernel_cases(torch, dtype):
             flops=2.0 * n * din * dout))
     # rwkv_chunk: the full-sequence prefill step's call as rwkv_time_mix
     # makes it (B 2 x H 64 heads of 64, T 2048; u (H, K) broadcast over the
-    # batch; y in f32), a ragged T with u per row and y in r's dtype, a
-    # narrow head, and the model's strong decays; r, k, v in the case's
+    # batch; y in f32), B 1 on one of two tensor-parallel ranks (32 heads:
+    # phase 23a's prefill step and training), a ragged T with u per row
+    # and y in r's dtype, a narrow head, and the model's strong decays;
+    # r, k, v in the case's
     # dtype, decays in f32: exp(-exp(w0)) with w0 = log U(1e-3, 1) (many
     # near 1), or ("strong") w0 over ssm.py's clamp [-10, 4], down to about
     # 2e-24 a step. f32 takes the CUDA cores, bf16 the tensor-core route:
@@ -757,6 +818,7 @@ def kernel_cases(torch, dtype):
     # kernels
     for BH, T_, K, U, y_dtype, strong in (
             (128, 2048, 64, 64, torch.float32, False),
+            (32, 2048, 64, 32, torch.float32, False),
             (4, 200, 64, 4, None, False), (6, 37, 16, 6, None, False),
             (16, 512, 64, 16, torch.float32, True)):
         r, k, v = (rn(BH, T_, K, scale=0.5) for _ in range(3))
@@ -785,14 +847,16 @@ def kernel_cases(torch, dtype):
             flops=flops))
     # mamba_chunk: the full-sequence prefill step's call as mamba_mix makes
     # it (B 2, T 2048, d_inner 8192, d_state 16; a, u and C in f32 whatever
-    # the model's dtype), a ragged T, and the reduced config's widths; the
-    # model's discretization (a = exp(dt A), u = dt x B). Timed in f32.
+    # the model's dtype), a ragged T, the reduced config's widths, and the
+    # step's call on one of two tensor-parallel ranks (d_inner 4,096,
+    # phase 23b); the model's discretization (a = exp(dt A), u = dt x B).
+    # Timed in f32.
     # Under a gradient the kernel also writes h before every 16 steps, the
     # checkpoints of mamba_chunk_bwd ("ck"): held against h of the plain
     # recurrence at those steps (mamba_checkpoints_ref), and timed beside
     # the serving call that writes none
     for B, T_, di, n in ((2, 2048, 8192, 16), (1, 200, 8192, 16),
-                         (2, 37, 128, 4)):
+                         (2, 37, 128, 4), (2, 2048, 4096, 16)):
         if dtype == torch.bfloat16 and T_ == 2048:
             continue              # the bf16 instantiation: the small cases
         a, u, C = mamba_inputs(torch, g, B, T_, di, n, dtype)
@@ -1267,9 +1331,12 @@ def check_kernels(torch) -> dict:
             t0 = time.perf_counter()
             want = flat(torch, c["plain"]())
             torch.cuda.synchronize()
-            # a plain version slower than 50 ms a call is timed over 5
-            plain_kw = dict(iters=5, warmup=1) \
-                if time.perf_counter() - t0 > 0.05 else {}
+            # a plain version slower than 50 ms a call is timed over 5,
+            # one slower than 0.5 s (the recurrences' step loops at T 2048)
+            # over 3
+            slow = time.perf_counter() - t0
+            plain_kw = dict(iters=3, warmup=0) if slow > 0.5 else \
+                dict(iters=5, warmup=1) if slow > 0.05 else {}
             # a kernel that merges splits in a fixed order: a second call
             # gives the same bits
             again = flat(torch, c["run"]()) if c.get("deterministic") \
@@ -2154,9 +2221,9 @@ def device_profile(torch, fn, top: int = 8) -> dict:
 
 def recurrent_full_width(torch, cfg, name: str, phases, required,
                          expect) -> dict:
-    """A serve (phase ``phases[0]``: 8 requests, 16 new tokens each,
-    ``ServeConfig(max_slots=8, max_len=256)``; the kernels in ``required``
-    must launch) and the prefill step at B 2 x S 2048 (``phases[1]``;
+    """A serve (phase ``phases[0]``: 8 requests, their prompts cut to 24
+    tokens, 16 new tokens each, ``ServeConfig(max_slots=8, max_len=256)``;
+    the kernels in ``required`` must launch) and the prefill step at B 2 x S 2048 (``phases[1]``;
     launches as in ``expect``) on one set of bf16 weights from a seed,
     then a profile of each; with a third phase name, ``bf16_steps`` last
     (the prompts cut to 16 tokens, the prefill step at B 2 x S 1024)."""
@@ -2168,9 +2235,12 @@ def recurrent_full_width(torch, cfg, name: str, phases, required,
     # one short unmeasured serve first (module loads, cuBLAS's choices)
     serve_engine(cfg, params, prompts=[prompts[0][:3]], max_new=2,
                  **kw).run_until_done()
+    # each prompt token but the last is one dispatch of the whole stack
+    # (the sequential prefill): 24 tokens keep the whole run in its limit
     t0 = time.perf_counter()
     serve = full_width_serve(torch, cfg, params, f"{phases[0]} {name} serve",
-                             required, prompts=prompts, max_new=16, **kw)
+                             required, prompts=[p[:24] for p in prompts],
+                             max_new=16, **kw)
     log(f"phase {phases[0]} took {time.perf_counter() - t0:.1f} s")
     log(f"serve {phases[0]} {name} " + json.dumps(
         {k: v for k, v in serve.items() if k != "tokens"}))
@@ -2973,35 +3043,108 @@ FLEET_PHASES = {"12": chaos_fleet, "12b": serving_fleet, "12c": fleet_parity}
 # --------------------------------------------------------------------------- #
 # phases 14-15b: whisper-medium's encoder-decoder, pixtral-12b's patches
 # --------------------------------------------------------------------------- #
+def flash_key(B, H, KH, Sq, Skv, D, causal=True, off=0) -> str:
+    return (f"flash_attention B{B} H{H}/{KH} Sq{Sq} Skv{Skv} off{off} D{D} "
+            + ("causal" if causal else "non-causal"))
+
+
+def decode_key(B, H, KH, L, D) -> str:
+    return f"decode_attention B{B} H{H}/{KH} L{L} D{D}"
+
+
+def gemv_key(label: str) -> str:
+    return f"pim_matvec {label}"
+
+
+def rwkv_key(BH, T, K, bwd: bool = False) -> str:
+    return f"rwkv_chunk{'_bwd' if bwd else ''} BH{BH} T{T} K{K}"
+
+
+def mamba_key(B, T, d, n) -> str:
+    return f"mamba_chunk B{B} T{T} d{d} n{n}"
+
+
+def bwd_key(B, H, KH, Sq, Skv, D, causal=True) -> str:
+    return (f"flash_attention_bwd B{B} H{H}/{KH} Sq{Sq} Skv{Skv} D{D} "
+            + ("causal" if causal else "non-causal"))
+
+
+# the dispatch layer's kernel wrappers that ``launch_shapes`` wraps: the
+# kernel whose launch count each adds to, and the key of a call from its
+# arguments
+SHAPE_KEYS = {
+    "_flash": ("flash_attention", lambda q, k, v, causal=True, q_offset=0,
+               **_: flash_key(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                              k.shape[2], q.shape[3], causal, q_offset)),
+    "_decode": ("decode_attention", lambda q, k, v, lengths,
+                return_lse=False: decode_key(
+                    q.shape[0], q.shape[1], k.shape[1], k.shape[2],
+                    q.shape[2]) + (" partial" if return_lse else "")),
+    "_matvec": ("pim_matvec", lambda x, w, bias=None, activation="none":
+                gemv_key(f"n{x.shape[0]} {w.shape[0]}->{w.shape[1]} "
+                         f"{activation}")),
+    "_rwkv_chunk": ("rwkv_chunk", lambda r, *_, **__: rwkv_key(*r.shape)),
+    "_rwkv_chunk_bwd": ("rwkv_chunk_bwd", lambda r, *_, **__: rwkv_key(
+        *r.shape, bwd=True)),
+    "_mamba_chunk": ("mamba_chunk", lambda a, *_, **__: mamba_key(*a.shape)),
+    "_flash_bwd": ("flash_attention_bwd", lambda q, k, v, o, lse, do,
+                   causal=True: bwd_key(q.shape[0], q.shape[1], k.shape[1],
+                                        q.shape[2], k.shape[2], q.shape[3],
+                                        causal)),
+}
+
+
 @contextlib.contextmanager
-def attention_shapes(ops):
-    """Within it, each launch of the static flash kernel is tallied by
-    ("flash", causal, Sq, Skv, D) and each of the decode kernel by
-    ("decode", S, D): the kernels count their launches, this says in which
-    mode and at which shape they ran. The port has no such hook; this test
-    wraps the dispatch layer's two kernels and restores them after."""
+def launch_shapes(ops, on: bool):
+    """With ``on``, each launch of the flash kernel and its backward, decode
+    attention, the GEMV, the wkv and its backward and the Mamba scan is
+    tallied by its key in ``SHAPE_KEYS``: the kernels count their
+    launches, this says at which shape they ran (a call adds what it
+    added to its kernel's count: the GEMV launches once per 8 rows). The
+    port has no such hook; this wraps the dispatch layer's wrappers and
+    restores them after. The tally is None without ``on`` (on the CPU no
+    kernel launches)."""
     import collections
 
+    if not on:
+        yield None
+        return
     tally = collections.Counter()
-    flash, decode = ops._flash, ops._decode
+    saved = {name: getattr(ops, name) for name in SHAPE_KEYS}
 
-    def counted_flash(q, k, v, *, causal=True, q_offset=0):
-        tally["flash", bool(causal), q.shape[2], k.shape[2], q.shape[3]] += 1
-        return flash(q, k, v, causal=causal, q_offset=q_offset)
+    def counted(name, fn):
+        kernel, key = SHAPE_KEYS[name]
 
-    def counted_decode(q, k, v, lengths, return_lse=False):
-        tally["decode", k.shape[2], q.shape[2]] += 1
-        return decode(q, k, v, lengths, return_lse=return_lse)
-    ops._flash, ops._decode = counted_flash, counted_decode
+        def call(*a, **k):
+            before = ops.KERNELS[kernel].launches
+            out = fn(*a, **k)
+            tally[key(*a, **k)] += ops.KERNELS[kernel].launches - before
+            return out
+        return call
+    for name, fn in saved.items():
+        setattr(ops, name, counted(name, fn))
     try:
         yield tally
     finally:
-        ops._flash, ops._decode = flash, decode
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
 
 
-def shape_counts(tally) -> dict:
-    """``attention_shapes``'s tally as JSON-ready {key: count}."""
-    return {" ".join(str(x) for x in k): n for k, n in sorted(tally.items())}
+def check_shapes(tag: str, tally, plan: dict) -> dict:
+    """The tally of a run (None off the card: nothing to check) against
+    its ``plan`` {key: launches}: for every kernel the plan names, the
+    tally's keys of that kernel must be the plan's, with its counts."""
+    if tally is None:
+        return None
+    kinds = {k.split()[0] for k in plan}
+    got = {k: n for k, n in tally.items() if k.split()[0] in kinds and n}
+    want = {k: n for k, n in plan.items() if n}
+    if got != want:
+        diff = {k: [got.get(k, 0), want.get(k, 0)] for k in
+                sorted(set(got) | set(want)) if got.get(k) != want.get(k)}
+        raise RuntimeError(f"{tag}: launches by shape differ from the plan "
+                           f"(counted, planned): {diff}")
+    return dict(tally)
 
 
 # what whisper-medium's steps launch: the prefill step runs flash once an
@@ -3040,35 +3183,53 @@ def whisper_generate(torch, cfg, params, dev: str, frames, prompt,
     encoder, each layer's cross cache filled once, S teacher-forced decode
     steps), then ``n_steps`` greedy ``decode_step``s against the filled
     cross cache, the next token chosen on the device. On the card: the
-    launches of the prefill and of each decode step, and the decode's ms
-    a step by CUDA events."""
+    launches of the prefill and of each decode step, the whole run's by
+    shape (``launch_shapes``), and the decode's ms a step by CUDA
+    events."""
     from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
-    from repro_torch.models.params import init_params
+    from repro_torch.models.params import (init_params, local_defs,
+                                           resident_axes)
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.axes import _current_mesh
+
+    # a vocabulary split over 'model' (the reduced config's 256 on a
+    # mesh): the ranks' (max, global index) merged
+    split, lo = L.vocab_shard(params["embed"], cfg.vocab_size)
+
+    def argmax(logits):
+        return comm.sharded_argmax(logits, lo, split)
 
     B = prompt.shape[0]
-    cache = init_params(T.cache_defs(cfg, B, 448), device=dev)
+    # under a mesh (phase 23c) the rank's part of the cache
+    cache = init_params(local_defs(T.cache_defs(cfg, B, 448),
+                                   _current_mesh(), resident_axes(cfg)),
+                        device=dev)
     prompt, frames = prompt.to(dev), frames.to(dev)
     on_card = dev == "cuda"
     if on_card:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-    logits, cache, lens = T.prefill_with_cache(cfg, params, prompt, cache,
-                                               frame_embeds=frames)
-    tok = logits.argmax(-1)
-    out = {}
-    if on_card:
-        out["prefill_launches"] = ops.launch_counts()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        ev[0].record()
-    toks = [tok]
-    for _ in range(n_steps):
-        logits, cache = T.decode_step(cfg, params, tok[:, None], cache, lens)
-        tok = logits.argmax(-1)
-        lens = lens + 1
-        toks.append(tok)
+    with launch_shapes(ops, on_card) as tally:
+        logits, cache, lens = T.prefill_with_cache(
+            cfg, params, prompt, cache, frame_embeds=frames)
+        tok = argmax(logits)
+        out = {}
+        if on_card:
+            out["prefill_launches"] = ops.launch_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            ev[0].record()
+        toks = [tok]
+        for _ in range(n_steps):
+            logits, cache = T.decode_step(cfg, params, tok[:, None], cache,
+                                          lens)
+            tok = argmax(logits)
+            lens = lens + 1
+            toks.append(tok)
+    out["by_shape"] = tally
     if on_card:
         ev[1].record()
         torch.cuda.synchronize()
@@ -3122,19 +3283,18 @@ def whisper_phases(torch, checks) -> dict:
     t0 = time.perf_counter()
     batch = whisper_batch(torch, cfg, 2, 448, 5, torch.bfloat16)
     runs = 2
-    with attention_shapes(ops) as tally:
+    with launch_shapes(ops, True) as tally:
         step = prefill_step_run(torch, cfg, params, "14a whisper prefill "
                                 "step", step_launch, B=2, S=448, runs=runs,
                                 batch=batch)
     S_enc, L, E = cfg.encoder_seq, cfg.num_layers, cfg.encoder_layers
-    want = {("flash", False, S_enc, S_enc, 64): E * (runs + 1),
-            ("flash", True, 448, 448, 64): L * (runs + 1),
-            ("flash", False, 448, S_enc, 64): L * (runs + 1)}
-    if dict(tally) != want:
-        fail(f"14a: flash ran {shape_counts(tally)}, expected "
-             f"{shape_counts(want)}")
+    H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    check_shapes("14a", tally, {
+        flash_key(2, H, KH, S_enc, S_enc, D, False): E * (runs + 1),
+        flash_key(2, H, KH, 448, 448, D): L * (runs + 1),
+        flash_key(2, H, KH, 448, S_enc, D, False): L * (runs + 1)})
     step["flash_by_shape_per_step"] = {k: n // (runs + 1) for k, n in
-                                       shape_counts(tally).items()}
+                                       tally.items()}
     out["14a"] = step
     log(f"phase 14a took {time.perf_counter() - t0:.1f} s; step "
         + json.dumps(step))
@@ -3147,12 +3307,9 @@ def whisper_phases(torch, checks) -> dict:
     gen_in = whisper_batch(torch, cfg, 8, 16, 9, torch.bfloat16)
     gens = []
     for _ in range(2):
-        with attention_shapes(ops) as tally:
-            g = whisper_generate(torch, cfg, params, "cuda",
-                                 gen_in["frame_embeds"], gen_in["tokens"],
-                                 32)
-        g["attention_by_shape"] = shape_counts(tally)
-        gens.append(g)
+        gens.append(whisper_generate(torch, cfg, params, "cuda",
+                                     gen_in["frame_embeds"],
+                                     gen_in["tokens"], 32))
     g = gens[0]
     if g["decode_launches"] != {k: 32 * n for k, n in decode_launch.items()}:
         fail(f"14b: 32 decode steps launched {g['decode_launches']}, "
@@ -3160,8 +3317,9 @@ def whisper_phases(torch, checks) -> dict:
     pre = g["prefill_launches"]
     if pre["flash_attention"] != E or pre["decode_attention"] != 16 * 2 * L:
         fail(f"14b: prefill_with_cache launched {pre}")
-    if tally["decode", S_enc, 64] != (16 + 32) * L:
-        fail(f"14b: decode attention over the frames {shape_counts(tally)}")
+    cross = g["by_shape"].get(decode_key(8, H, KH, S_enc, D), 0)
+    if cross != (16 + 32) * L:
+        fail(f"14b: decode attention over the frames {g['by_shape']}")
     if gens[0]["tokens"] != gens[1]["tokens"]:
         fail("14b: two runs of the same greedy decode gave other tokens")
     out["14b generate"] = dict(
@@ -3169,15 +3327,18 @@ def whisper_phases(torch, checks) -> dict:
         decode_launches_per_step={k: n // 32 for k, n in
                                   g["decode_launches"].items()},
         ms_per_decode_step=[x["ms_per_decode_step"] for x in gens],
-        attention_by_shape=g["attention_by_shape"],
-        cross_launches=tally["decode", S_enc, 64], same_tokens_both_runs=True)
+        launches_by_shape=g["by_shape"], cross_launches=cross,
+        same_tokens_both_runs=True)
     log(f"phase 14b took {time.perf_counter() - t0:.1f} s; generate "
         + json.dumps(out["14b generate"]))
     # (c) the engine
     prompts = whisper_prompts(cfg.vocab_size)
     kw = dict(prompts=prompts, max_new=16, max_slots=8, max_len=448)
+    # a short unmeasured serve first: every dispatch of the sequential
+    # prefill and of decode has the measured serves' shapes
     t0 = time.perf_counter()
-    serve_engine(cfg, params, **kw).run_until_done()
+    serve_engine(cfg, params, **dict(kw, prompts=[p[:3] for p in prompts],
+                                     max_new=2)).run_until_done()
     log(f"phase 14c warm-up took {time.perf_counter() - t0:.1f} s")
     serves = []
     for i in range(2):
@@ -3310,13 +3471,14 @@ def pixtral_phases(torch, checks) -> dict:
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in b.items()
              if k in ("tokens", "patch_embeds")}
     L, runs = cfg.num_layers, 2
-    with attention_shapes(ops) as tally:
+    with launch_shapes(ops, True) as tally:
         step = prefill_step_run(
             torch, cfg, params, "15a pixtral prefill step",
             dict(NO_LAUNCH, flash_attention=L, layernorm=2 * L + 1), B=2,
             S=1024, runs=runs, batch=batch)
-    if dict(tally) != {("flash", True, 1024, 1024, 160): L * (runs + 1)}:
-        fail(f"15a: flash ran {shape_counts(tally)}")
+    check_shapes("15a", tally, {flash_key(
+        2, cfg.num_heads, cfg.num_kv_heads, 1024, 1024, cfg.head_dim):
+        L * (runs + 1)})
     out["15a"] = step
     log(f"phase 15a took {time.perf_counter() - t0:.1f} s; step "
         + json.dumps(step))
@@ -4003,26 +4165,6 @@ def family_parity(torch, phase: str, cfg, batch_of,
     return out
 
 
-@contextlib.contextmanager
-def flash_bwd_shapes(ops):
-    """Within it, each launch of the flash backward is tallied by
-    ("bwd", causal, Sq, Skv, D), as ``attention_shapes`` tallies the
-    forward; the wrapper is restored after."""
-    import collections
-
-    tally = collections.Counter()
-    bwd = ops._flash_bwd
-
-    def counted(q, k, v, o, lse, do, *, causal=True):
-        tally["bwd", bool(causal), q.shape[2], k.shape[2], q.shape[3]] += 1
-        return bwd(q, k, v, o, lse, do, causal=causal)
-    ops._flash_bwd = counted
-    try:
-        yield tally
-    finally:
-        ops._flash_bwd = bwd
-
-
 def rwkv_train_phases(torch, checks=None) -> dict:
     """Phase 17: rwkv6-7b at full width cut to 8 of 32 layers, B 2 x S
     2048 of ``SyntheticLM``, 10 steps; 17b: depth 2, float32, S 128 (the
@@ -4086,21 +4228,18 @@ def whisper_train_phase(torch, checks=None) -> dict:
         b = to_card(torch, batch_for(cfg, 2, S, seed=i))
         b["frame_embeds"] = b["frame_embeds"].to(torch.bfloat16)
         return b
-    with flash_bwd_shapes(ops) as tally:
+    with launch_shapes(ops, True) as tally:
         out = family_train(torch, "19 whisper-medium train", cfg, 2, S, 10,
                            batch_of)
-    L, E, D, F = cfg.num_layers, cfg.encoder_layers, cfg.head_dim, \
-        cfg.encoder_seq
-    want = {("bwd", False, F, F, D): E, ("bwd", True, S, S, D): L,
-            ("bwd", False, S, F, D): L}
+    L, E, F = cfg.num_layers, cfg.encoder_layers, cfg.encoder_seq
+    H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    want = {bwd_key(2, H, KH, F, F, D, False): E,
+            bwd_key(2, H, KH, S, S, D): L,
+            bwd_key(2, H, KH, S, F, D, False): L}
     # the gradient check, 10 steps, an unmeasured one and the profiled one
     runs = out["steps"] + 3
-    if dict(tally) != {k: n * runs for k, n in want.items()}:
-        fail(f"19: the flash backward ran at {shape_counts(tally)}, expected"
-             f" {runs} x {want}")
-    # the launches of the 10 measured steps at each shape
-    out["flash_bwd_by_shape"] = shape_counts(
-        {k: n * out["steps"] for k, n in want.items()})
+    out["flash_bwd_by_shape"] = check_shapes(
+        "19", tally, {k: n * runs for k, n in want.items()})
     log(f"phase 19 took {out['wall_s']:.1f} s: " + json.dumps(out))
     return {"19": out}
 
@@ -4124,15 +4263,14 @@ def pixtral_train_phases(torch, checks=None) -> dict:
         b = to_card(torch, batch_for(cfg, 2, S, seed=i))
         b["patch_embeds"] = b["patch_embeds"].to(torch.bfloat16)
         return b
-    with flash_bwd_shapes(ops) as tally:
+    with launch_shapes(ops, True) as tally:
         out = family_train(torch, "20 pixtral-12b train", cfg, 2, S, 10,
                            batch_of)
-    want = {("bwd", True, S, S, cfg.head_dim): cfg.num_layers}
     # the gradient check, 10 steps, an unmeasured one and the profiled one
     runs = out["steps"] + 3
-    if dict(tally) != {k: n * runs for k, n in want.items()}:
-        fail(f"20: the flash backward ran at {shape_counts(tally)}, expected"
-             f" {runs} x {want}")
+    check_shapes("20", tally, {bwd_key(
+        2, cfg.num_heads, cfg.num_kv_heads, S, S, cfg.head_dim):
+        cfg.num_layers * runs})
     log(f"phase 20 took {out['wall_s']:.1f} s: " + json.dumps(out))
     empty_card(torch)
     small = dataclasses.replace(full, num_layers=2, dtype="float32")
@@ -4154,14 +4292,12 @@ def gpt2_train_phase(torch, checks=None) -> dict:
 
     cfg = dataclasses.replace(get_arch("gpt2-2.5b"), num_layers=2)
     data = SyntheticLM(cfg.vocab_size, 1024, 4, seed=0)
-    with flash_bwd_shapes(ops) as tally:
+    with launch_shapes(ops, True) as tally:
         out = family_train(torch, "20c gpt2-2.5b train", cfg, 4, 1024, 10,
                            data.batch)
-    runs = out["steps"] + 3
-    want = {("bwd", True, 1024, 1024, cfg.head_dim): cfg.num_layers * runs}
-    if dict(tally) != want:
-        fail(f"20c: the flash backward ran at {shape_counts(tally)}, "
-             f"expected {want}")
+    check_shapes("20c", tally, {bwd_key(
+        4, cfg.num_heads, cfg.num_kv_heads, 1024, 1024, cfg.head_dim):
+        cfg.num_layers * (out["steps"] + 3)})
     log(f"phase 20c took {out['wall_s']:.1f} s: " + json.dumps(out))
     return {"20c": out}
 
@@ -4180,7 +4316,7 @@ def family_train_phases(torch, checks=None) -> dict:
 # phase 21: two ranks on the one card -- layout B, expert parallelism and
 # data-parallel training over gloo
 # --------------------------------------------------------------------------- #
-MULTIRANK_JOIN_S = 300        # the spawn's limit; the gloo group's is 150 s
+MULTIRANK_JOIN_S = 300        # a rank's limit; the gloo group's is 150 s
 
 
 def multirank_cfgs(small: bool):
@@ -4233,8 +4369,9 @@ class HostClock:
 def mesh_serve(torch, cfg, params, mesh, dev: str, prompts, max_new: int,
                profile: bool = False) -> dict:
     """One serve of ``prompts`` (8 slots, max_len 1024, chunks of 128)
-    under ``mesh`` (None: one rank, no collectives), its launches,
-    collectives, dispatches and host syncs counted from 0."""
+    under ``mesh`` (None: one rank, no collectives), its launches (on the
+    card also by shape: ``launch_shapes``), collectives, dispatches and
+    host syncs counted from 0."""
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.sharding import comm
@@ -4257,14 +4394,16 @@ def mesh_serve(torch, cfg, params, mesh, dev: str, prompts, max_new: int,
         if profile:
             prof = device_profile(torch, eng.run_until_done)
             return dict(profile=prof)
-        results = eng.run_until_done()
+        with launch_shapes(ops, dev == "cuda") as tally:
+            results = eng.run_until_done()
         if dev == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return dict(
         tokens={str(k): [int(t) for t in v] for k, v in results.items()},
         dispatches=dict(eng.dispatch_counts), host_syncs=eng.host_syncs,
-        launches=ops.launch_counts(), comm=comm.stats(), wall_s=wall,
+        launches=ops.launch_counts(), by_shape=tally, comm=comm.stats(),
+        wall_s=wall,
         prefill_s=clock.prefill_s(t0),
         ms_per_decode_step=clock.ms_per_decode(),
         peak_bytes=(torch.cuda.max_memory_allocated() if dev == "cuda"
@@ -4291,15 +4430,16 @@ def _serve_checks(tag: str, run: dict, per_prefill: int, per_decode: int,
 
 
 def depth2_mesh_parity(torch, tag: str, cfg, mesh, dev: str,
-                       prompts) -> dict:
-    """``cfg`` at depth 2 in float32: the mesh serve of the prompts' first
-    96 tokens against the one-rank serve (tokens, dispatches, host
-    syncs)."""
+                       prompts, **depth2) -> dict:
+    """``cfg`` at depth 2 in float32 (``depth2``: further config changes,
+    jamba's ``JAMBA_STACK``): the mesh serve of the prompts' first 96
+    tokens against the one-rank serve (tokens, dispatches, host syncs)."""
     from repro_torch.models import transformer as T
     from repro_torch.models.params import (init_params, resident_axes,
                                            shard_tree)
 
-    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    cfg2 = dataclasses.replace(cfg, **{"num_layers": 2, **depth2},
+                               dtype="float32")
     defs2 = T.param_defs(cfg2)
     full2 = init_params(defs2, device=dev, seed=1)
     leaves_to_f32(torch, full2)
@@ -4380,9 +4520,39 @@ def multirank_serves(torch, rank: int, dev: str, small: bool) -> dict:
     return out
 
 
-def one_rank_step(torch, cfg, dev: str, batch) -> dict:
+def leaf_paths(tree, pre: str = "") -> dict:
+    """{"a/b": leaf} of a nested dict."""
+    if not isinstance(tree, dict):
+        return {pre: tree}
+    out = {}
+    for k in sorted(tree):
+        out.update(leaf_paths(tree[k], f"{pre}/{k}" if pre else str(k)))
+    return out
+
+
+@contextlib.contextmanager
+def f32_embedding_grad():
+    """One rank's token lookup through an f32 copy of the table: the
+    gradient's scatter-add over the batch's tokens accumulates in f32 and
+    rounds to the table's dtype once; every other leaf's gradient as it
+    was."""
+    from repro_torch.models import layers as L
+
+    lookup = L.embed_tokens
+    L.embed_tokens = lambda p, tokens, vocab=None: \
+        p["tok"].float()[tokens].to(p["tok"].dtype)
+    try:
+        yield
+    finally:
+        L.embed_tokens = lookup
+
+
+def one_rank_step(torch, cfg, dev: str, batch, by_leaf: bool = False,
+                  f32_embed: bool = False) -> dict:
     """The one-rank loss and gradient norm of the whole batch at the
-    seed-0 weights (the data-parallel first step's yardstick)."""
+    seed-0 weights (the data-parallel first step's yardstick); with
+    ``by_leaf`` each leaf's norm too, with ``f32_embed`` the embedding's
+    gradient accumulated in f32 (``f32_embedding_grad``)."""
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
     from repro_torch.optim.adamw import global_norm
@@ -4391,9 +4561,13 @@ def one_rank_step(torch, cfg, dev: str, batch) -> dict:
     params = init_params(T.param_defs(cfg), device=dev, seed=0)
     if cfg.dtype == "float32":
         leaves_to_f32(torch, params)
-    loss, _, grads = loss_and_grads(cfg, params, {
-        k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    with (f32_embedding_grad() if f32_embed else contextlib.nullcontext()):
+        loss, _, grads = loss_and_grads(cfg, params, {
+            k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
     out = dict(loss=float(loss), grad_norm=float(global_norm(grads)))
+    if by_leaf:
+        out["leaf_norms"] = {k: float(g.float().norm())
+                             for k, g in leaf_paths(grads).items()}
     del grads, params
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -4544,8 +4718,10 @@ def first_decode_logits(torch, cfg, params, mesh, dev: str, prompts,
     """The float32 logits (B, V) of the first decode step after the
     prompts' prefill (the engine's own flash chunks), under ``mesh``
     (None: one rank) and, with ``plain``, through the plain versions; a
-    tensor-parallel rank's vocabulary columns gathered."""
+    tensor-parallel rank's vocabulary columns gathered where the
+    vocabulary is split (whisper-medium's stays whole)."""
     from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.sharding import comm
@@ -4560,14 +4736,16 @@ def first_decode_logits(torch, cfg, params, mesh, dev: str, prompts,
         eng.prefill_wave(eng.admit_wave())
         logits, _ = T.decode_step(cfg, params, eng.last_tok[:, None],
                                   eng.cache, eng.lens)
-        logits = torch.cat(comm.gather_parts(logits.float(), mesh, "model"),
-                           -1)
+        split, _ = L.vocab_shard(params["embed"], cfg.vocab_size)
+        logits = torch.cat(comm.gather_parts(logits.float(), split,
+                                             "model"), -1)
     if dev == "cuda":
         torch.cuda.synchronize()
     return logits
 
 
-def tp_bf16_step(torch, cfg, mesh, dev: str, prompts) -> dict:
+def tp_bf16_step(torch, cfg, mesh, dev: str, prompts,
+                 tag: str = "22a") -> dict:
     """22a's bf16 bound: the first decode step's logits on the two ranks
     and on one rank through the kernels, each against the one-rank plain
     path in float32 (the seed-0 weights cast in place); the mesh's max
@@ -4592,9 +4770,9 @@ def tp_bf16_step(torch, cfg, mesh, dev: str, prompts) -> dict:
         torch.cuda.empty_cache()
     err = {k: float((v - f32).abs().max()) for k, v in runs.items()}
     if not all(bool(torch.isfinite(v).all()) for v in runs.values()):
-        raise RuntimeError("22a: non-finite bf16 logits")
+        raise RuntimeError(f"{tag}: non-finite bf16 logits")
     if err["two ranks"] > 2 * err["one rank"]:
-        raise RuntimeError(f"22a: the two ranks' bf16 max |err| "
+        raise RuntimeError(f"{tag}: the two ranks' bf16 max |err| "
                            f"{err['two ranks']:.4g} against float32 exceeds "
                            f"twice one rank's {err['one rank']:.4g}")
     return dict(max_abs_err=err, bound=2 * err["one rank"],
@@ -4635,13 +4813,10 @@ def tp_serve(torch, rank: int, dev: str, small: bool) -> dict:
     _serve_checks("22a", run, per_prefill, per_decode, dev,
                   ("decode_attention", "flash_attention", "pim_matvec",
                    "layernorm"))
-    steps = run["dispatches"]["decode"]
-    # one rank's GEMVs a step: q, k, v, o, wg, wi and wo a layer
-    if dev == "cuda" and run["launches"]["pim_matvec"] != 7 * L * steps:
-        raise RuntimeError(f"22a: pim_matvec launched "
-                           f"{run['launches']['pim_matvec']} times in "
-                           f"{steps} decode steps of {L} layers, one rank "
-                           f"launches {7 * L} a step")
+    # one rank's GEMVs a decode step (q, k, v, o, wg, wi and wo a layer),
+    # decode attention and the prefill chunks' flash, by shape
+    run["by_shape"] = check_shapes("22a serve", run["by_shape"],
+                                   tp_serve_shapes(cfg, run["dispatches"]))
     run.update(layers=L, param_bytes=held, tree_param_bytes=param_bytes(defs),
                collectives_per_prefill_chunk=per_prefill,
                collectives_per_decode_step=per_decode)
@@ -4757,8 +4932,708 @@ def tp_train(torch, rank: int, dev: str, small: bool) -> dict:
     return out
 
 
-# each multi-rank phase: what a rank runs, the spawn's limit, and the keys
-# whose tokens or losses both ranks must agree on
+# --------------------------------------------------------------------------- #
+# phase 23: tensor parallelism of the recurrent, hybrid, encoder-decoder and
+# VLM families on two ranks
+# --------------------------------------------------------------------------- #
+def tp_heads(cfg, m: int = 2) -> tuple:
+    """A rank's attention heads and KV heads, and the head dim."""
+    return cfg.num_heads // m, cfg.num_kv_heads // m, cfg.head_dim
+
+
+def tp_serve_shapes(cfg, dc: dict, slots: int = 8, max_len: int = 1024,
+                    chunk: int = 128, m: int = 2) -> dict:
+    """A ``mesh_serve``'s launches by shape on a rank: the GEMVs of
+    ``tp_gemv_plan`` and decode attention against the rank's cache heads
+    once an attention layer, each decode step and (a sequential prefill)
+    each prompt-token dispatch; a chunked prefill's c-th chunk flash once
+    an attention layer at offset c x chunk over the cache's first (c + 1)
+    x chunk positions."""
+    from repro_torch.models import transformer as T
+
+    steps = dc["decode"]
+    n_attn = cfg.layer_kinds().count("attn")
+    H, KH, D = tp_heads(cfg, m)
+    plan = {}
+    if T.supports_batched_prefill(cfg):
+        for c in range(dc["prefill"]):
+            key = flash_key(slots, H, KH, chunk, (c + 1) * chunk, D, True,
+                            c * chunk)
+            plan[key] = n_attn
+    else:
+        steps += dc["prefill"]
+    for label, n in tp_gemv_plan(cfg, m, slots).items():
+        plan[gemv_key(label)] = n * steps
+    if n_attn:
+        plan[decode_key(slots, H, KH, max_len, D)] = n_attn * steps
+    return plan
+
+
+def tp_layer_collectives(cfg) -> int:
+    """The psums one token's pass through the stack makes on a
+    tensor-parallel rank: an RWKV layer's time mix (``wo``) and channel
+    mix (``wcv``); a Mamba layer's dt, B and C partials (one merged psum)
+    and ``out_proj``; an attention layer's ``wo`` and whisper's cross
+    ``wo``; each FFN's (the MLP's ``wo``, the MoE's combine)."""
+    n = 0
+    for mixer, _ in zip(cfg.layer_kinds(), cfg.ffn_kinds()):
+        if mixer == "rwkv":
+            n += 2
+            continue
+        n += (2 if mixer == "mamba" else 1) + 1
+        if mixer == "attn" and cfg.family == "encdec":
+            n += 1
+    return n
+
+
+def tp_gemv_plan(cfg, m: int = 2, n: int = 8) -> dict:
+    """A decode step's GEMV launches on a rank of (1, m), by phase 2's
+    label (n rows, d_in -> d_out, activation): a rank launches one rank's
+    count, each product at its share of the widths. RWKV: r, k, v, g
+    (d -> the rank's heads), ``wo``, the channel mix's ``wck``, ``wcv``
+    and the whole ``wcr``; Mamba: ``in_proj_x``, ``in_proj_z`` and
+    ``out_proj``; attention: q, k, v and o (whisper's cross q and o too);
+    the dense MLP's gated three or two (a MoE FFN's experts are batched
+    matmuls)."""
+    from collections import Counter
+    d, f = cfg.d_model, cfg.d_ff // m
+
+    def lab(a, b, act="none"):
+        return f"n{n} {a}->{b} {act}"
+    calls = []
+    for mixer, ffn in zip(cfg.layer_kinds(), cfg.ffn_kinds()):
+        if mixer == "rwkv":
+            h = cfg.num_heads * cfg.rwkv_head_dim // m
+            calls += [lab(d, h)] * 4 + [lab(h, d), lab(d, f), lab(f, d),
+                                        lab(d, d)]
+            continue
+        if mixer == "mamba":
+            di = cfg.d_inner // m
+            calls += [lab(d, di)] * 2 + [lab(di, d)]
+        else:
+            q = cfg.num_heads * cfg.head_dim // m
+            kv = cfg.num_kv_heads * cfg.head_dim // m
+            calls += [lab(d, q)] + [lab(d, kv)] * 2 + [lab(q, d)]
+            if cfg.family == "encdec":
+                calls += [lab(d, q), lab(q, d)]
+        if ffn != "moe":
+            calls += ([lab(d, f, "silu"), lab(d, f)] if cfg.act == "silu"
+                      else [lab(d, f, cfg.act)]) + [lab(f, d)]
+    return dict(Counter(calls))
+
+
+def family_tp2_gemv() -> list:
+    """The labels of ``tp_gemv_plan`` for phase 23's four configs at full
+    width (phase 2 holds the GEMV at each)."""
+    out = []
+    for tag in ("23a", "23b", "23c", "23d"):
+        out += [k for k in tp_gemv_plan(tp_family_cfg(tag, False))
+                if k not in out]
+    return out
+
+
+def tp_step_launches(cfg) -> dict:
+    """A decode step's launches on a rank (one rank's): the GEMVs of
+    ``tp_gemv_plan``, decode attention once an attention layer (twice in
+    whisper's: its cross cache), the norm twice a layer (three times in
+    whisper's) and once at the end."""
+    L = cfg.num_layers
+    n_attn = cfg.layer_kinds().count("attn")
+    cross = cfg.family == "encdec"
+    return dict(NO_LAUNCH, pim_matvec=sum(tp_gemv_plan(cfg).values()),
+                decode_attention=n_attn * (2 if cross else 1),
+                layernorm=(3 if cross else 2) * L + 1)
+
+
+def tp_vocab_split(cfg, m: int = 2) -> int:
+    """1 when the rule table splits the vocabulary over 'model' (the
+    embedding's psum and the argmax's gather), else 0."""
+    return int(cfg.vocab_size % m == 0)
+
+
+def tp_family_cfg(tag: str, small: bool):
+    """23a's rwkv6-7b cut to 4 of 32 layers, 23b's jamba-v0.1-52b to one
+    whole period (8 of 32), 23c's whisper-medium whole, 23d's pixtral-12b
+    cut to 4 of 40; ``small``: their ``.reduced()`` widths."""
+    from repro_torch.configs import get_arch
+    name, depth = {"23a": ("rwkv6-7b", 4), "23b": ("jamba-v0.1-52b", 8),
+                   "23c": ("whisper-medium", None),
+                   "23d": ("pixtral-12b", 4)}[tag]
+    cfg = get_arch(name)
+    if small:
+        return cfg.reduced()
+    return cfg if depth is None else dataclasses.replace(cfg,
+                                                         num_layers=depth)
+
+
+def tp_rank_params(torch, cfg, mesh, dev: str, tag: str, rank: int):
+    """The rank's parts of the seed-0 weights (drawn a leaf at a time),
+    checked to be ``local_defs``'s bytes; with their share of the tree."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import (init_shard, local_defs,
+                                           param_bytes, resident_axes)
+
+    defs = T.param_defs(cfg)
+    params = init_shard(defs, mesh, resident_axes(cfg), device=dev, seed=0)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    held = sum(t.numel() * t.element_size() for t in leaves(params))
+    want = param_bytes(local_defs(defs, mesh, resident_axes(cfg)))
+    if held != want:
+        raise RuntimeError(f"{tag}: rank {rank} holds {held} parameter "
+                           f"bytes, local_defs gives {want}")
+    return params, dict(param_bytes=held, tree_param_bytes=param_bytes(defs),
+                        share=held / param_bytes(defs))
+
+
+def tp_prefill_step(torch, cfg, params, dev: str, tag: str, shapes: dict,
+                    batch) -> dict:
+    """The full-sequence prefill step (``step_fn_for(cfg, "prefill")``) on
+    a rank under the current mesh: one call after the serve (which built
+    and warmed the kernels), its wall time, launches and collectives
+    counted from 0;
+    the launches by shape must be ``shapes``'s, the collectives the
+    embedding's psum where the vocabulary is split and
+    ``tp_layer_collectives``, the logits finite, the rank's vocabulary
+    columns."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import step_fn_for
+    from repro_torch.sharding import comm
+
+    step = step_fn_for(cfg, "prefill", device=dev)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    with launch_shapes(ops, dev == "cuda") as tally:
+        logits = step(params, batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    made = comm.stats()
+    launches = ops.launch_counts()
+    plan = tp_vocab_split(cfg) + tp_layer_collectives(cfg)
+    if cfg.family == "encdec":
+        plan += 2 * cfg.encoder_layers        # the encoder's blocks
+    if made["collectives"] != plan:
+        raise RuntimeError(f"{tag} prefill step: {made['collectives']} "
+                           f"collectives, the plan gives {plan}: "
+                           f"{made['by_kind']}")
+    by_shape = check_shapes(f"{tag} prefill step", tally, shapes)
+    B = batch["tokens"].shape[0]
+    V = params["embed"]["tok"].shape[0]
+    if tuple(logits.shape) != (B, V) or not bool(torch.isfinite(logits)
+                                                 .all()):
+        raise RuntimeError(f"{tag} prefill step: logits "
+                           f"{tuple(logits.shape)}, a rank's (B, V) is "
+                           f"{(B, V)}")
+    return dict(ms=ms, launches=launches, by_shape=by_shape,
+                collectives=plan, collective_ms=made["ms"], B=B, tokens=int(
+                    batch["tokens"].shape[1]),
+                peak_bytes=(torch.cuda.max_memory_allocated()
+                            if dev == "cuda" else 0))
+
+
+def tp_serve_checks(torch, tag: str, cfg, run: dict, dev: str) -> None:
+    """A mesh serve's collectives and launches. A sequential prefill
+    dispatch (the recurrent and encoder-decoder stacks) is a decode step
+    of one slot's token: the embedding's psum where the vocabulary is
+    split, and ``tp_layer_collectives``; a chunked one (pixtral) the same
+    over the chunk; a decode step adds the argmax's gather. Launches: a
+    decode step and a sequential dispatch ``tp_step_launches``, a chunk
+    flash once a layer and the norm twice (``path_launches``); and by
+    shape, ``tp_serve_shapes``."""
+    from repro_torch.models import transformer as T
+
+    v = tp_vocab_split(cfg)
+    per_layer = tp_layer_collectives(cfg)
+    _serve_checks(tag, run, v + per_layer, 2 * v + per_layer, dev, ())
+    dc = run["dispatches"]
+    run["by_shape"] = check_shapes(f"{tag} serve", run["by_shape"],
+                                   tp_serve_shapes(cfg, dc))
+    if dev != "cuda":
+        return
+    step = tp_step_launches(cfg)
+    if T.supports_batched_prefill(cfg):
+        chunk = path_launches(cfg, False)[1]
+        want = {k: step.get(k, 0) * dc["decode"]
+                + chunk.get(k, 0) * dc["prefill"] for k in step}
+    else:
+        want = {k: n * (dc["decode"] + dc["prefill"])
+                for k, n in step.items()}
+    got = {k: run["launches"].get(k, 0) for k in want}
+    if got != want:
+        raise RuntimeError(f"{tag} serve: launches {got}, one rank's plan "
+                           f"gives {want} ({dc})")
+
+
+def tp_family_serve(torch, tag: str, cfg, params, mesh, dev: str, rank: int,
+                    prompts, max_new: int) -> dict:
+    """A serve of ``prompts`` on the rank (``mesh_serve``), its checks, and
+    a short profiled serve (rank 0 traces the card)."""
+    run = mesh_serve(torch, cfg, params, mesh, dev, prompts, max_new)
+    tp_serve_checks(torch, tag, cfg, run, dev)
+    short = mesh_serve(torch, cfg, params, mesh, dev,
+                       [p[:2] for p in prompts], 2,
+                       profile=(rank == 0 and dev == "cuda"))
+    run["profile"] = short.get("profile")
+    run["collectives_per_decode_step"] = 2 * tp_vocab_split(cfg) \
+        + tp_layer_collectives(cfg)
+    return run
+
+
+def tp_family_checks(torch, tag: str, cfg, mesh, dev: str, rank: int,
+                     prompts, depth2=(), bf16=()) -> dict:
+    """The depth-2 float32 parity of the mesh serve with one rank's, and
+    the bf16 bound of the first decode step at depth 2 (full widths), on
+    ``prompts`` (the recurrent stacks' and whisper's cut to 12 tokens:
+    each token is a dispatch of their sequential prefill); ``depth2`` and
+    ``bf16`` change the depth-2 configs (jamba's: ``JAMBA_STACK``, and
+    for the bf16 bound its FFNs dense: a MoE router's top-2 pick flips
+    under a bf16 rounding, the two ranks' psum or another order of sums,
+    and then a row's logits part by far more than either path's rounding,
+    as the CPU's `.reduced()` run shows on two of 8 rows; the float32
+    parity holds the MoE layer exactly)."""
+    depth2, bf16 = dict(depth2), dict(bf16 or depth2)
+    out = dict(parity_f32=tp_part(tag, rank, "depth-2 parity", lambda:
+                                  depth2_mesh_parity(torch, tag, cfg, mesh,
+                                                     dev, prompts, **depth2)))
+    cfg2 = dataclasses.replace(cfg, **{"num_layers": 2, **bf16})
+    out["bf16_step"] = tp_part(tag, rank, "bf16 bound", lambda: tp_bf16_step(
+        torch, cfg2, mesh, dev, prompts, tag))
+    return out
+
+
+
+def tp_part(tag: str, rank: int, what: str, fn):
+    """``fn()``, its seconds logged (a rank's parts of phase 23)."""
+    t0 = time.perf_counter()
+    res = fn()
+    log(f"{tag} rank {rank}: {what} took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def tp_recurrent_prompts(vocab: int):
+    """23a's and 23b's serve: 4 prompts of at most 12 tokens, 8 new
+    tokens each (the recurrent stacks prefill one dispatch a token, and
+    on two ranks each dispatch pays 9 or 24 collectives)."""
+    return [p[:12] for p in recurrent_prompts(vocab)[:4]]
+
+
+def tp_rwkv(torch, rank: int, dev: str, small: bool) -> dict:
+    """23a: rwkv6-7b at full width cut to 4 of 32 layers on (1, 2), each
+    rank 32 of the 64 heads and 7,168 of the 14,336 d_ff (``wcr`` and
+    ``w_lora_a`` whole): a serve, ``tp_family_train`` (2 layers of its
+    own beside the 8), then the prefill step at B 1 x S 2048
+    (``rwkv_chunk`` at BH 32 a rank)."""
+    import numpy as np
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.axes import use_mesh
+
+    tag, cfg = "23a", tp_family_cfg("23a", small)
+    mesh = make_host_mesh(model=2)
+    params, out = tp_part(tag, rank, "weights", lambda: tp_rank_params(
+        torch, cfg, mesh, dev, tag, rank))
+    prompts = tp_recurrent_prompts(cfg.vocab_size)
+    S = 64 if small else 2048
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, S))).to(dev)
+    with use_mesh(mesh):
+        out["serve"] = tp_part(tag, rank, "serve", lambda: tp_family_serve(
+            torch, tag, cfg, params, mesh, dev, rank, prompts, 8))
+    out["train"] = tp_part(tag, rank, "train", lambda: tp_family_train(
+        torch, rank, dev, small))
+    with use_mesh(mesh):
+        out["step"] = tp_part(tag, rank, "prefill step", lambda:
+                              tp_prefill_step(
+                                  torch, cfg, params, dev, tag,
+                                  {rwkv_key(cfg.num_heads // 2, S,
+                                            cfg.rwkv_head_dim):
+                                   cfg.num_layers}, {"tokens": tokens}))
+    del params
+    if dev == "cuda":
+        empty_card(torch)
+    out.update(tp_family_checks(torch, tag, cfg, mesh, dev, rank, prompts))
+    tp_log(tag, rank, out)
+    return out
+
+
+def mesh_leaf_norms(torch, cfg, params, mesh, batch) -> dict:
+    """Each leaf's norm of the train step's gradient on ``mesh`` (one data
+    shard) at ``params``, the rank's parts: ``loss_and_grads`` and
+    ``_reduce_grads`` as the step runs them, the squares of the leaves
+    sharded over 'model' summed over its ranks in one psum."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import resident_axes, resident_specs
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.axes import use_mesh
+    from repro_torch.train import loss_and_grads
+    from repro_torch.train.step import _reduce_grads, _sharded
+
+    specs = resident_specs(T.param_defs(cfg), mesh, resident_axes(cfg))
+    with use_mesh(mesh):
+        _, _, grads = loss_and_grads(cfg, params, batch)
+    grads = leaf_paths(_reduce_grads(grads, specs, mesh, mesh.axis_names,
+                                     mesh.size))
+    split = torch.tensor([float("model" in _sharded(sp)) for sp in
+                          leaf_paths(specs).values()], device=batch[
+                              "tokens"].device)
+    sq = torch.stack([g.float().square().sum() for g in grads.values()])
+    sq = comm.psum_raw(sq * split, mesh, "model") + sq * (1 - split)
+    return dict(zip(grads, sq.sqrt().tolist()))
+
+
+EMBED_LEAF = "embed/tok"
+
+
+def first_step_norms(torch, cfg, params, mesh, dev: str, batches) -> dict:
+    """23a's first-step gradient against one rank's, leaf by leaf, at the
+    seed-0 weights (``params`` the rank's parts; the two ranks' is the
+    step's own gradient, ``mesh_leaf_norms``) on two batches: the train
+    batch, whose SyntheticLM stream falls onto a fixed point (one token
+    fills 2,040 of its 2,048 positions), and ``batch_for``'s uniform
+    tokens. Readings on each: one rank in bf16 and in float32, the two
+    ranks in bf16; on the train batch also one rank in bf16 with the
+    table's gradient scatter-added in f32 (``f32_embedding_grad``: it
+    must move no other leaf). Checks: on the uniform tokens the two
+    ranks' norm within 1e-2 of one rank's; on the train batch, where one
+    rank's own bf16 norm stands far from float32's, the two ranks' error
+    against float32 at most twice one rank's (3d's form)."""
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    out = {}
+    for name, b in batches.items():
+        one = {"bf16": one_rank_step(torch, cfg, dev, b, by_leaf=True),
+               "float32": one_rank_step(torch, f32, dev, b, by_leaf=True)}
+        if name == "train":
+            one["bf16 f32-scatter"] = one_rank_step(
+                torch, cfg, dev, b, by_leaf=True, f32_embed=True)
+            moved = [k for k, v in one["bf16 f32-scatter"][
+                "leaf_norms"].items() if k != EMBED_LEAF
+                and v != one["bf16"]["leaf_norms"][k]]
+            if moved:
+                raise RuntimeError(f"23a train: the f32 scatter-add moved "
+                                   f"{moved}")
+        norms = {k: v["leaf_norms"] for k, v in one.items()}
+        norms["two ranks bf16"] = mesh_leaf_norms(torch, cfg, params, mesh, {
+            k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+        total = {k: sum(x * x for x in v.values()) ** 0.5
+                 for k, v in norms.items()}
+        two = norms["two ranks bf16"]
+        worst = sorted(two, key=lambda k: -abs(two[k] - norms["bf16"][k])
+                       / max(norms["bf16"][k], 1e-30))[:4]
+        out[name] = dict(
+            loss=one["bf16"]["loss"], norm=total, table={
+                k: v[EMBED_LEAF] for k, v in norms.items()},
+            most_apart={k: {r: norms[r][k] for r in norms} for k in worst})
+        log(f"23a first-step gradient norms, {name} batch: "
+            + json.dumps(out[name]))
+    err = {k: abs(out["train"]["norm"][k] - out["train"]["norm"]["float32"])
+           for k in ("bf16", "two ranks bf16")}
+    out["train"]["abs_err"] = err
+    rand = out["uniform"]["norm"]
+    if abs(rand["two ranks bf16"] - rand["bf16"]) > 1e-2 * rand["bf16"]:
+        raise RuntimeError(
+            f"23a train: on uniform tokens the first step's bf16 gradient "
+            f"norm {rand['two ranks bf16']} vs one rank's {rand['bf16']} "
+            f"(tol 1e-2 relative)")
+    if err["two ranks bf16"] > 2 * err["bf16"]:
+        raise RuntimeError(
+            f"23a train: the first step's bf16 gradient norm on two ranks "
+            f"is {err['two ranks bf16']:.4g} from float32's, more than "
+            f"twice one rank's {err['bf16']:.4g}")
+    return out
+
+
+def tp_family_train(torch, rank: int, dev: str, small: bool) -> dict:
+    """23a's training: rwkv6-7b at full width cut to 2 of 32 layers, remat
+    full, AdamW, B 1 x S 2048 on both ranks of (1, 2), 3 steps: the wkv's
+    backward kernel at a rank's 32 heads (BH 32, counted by shape), the
+    losses falling. The first step's loss within 1e-2 of one rank's, its
+    gradient held to one rank's (``first_step_norms``); then the float32
+    first step at depth 2 within 1e-4 of one rank's."""
+    from repro_torch.data import SyntheticLM, batch_for
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_shard, resident_axes
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import comm
+    from repro_torch.train import TrainStepConfig, make_train_step
+
+    cfg = dataclasses.replace(tp_family_cfg("23a", small), num_layers=2,
+                              remat="full")
+    mesh = make_host_mesh(model=2)
+    L, (B, S, steps) = cfg.num_layers, (1, 64 if small else 2048, 3)
+    batch = SyntheticLM(cfg.vocab_size, S, B, seed=0).batch(0)
+    params = init_shard(T.param_defs(cfg), mesh, resident_axes(cfg),
+                        device=dev, seed=0)
+    out = dict(layers=L, B=B, S=S, steps=steps)
+    out["first_step_norms"] = first_step_norms(
+        torch, cfg, params, mesh, dev, {"train": batch,
+                                        "uniform": batch_for(cfg, B, S, 5)})
+    want = out["first_step_norms"]["train"]
+    opt = adamw_init(params)
+    step = make_train_step(cfg, TrainStepConfig(
+        learning_rate=lambda s: 1e-3), mesh, device=dev)
+    # a step: the forward's embedding psum, two psums a layer (the time
+    # mix's wo, the channel mix's wcv) and the loss's gather; in the
+    # backward, each layer's forward recomputed (remat full) through the
+    # channel mix's psum (r * v saves v), two means a layer (the time
+    # and channel mixes' inputs), the LM head's and the loss gather's
+    # transpose; the replicated leaves' sum and the clip norm's psum
+    plan = 6 + 6 * L
+    out["collectives_per_step"] = plan
+    losses, ms, per_step = [], [], []
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with launch_shapes(ops, dev == "cuda") as tally:
+        for i in range(steps):
+            comm.reset_stats()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))          # waits for the step
+            ms.append(1e3 * (time.perf_counter() - t0))
+            per_step.append(comm.stats())
+            if i == 0:
+                out["first_step_bf16"] = check_first_step(
+                    cfg, dict(loss=losses[0]), dict(loss=want["loss"]),
+                    1e-2, "23a train")
+                out["first_step_bf16"]["grad_norm"] = dict(
+                    mesh=float(m["grad_norm"]),
+                    one_rank=want["norm"]["bf16"])
+    out["by_shape"] = check_shapes(
+        "23a train", tally, {rwkv_key(B * cfg.num_heads // 2, S,
+                                      cfg.rwkv_head_dim, bwd=True):
+                             L * steps})
+    launches = ops.launch_counts()
+    for s_ in per_step:
+        if s_["collectives"] != plan:
+            raise RuntimeError(f"23a train: {s_['collectives']} collectives "
+                               f"a step, the plan gives {plan}: "
+                               f"{s_['by_kind']}")
+    if not all(x == x for x in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"23a train: losses {losses} do not fall")
+    timed = slice(1, steps)
+    out.update(losses=losses, ms_runs=ms,
+               ms_per_step=sum(ms[timed]) / len(ms[timed]),
+               collective_ms_per_step=sum(x["ms"] for x in per_step[timed])
+               / len(ms[timed]), by_kind=per_step[-1]["by_kind"],
+               launches=launches,
+               peak_bytes=(torch.cuda.max_memory_allocated()
+                           if dev == "cuda" else 0))
+    del params, opt
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    cfg2 = dataclasses.replace(cfg, dtype="float32")
+    out["first_step_f32"] = dp_first_step(torch, cfg2, mesh, dev, B, 64,
+                                          1e-4, "23a train")
+    return out
+
+
+def tp_jamba(torch, rank: int, dev: str, small: bool) -> dict:
+    """23b: jamba-v0.1-52b at full width, one whole period (8 of 32
+    layers: 7 Mamba, 1 attention; 4 MoE FFNs) on (1, 2), each rank 4,096
+    of the 8,192 d_inner channels, 16 / 4 of the 32 / 8 heads, half of
+    d_ff and 8 of the 16 experts: a serve and the prefill step at B 2 x
+    S 2048 (``mamba_chunk`` at d 4,096 a rank). Its training on two ranks
+    of one card does not fit (a rank's depth-2 step takes most of the
+    card, phase 18); ``mamba_chunk_bwd`` at the rank's shape is phase
+    2's."""
+    import numpy as np
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.axes import use_mesh
+
+    tag, cfg = "23b", tp_family_cfg("23b", small)
+    mesh = make_host_mesh(model=2)
+    params, out = tp_part(tag, rank, "weights", lambda: tp_rank_params(
+        torch, cfg, mesh, dev, tag, rank))
+    prompts = tp_recurrent_prompts(cfg.vocab_size)
+    kinds = cfg.layer_kinds()
+    H, KH, D = tp_heads(cfg)
+    S = 64 if small else 2048
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, S))).to(dev)
+    with use_mesh(mesh):
+        out["serve"] = tp_part(tag, rank, "serve", lambda: tp_family_serve(
+            torch, tag, cfg, params, mesh, dev, rank, prompts, 8))
+        out["step"] = tp_part(tag, rank, "prefill step", lambda:
+                              tp_prefill_step(
+                                  torch, cfg, params, dev, tag,
+                                  {mamba_key(2, S, cfg.d_inner // 2,
+                                             cfg.ssm_d_state):
+                                   kinds.count("mamba"),
+                                   flash_key(2, H, KH, S, S, D):
+                                   kinds.count("attn")},
+                                  {"tokens": tokens}))
+    del params
+    if dev == "cuda":
+        empty_card(torch)
+    out.update(tp_family_checks(torch, tag, cfg, mesh, dev, rank,
+                                prompts, JAMBA_STACK,
+                                dict(JAMBA_STACK, num_experts=0)))
+    tp_log(tag, rank, out)
+    return out
+
+
+def tp_whisper(torch, rank: int, dev: str, small: bool) -> dict:
+    """23c: whisper-medium whole on (1, 2), each rank 8 of the 16 heads of
+    the encoder, the self and the cross attention and half of d_ff (its
+    vocabulary of 51,865 whole, as the rule table leaves it): a generate
+    of 8 rows over 1,500 frames (the encoder, each layer's cross cache
+    filled at the rank's heads, 2 teacher-forced and 6 greedy decode
+    steps: 72 collectives each), then the prefill step at B 2 x 448
+    tokens over 1,500 frames."""
+    import collections
+
+    from repro_torch.data import batch_for
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.axes import use_mesh
+
+    tag, cfg = "23c", tp_family_cfg("23c", small)
+    mesh = make_host_mesh(model=2)
+    params, out = tp_part(tag, rank, "weights", lambda: tp_rank_params(
+        torch, cfg, mesh, dev, tag, rank))
+    L, E = cfg.num_layers, cfg.encoder_layers
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def batch(B, S, seed):
+        b = batch_for(cfg, B, S, seed=seed)
+        return {"tokens": torch.from_numpy(b["tokens"]).to(dev),
+                "frame_embeds": torch.from_numpy(b["frame_embeds"]).to(
+                    dev, dt)}
+    step_batch = batch(2, 32 if small else 448, 3)
+    gen = batch(8, 2, 4)
+    n_steps = 6
+    H, KH, D = tp_heads(cfg)
+    F, S, S2 = cfg.encoder_seq, gen["tokens"].shape[1], \
+        step_batch["tokens"].shape[1]
+    # by shape: the generate's encoder flash once an encoder layer, then
+    # each of its S teacher-forced and n_steps greedy decode steps decode
+    # attention twice a layer (the self cache of 448, the cross cache of
+    # the frames) and the GEMVs of ``tp_gemv_plan``; the prefill step's
+    # flash once an encoder layer and twice a decoder layer (self, cross)
+    steps = S + n_steps
+    gen_shapes = collections.Counter({flash_key(8, H, KH, F, F, D, False): E})
+    gen_shapes[decode_key(8, H, KH, 448, D)] += L * steps
+    gen_shapes[decode_key(8, H, KH, F, D)] += L * steps
+    for label, n in tp_gemv_plan(cfg).items():
+        gen_shapes[gemv_key(label)] += n * steps
+    step_shapes = collections.Counter({flash_key(2, H, KH, F, F, D, False): E})
+    step_shapes[flash_key(2, H, KH, S2, S2, D)] += L
+    step_shapes[flash_key(2, H, KH, S2, F, D, False)] += L
+    with use_mesh(mesh):
+        comm.reset_stats()
+        run = tp_part(tag, rank, "generate", lambda: whisper_generate(
+            torch, cfg, params, dev, gen["frame_embeds"], gen["tokens"],
+            n_steps))
+        made = comm.stats()
+        out["step"] = tp_part(tag, rank, "prefill step", lambda:
+                              tp_prefill_step(torch, cfg, params, dev, tag,
+                                              step_shapes, step_batch))
+    # the encoder's blocks once, then every decode step's layers, and
+    # where the vocabulary is split (not whisper-medium's 51,865) each
+    # step's embedding psum and each pick's argmax gather
+    v = tp_vocab_split(cfg)
+    plan = 2 * E + steps * (v + tp_layer_collectives(cfg)) \
+        + (1 + n_steps) * v
+    if made["collectives"] != plan:
+        raise RuntimeError(f"23c generate: {made['collectives']} "
+                           f"collectives, the plan gives {plan}")
+    if dev == "cuda":
+        step = tp_step_launches(cfg)
+        want_dec = {k: n * n_steps for k, n in step.items()}
+        got_dec = {k: run["decode_launches"].get(k, 0) for k in want_dec}
+        want_pre = {k: n * S for k, n in step.items()}
+        want_pre["flash_attention"] = E
+        want_pre["layernorm"] += 2 * E + 1
+        got_pre = {k: run["prefill_launches"].get(k, 0) for k in want_pre}
+        if got_dec != want_dec or got_pre != want_pre:
+            raise RuntimeError(f"23c generate: launches {got_pre} / "
+                               f"{got_dec}, one rank's plan {want_pre} / "
+                               f"{want_dec}")
+    run["by_shape"] = check_shapes("23c generate", run["by_shape"],
+                                   gen_shapes)
+    run.update(collectives=plan, collective_ms=made["ms"], rows=8,
+               prompt=S, steps=n_steps)
+    out["generate"] = run
+    del params
+    if dev == "cuda":
+        empty_card(torch)
+    out.update(tp_family_checks(torch, tag, cfg, mesh, dev, rank, [
+        p[:12] for p in whisper_prompts(cfg.vocab_size)]))
+    tp_log(tag, rank, out)
+    return out
+
+
+def tp_pixtral(torch, rank: int, dev: str, small: bool) -> dict:
+    """23d: pixtral-12b at full width cut to 4 of 40 layers on (1, 2),
+    each rank 16 / 4 of the 32 / 8 heads of 160, half of d_ff and of the
+    vocabulary: a short serve of phase 3's prompts, then the prefill step
+    with 256 patches and 768 tokens a row (B 2)."""
+    from repro_torch.data import batch_for
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.axes import use_mesh
+
+    tag, cfg = "23d", tp_family_cfg("23d", small)
+    mesh = make_host_mesh(model=2)
+    params, out = tp_part(tag, rank, "weights", lambda: tp_rank_params(
+        torch, cfg, mesh, dev, tag, rank))
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    H, KH, D = tp_heads(cfg)
+    S = 64 if small else 1024        # the patches and the text
+    b = batch_for(cfg, 2, S, seed=3)
+    step_batch = {"tokens": torch.from_numpy(b["tokens"]).to(dev),
+                  "patch_embeds": torch.from_numpy(b["patch_embeds"]).to(
+                      dev, dt)}
+    prompts = serve_prompts(cfg.vocab_size)
+    with use_mesh(mesh):
+        out["serve"] = tp_part(tag, rank, "serve", lambda: tp_family_serve(
+            torch, tag, cfg, params, mesh, dev, rank, prompts, 8))
+        out["step"] = tp_part(tag, rank, "prefill step", lambda:
+                              tp_prefill_step(
+                                  torch, cfg, params, dev, tag,
+                                  {flash_key(2, H, KH, S, S, D):
+                                   cfg.num_layers}, step_batch))
+    del params
+    if dev == "cuda":
+        empty_card(torch)
+    out.update(tp_family_checks(torch, tag, cfg, mesh, dev, rank, prompts))
+    tp_log(tag, rank, out)
+    return out
+
+
+def tp_log(tag: str, rank: int, out: dict) -> None:
+    serve = out.get("serve") or out.get("generate")
+    # (whisper's generate times its decode steps on the card alone)
+    ms = serve.get("ms_per_decode_step", float("nan"))
+    log(f"{tag} rank {rank}: {ms:.2f} ms a decode "
+        f"step, prefill step {out['step']['ms']:.1f} ms, "
+        f"{out['param_bytes']} parameter bytes ({out['share']:.4f} of the "
+        f"tree); depth-2 float32 parity held; bf16 "
+        + json.dumps(out["bf16_step"]["max_abs_err"]))
+
+
+def tp_families(torch, rank: int, dev: str, small: bool) -> dict:
+    """Phase 23 on this rank: 23a-23d one after another, the card emptied
+    between them."""
+    out = {}
+    for tag, fn in (("23a", tp_rwkv), ("23b", tp_jamba),
+                    ("23c", tp_whisper), ("23d", tp_pixtral)):
+        t0 = time.perf_counter()
+        out[tag] = fn(torch, rank, dev, small)
+        out[tag]["took_s"] = time.perf_counter() - t0
+        if dev == "cuda":
+            empty_card(torch)
+    return out
+
+
+# each multi-rank phase: what a rank runs, a rank's limit for it, and the
+# keys whose tokens or losses both ranks must agree on
 MULTIRANK = {
     "21": (lambda torch, rank, dev, small: dict(
         multirank_serves(torch, rank, dev, small),
@@ -4768,14 +5643,19 @@ MULTIRANK = {
     "22": (lambda torch, rank, dev, small: {
         "22a": tp_serve(torch, rank, dev, small),
         "22b": tp_train(torch, rank, dev, small)}, 120,
-        (("22a", "tokens"), ("22b", "losses")))}
+        (("22a", "tokens"), ("22b", "losses"))),
+    "23": (tp_families, 150,
+           (("23a", "serve", "tokens"), ("23a", "train", "losses"),
+            ("23b", "serve", "tokens"), ("23c", "generate", "tokens"),
+            ("23d", "serve", "tokens")))}
 
 
 def multirank_rank(rank: int, world: int, store: str, outdir: str,
                    dev: str = "cuda", small: bool = False,
-                   phase: str = "21") -> None:
-    """One rank of a multi-rank phase (a spawned process): joins the gloo
-    group, runs the phase's part (``MULTIRANK``), and writes its results
+                   phases: str = "21") -> None:
+    """One rank of the multi-rank phases (a spawned process): joins the
+    gloo group, runs each phase's part (``MULTIRANK``) in turn, the card
+    emptied between them, and writes its results and each phase's seconds
     to ``outdir/rank<r>.json``; any failure exits non-zero."""
     import datetime
     sys.path.insert(0, SRC)
@@ -4788,9 +5668,12 @@ def multirank_rank(rank: int, world: int, store: str, outdir: str,
             "gloo", init_method=f"file://{store}", rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=150))
         res = dict(transport=gloo_cuda_probe(torch, dist, dev))
-        t0 = time.perf_counter()
-        res.update(MULTIRANK[phase][0](torch, rank, dev, small))
-        res["ranks_s"] = time.perf_counter() - t0
+        for phase in phases.split(","):
+            t0 = time.perf_counter()
+            res[phase] = MULTIRANK[phase][0](torch, rank, dev, small)
+            res[phase]["ranks_s"] = time.perf_counter() - t0
+            if dev == "cuda":
+                empty_card(torch)
         with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
         dist.barrier()
@@ -4817,14 +5700,17 @@ def gloo_cuda_probe(torch, dist, dev: str) -> str:
 
 def multirank_phase(torch, dev: str = "cuda", small: bool = False,
                     phase: str = "21") -> dict:
-    """Phase 21 or 22: two ranks on ``cuda:0`` over gloo, spawned once.
-    Fails if a rank fails or the spawn outlives its limit, if the ranks'
-    tokens or losses differ, or if any rank's check failed."""
+    """Phases 21, 22 and 23 (``phase``: one or several, comma-separated):
+    two ranks on ``cuda:0`` over gloo, spawned once for all of them. Fails
+    if a rank fails, if the spawn outlives the phases' limits together or
+    a phase its own on a rank, if the ranks' tokens or losses differ, or
+    if any rank's check failed; returns {phase: its ranks' results}."""
     import multiprocessing as mp
     import shutil
     import tempfile
 
-    _, limit, agree = MULTIRANK[phase]
+    phases = phase.split(",")
+    limit = sum(MULTIRANK[p][1] for p in phases)
     t0 = time.perf_counter()
     if dev == "cuda":
         empty_card(torch)      # the ranks share the card with this process
@@ -4858,24 +5744,31 @@ def multirank_phase(torch, dev: str = "cuda", small: bool = False,
                 res.append(json.load(f))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    for path in agree:
-        a, b = res
-        for key in path:
-            a, b = a[key], b[key]
-        if a != b:
-            fail(f"{' '.join(path)}: the two ranks differ")
     took = time.perf_counter() - t0
-    log(f"phase {phase} took {took:.1f} s (ranks {res[0]['ranks_s']:.1f} s "
-        f"on rank 0)")
-    log(f"{phase} transport: {res[0]['transport']}; every collective an "
-        f"all-gather over gloo, CUDA payloads staged through pinned host "
-        f"buffers")
-    for r, out in enumerate(res):
-        for tag in sorted({p[0] for p in agree}):
-            run = dict(out[tag])
-            run.pop("tokens", None)
-            log(f"{tag} rank {r} " + json.dumps(run))
-    return dict(took_s=took, ranks=res)
+    log(f"phases {phase} took {took:.1f} s in one spawn; "
+        f"transport: {res[0]['transport']}; every collective an all-gather "
+        f"over gloo, CUDA payloads staged through pinned host buffers")
+    out = {}
+    for p in phases:
+        _, lim, agree = MULTIRANK[p]
+        for path in agree:
+            a, b = res[0][p], res[1][p]
+            for key in path:
+                a, b = a[key], b[key]
+            if a != b:
+                fail(f"{' '.join(path)}: the two ranks differ")
+        secs = [r[p]["ranks_s"] for r in res]
+        if max(secs) > lim:
+            fail(f"{p}: a rank took {max(secs):.1f} s, over its {lim} s")
+        log(f"phase {p} took {secs[0]:.1f} s on rank 0 (limit {lim} s)")
+        for r, ranks in enumerate(res):
+            for tag in sorted({q[0] for q in agree}):
+                run = {k: {a: b for a, b in v.items() if a != "tokens"}
+                       if isinstance(v, dict) else v
+                       for k, v in ranks[p][tag].items() if k != "tokens"}
+                log(f"{tag} rank {r} " + json.dumps(run))
+        out[p] = dict(took_s=secs[0], ranks=[r[p] for r in res])
+    return out
 
 
 def main() -> None:
@@ -4884,10 +5777,11 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases (2, 12, 12b, 12c, 14, 15, "
-                         "16, 17, 18, 19, 20, 20c, 21, 22; 16 runs 16b and "
-                         "16c, "
-                         "17 17b, 18 18b, 20 20b) to run alone after the "
-                         "build, printing no result lines")
+                         "16, 17, 18, 19, 20, 20c, 21, 22, 23, 21-23; 16 "
+                         "runs 16b and 16c, 17 17b, 18 18b, 20 20b, 21-23 "
+                         "the three in one spawn as the whole run does) to "
+                         "run alone after the build, printing no result "
+                         "lines")
     only = ap.parse_args().phases
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -4928,9 +5822,10 @@ def main() -> None:
                 "16": train_phases, "17": rwkv_train_phases,
                 "18": jamba_train_phases, "19": whisper_train_phase,
                 "20": pixtral_train_phases, "20c": gpt2_train_phase,
-                "21": lambda torch, checks: multirank_phase(torch),
-                "22": lambda torch, checks: multirank_phase(
-                    torch, phase="22")})
+                **{p: lambda torch, checks, p=p: multirank_phase(
+                    torch, phase=p) for p in MULTIRANK},
+                "21-23": lambda torch, checks: multirank_phase(
+                    torch, phase="21,22,23")})
             for phase in only.split(","):
                 t0 = time.perf_counter()
                 alone[phase](torch, checks)
@@ -4985,8 +5880,8 @@ def main() -> None:
         train = train_phases(torch)
         train.update(family_train_phases(torch))
         empty_card(torch)
-        multi = multirank_phase(torch)
-        tp = multirank_phase(torch, phase="22")
+        ranks = multirank_phase(torch, phase="21,22,23")
+        multi, tp, fam = ranks["21"], ranks["22"], ranks["23"]
         checks.run(card)
     except SystemExit:
         raise
@@ -5007,11 +5902,32 @@ def main() -> None:
     # (the backward at D 96) and 20 (D 160); at D 112 no path (kimi-k2
     # trains on no card yet): 0 launches, and phase 2's calls apart; and
     # flash, decode attention and the GEMV at llama's shapes on one of two
-    # tensor-parallel ranks, launches from rank 0's serve in phase 22a
-    # (the GEMV's split by its calls a layer: q, k and v, o, wg, wi, wo)
+    # tensor-parallel ranks, and each kernel at phase 23's shapes on one of
+    # two tensor-parallel ranks: the launches at the row's shape that rank
+    # 0 counted (``launch_shapes``) in its run of the row's path, each run
+    # held to its plan by shape in the rank: 22a's serve (its decode steps'
+    # GEMVs and decode attention, the last prefill chunk's flash), 23's
+    # prefill steps (the wkv, the Mamba scan, flash at jamba's, whisper's
+    # and pixtral's heads), 23a's training (the wkv's backward), whisper's
+    # generate (its encoder at 8 rows, the self and cross caches' decode
+    # attention), the serves (decode attention, pixtral's last prefill
+    # chunk) and the GEMV at each family's labels; the Mamba scan's
+    # backward at the rank's shape has no path (jamba's training on two
+    # ranks of one card does not fit): phase 2's calls alone
     per_step = whisper["14a"]["flash_by_shape_per_step"]
     tp22a = tp["ranks"][0]["22a"]
     bwd_shapes = train["19"]["flash_bwd_by_shape"]
+    f23 = fam["ranks"][0]
+    tp_runs = {"22a": tp22a, "23a": f23["23a"]["serve"],
+               "23a step": f23["23a"]["step"],
+               "23a train": f23["23a"]["train"],
+               "23b": f23["23b"]["serve"], "23b step": f23["23b"]["step"],
+               "23c": f23["23c"]["generate"], "23c step": f23["23c"]["step"],
+               "23d": f23["23d"]["serve"], "23d step": f23["23d"]["step"]}
+
+    def counted(kernel, run, key):
+        return {"launches": {kernel: tp_runs[run]["by_shape"].get(key, 0)},
+                "tp_key": key}
 
     def launched(kernel, n):
         return {"launches": {kernel: n}}
@@ -5039,10 +5955,12 @@ def main() -> None:
          pixtral["unpacked"]),
         ("flash_attention non-causal encoder", "flash_attention",
          "B2 Sq1500 Skv1500 non-causal H16/16",
-         launched("flash_attention", per_step["flash False 1500 1500 64"])),
+         launched("flash_attention", per_step[
+             flash_key(2, 16, 16, 1500, 1500, 64, False)])),
         ("flash_attention non-causal cross", "flash_attention",
          "B2 Sq448 Skv1500 non-causal H16/16",
-         launched("flash_attention", per_step["flash False 448 1500 64"])),
+         launched("flash_attention", per_step[
+             flash_key(2, 16, 16, 448, 1500, 64, False)])),
         ("decode_attention cross", "decode_attention", "B8 L1500 H16/16",
          launched("decode_attention",
                   whisper["14b generate"]["cross_launches"])),
@@ -5059,24 +5977,80 @@ def main() -> None:
         ("flash_attention_bwd non-causal encoder", "flash_attention_bwd",
          "B2 S1500 non-causal H16/16",
          launched("flash_attention_bwd",
-                  bwd_shapes["bwd False 1500 1500 64"])),
+                  bwd_shapes[bwd_key(2, 16, 16, 1500, 1500, 64, False)])),
         ("flash_attention_bwd non-causal cross", "flash_attention_bwd",
          "B2 Sq448 Skv1500 non-causal H16/16",
-         launched("flash_attention_bwd", bwd_shapes["bwd False 448 1500 64"])),
+         launched("flash_attention_bwd",
+                  bwd_shapes[bwd_key(2, 16, 16, 448, 1500, 64, False)])),
         ("decode_attention partial", "decode_attention",
          "B8 L512 D128 H48/1 partial",
          launched("decode_attention",
                   multi["ranks"][0]["21a"]["launches"]["decode_attention"])),
         ("flash_attention TP2", "flash_attention",
-         "B8 S128 span640 off512 H16/4", tp22a),
+         "B8 S128 span640 off512 H16/4",
+         counted("flash_attention", "22a",
+                 flash_key(8, 16, 4, 128, 640, 64, True, 512))),
         ("decode_attention TP2", "decode_attention", "B8 L1024 H16/4",
-         tp22a)] + [
+         counted("decode_attention", "22a", decode_key(8, 16, 4, 1024, 64)))
+    ] + [
         (f"pim_matvec TP2 {label}", "pim_matvec", label,
-         launched("pim_matvec", n * tp22a["launches"]["pim_matvec"] // 7))
-        for label, n in (("n8 2048->1024 none", 1), ("n8 2048->256 none", 2),
-                         ("n8 1024->2048 none", 1), ("n8 2048->4096 silu", 1),
-                         ("n8 2048->4096 none", 1),
-                         ("n8 4096->2048 none", 1))]
+         counted("pim_matvec", "22a", gemv_key(label)))
+        for label in ("n8 2048->1024 none", "n8 2048->256 none",
+                      "n8 1024->2048 none", "n8 2048->4096 silu",
+                      "n8 2048->4096 none", "n8 4096->2048 none")] + [
+        ("rwkv_chunk TP2", "rwkv_chunk", "BH32 T2048 K64",
+         counted("rwkv_chunk", "23a step", rwkv_key(32, 2048, 64))),
+        ("rwkv_chunk_bwd TP2", "rwkv_chunk_bwd", "BH32 T2048 K64 U32",
+         counted("rwkv_chunk_bwd", "23a train",
+                 rwkv_key(32, 2048, 64, bwd=True))),
+        ("mamba_chunk TP2", "mamba_chunk", "B2 T2048 d4096 n16",
+         counted("mamba_chunk", "23b step", mamba_key(2, 2048, 4096, 16))),
+        ("mamba_chunk_bwd TP2", "mamba_chunk_bwd", "B2 T2048 d4096 n16",
+         None),
+        ("flash_attention D128 TP2", "flash_attention",
+         "B2 S2048 span2048 off0 D128 H16/4",
+         counted("flash_attention", "23b step",
+                 flash_key(2, 16, 4, 2048, 2048, 128))),
+        ("decode_attention D128 TP2", "decode_attention",
+         "B8 L1024 D128 H16/4",
+         counted("decode_attention", "23b", decode_key(8, 16, 4, 1024, 128))),
+        ("flash_attention non-causal encoder TP2", "flash_attention",
+         "B2 Sq1500 Skv1500 non-causal H8/8",
+         counted("flash_attention", "23c step",
+                 flash_key(2, 8, 8, 1500, 1500, 64, False))),
+        ("flash_attention non-causal cross TP2", "flash_attention",
+         "B2 Sq448 Skv1500 non-causal H8/8",
+         counted("flash_attention", "23c step",
+                 flash_key(2, 8, 8, 448, 1500, 64, False))),
+        ("flash_attention whisper decoder TP2", "flash_attention",
+         "B2 S448 span448 off0 H8/8",
+         counted("flash_attention", "23c step",
+                 flash_key(2, 8, 8, 448, 448, 64))),
+        ("flash_attention non-causal encoder B8 TP2", "flash_attention",
+         "B8 Sq1500 Skv1500 non-causal H8/8",
+         counted("flash_attention", "23c",
+                 flash_key(8, 8, 8, 1500, 1500, 64, False))),
+        ("decode_attention cross TP2", "decode_attention", "B8 L1500 H8/8",
+         counted("decode_attention", "23c", decode_key(8, 8, 8, 1500, 64))),
+        ("decode_attention whisper self TP2", "decode_attention",
+         "B8 L448 H8/8",
+         counted("decode_attention", "23c", decode_key(8, 8, 8, 448, 64))),
+        ("flash_attention D160 TP2", "flash_attention",
+         "B2 S1024 span1024 off0 D160 H16/4",
+         counted("flash_attention", "23d step",
+                 flash_key(2, 16, 4, 1024, 1024, 160))),
+        ("flash_attention D160 chunk TP2", "flash_attention",
+         "B8 S128 span640 off512 D160 H16/4",
+         counted("flash_attention", "23d",
+                 flash_key(8, 16, 4, 128, 640, 160, True, 512))),
+        ("decode_attention D160 TP2", "decode_attention",
+         "B8 L1024 D160 H16/4",
+         counted("decode_attention", "23d",
+                 decode_key(8, 16, 4, 1024, 160)))] + [
+        (f"pim_matvec TP2 {tag} {label}", "pim_matvec", label,
+         counted("pim_matvec", tag, gemv_key(label)))
+        for tag in ("23a", "23b", "23c", "23d")
+        for label in tp_gemv_plan(tp_family_cfg(tag, False))]
     kernels = []
     for name, kernel, label, run in rows:
         route, source, replaces = SOURCES[kernel]
@@ -5090,6 +6064,8 @@ def main() -> None:
             shape=r["label"], dtype=r["dtype"]))
         if run is None:       # a shape no path runs: phase 2's calls alone
             kernels[-1]["checked_calls"] = r["checked_launches"]
+        elif "tp_key" in run and not kernels[-1]["launches"]:
+            fail(f"{name}: rank 0 counted no launch at {run['tp_key']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

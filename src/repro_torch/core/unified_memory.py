@@ -210,7 +210,7 @@ def assert_unified_layout(param_defs, mesh, cfg=None) -> Dict[str, int]:
     ``resident_param_bytes``, what one rank of the port holds
     (``models.params.local_defs`` under ``resident_axes(cfg)``), and on a
     mesh whose axes other than 'model' have extent 1 it asserts that a
-    ``dense`` or ``moe`` rank's resident spec of every leaf is the rule
+    rank's resident spec of every leaf, in every family, is the rule
     table's: the port's resident layout is the unified layout itself."""
     import numpy as np
     from repro_torch.models.params import (is_def, local_defs, resident_axes,
@@ -232,8 +232,7 @@ def assert_unified_layout(param_defs, mesh, cfg=None) -> Dict[str, int]:
     out["resident_param_bytes"] = sum(
         int(np.prod(leaf.shape)) * 2 for leaf in tree_leaves(
             local_defs(param_defs, mesh, resident)) if is_def(leaf))
-    if cfg.family in ("dense", "moe") and all(
-            n == 1 for a, n in axis_sizes(mesh).items() if a != "model"):
+    if all(n == 1 for a, n in axis_sizes(mesh).items() if a != "model"):
         for leaf, spec in zip(
                 [x for x in tree_leaves(param_defs) if is_def(x)],
                 tree_leaves(resident_specs(param_defs, mesh, resident))):

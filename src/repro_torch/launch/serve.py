@@ -223,12 +223,15 @@ def write_reports(rec, hub, metrics_out, timeline_out) -> None:
 def device_time(prof, top: int = 15):
     """The device's busy seconds (the sum of kernel and copy times on the
     card; the runs use one stream) and the ``top`` device ops that took
-    the most time: [(name, count, seconds)], slowest first."""
+    the most time: [(name, count, seconds)], slowest first. It reads the
+    profiler's raw events: ``prof.events()`` would first build the host
+    side's event tree, seconds for a serve's hundreds of thousands of
+    events."""
     by_name = defaultdict(lambda: [0, 0.0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name][0] += 1
-            by_name[e.name][1] += e.time_range.elapsed_us() / 1e6
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[e.name()][0] += 1
+            by_name[e.name()][1] += e.duration_ns() / 1e9
     busy_s = sum(s for _, s in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     return busy_s, [(name, n, s) for name, (n, s) in ranked]

@@ -19,15 +19,17 @@ GSPMD). An int8 cache is
 dequantized to bf16 in plain PyTorch before the kernels, as the reference
 does it outside its kernels.
 
-Tensor parallelism: with the query heads split over 'model' (a ``dense``
-or ``moe`` rank's weights; ``layers.tp_mesh`` reads it off ``wq``), a
+Tensor parallelism: with the query heads split over 'model' (a rank's
+weights in any family; ``layers.tp_mesh`` reads it off ``wq``), a
 rank projects its heads, and its KV heads where m divides them (layout
 A), attends them, and the row-parallel ``wo`` ends in the psum. Layout B
 is decided from the model's KV heads, not the local cache's: its KV
 weights stay whole, and in decode the local query heads are all-gathered
 before the partial mode (the reference's ``shard_map`` sees every query
 head), the rank's heads taken back from the combined output before
-``wo``.
+``wo``. Whisper's cross attention splits the same way: its queries,
+``encoder_kv``'s keys and values and the cross cache are the rank's
+heads, and its ``wo`` ends in the psum.
 
 The reference is functional; the port writes K/V into the cache tensors in
 place (an update returns the same tensors it was given), which saves a copy
@@ -432,8 +434,10 @@ def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     """x: (B, S, d) decoder states against ``enc_kv`` = (k, v), each
     (B, KH, S_enc, hd): q projected without RoPE, every encoder position
     attended, no mask, through the flash kernel's non-causal static mode
-    (Sq = S, Skv = S_enc). -> (B, S, d)."""
+    (Sq = S, Skv = S_enc). A tensor-parallel rank projects and attends
+    its heads; ``wo`` ends in the psum. -> (B, S, d)."""
     d = x.shape[-1]
+    x = comm.copy_to_model(x, _heads_mesh(cfg, p))
     q = _heads(mm(x, p["wq"].reshape(d, -1)), p["wq"].shape[1])
     k, v = enc_kv
     return out_project(p, ops.flash_attention(q, k, v, causal=False), cfg)
@@ -443,25 +447,29 @@ def cross_attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
                            enc_kv) -> torch.Tensor:
     """``cross_attention`` for one decode token a row: x (B, 1, d) against
     a layer's view of the cross cache ``enc_kv`` = (ck, cv), each
-    (B, KH, S_enc, hd). The q and out projections run as GEMVs over the B
-    rows and the attention through the decode kernel with every length
-    S_enc. -> (B, 1, d)."""
+    (B, KH, S_enc, hd) (a tensor-parallel rank's KV heads). The q and out
+    projections run as GEMVs over the B rows, at the rank's heads, and the
+    attention through the decode kernel with every length S_enc; ``wo``
+    ends in the psum. -> (B, 1, d)."""
     B, _, d = x.shape
     ck, cv = enc_kv
-    H, hd = cfg.num_heads, cfg.head_dim
+    H, hd = p["wq"].shape[-2], cfg.head_dim
     q = _project_rows(p, x.reshape(B, d), "wq").reshape(B, H, hd)
     lengths = torch.full((B,), ck.shape[2], dtype=torch.int32,
                          device=x.device)
     o = ops.decode_attention(q, ck, cv, lengths)
     wo = p["wo"]
     out = ops.fused_matvec(o.reshape(B, H * hd), wo.reshape(H * hd, -1))
-    return out.reshape(B, 1, -1)
+    return comm.reduce_from_model(out, _heads_mesh(cfg, p)).reshape(B, 1, -1)
 
 
 def encoder_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor):
     """The cross-attention keys and values of encoder states enc_out
-    (B, S_enc, d): each (B, KH, S_enc, hd), plain products."""
+    (B, S_enc, d): each (B, KH, S_enc, hd), plain products (a
+    tensor-parallel rank's KV heads: the column-parallel products' input
+    takes the conjugate copy)."""
     d = enc_out.shape[-1]
+    enc_out = comm.copy_to_model(enc_out, _heads_mesh(cfg, p))
     k = _heads(mm(enc_out, p["wk"].reshape(d, -1)), p["wk"].shape[1])
     v = _heads(mm(enc_out, p["wv"].reshape(d, -1)), p["wv"].shape[1])
     return k, v

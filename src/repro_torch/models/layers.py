@@ -8,12 +8,14 @@ products go through the GEMV kernel (``apply_mlp_gemv``); prefill products
 and the LM head stay plain matmuls, as the reference leaves them to XLA.
 
 Tensor parallelism: a layer finds its weights' sharding from their local
-shapes against ``cfg``'s (``tp_mesh``). A rank of a ``dense`` or ``moe``
-model under a mesh whose 'model' extent m is above 1 holds 1/m of d_ff
+shapes against ``cfg``'s (``tp_mesh``). A rank of any family under a mesh
+whose 'model' extent m is above 1 holds 1/m of d_ff
 (the MLP is column-parallel ``wi``/``wg``, row-parallel ``wo``, then the
 psum) and of the vocabulary: the embedding looks up the ids in its range
 and psums, the LM head gives the local columns, and the loss is the
-vocabulary-parallel cross-entropy (``softmax_xent``).
+vocabulary-parallel cross-entropy (``softmax_xent``). A vocabulary that m
+does not divide (whisper-medium's 51,865) stays whole, as the rule table
+leaves it, and these take their one-rank forms.
 """
 from __future__ import annotations
 

@@ -13,8 +13,9 @@ nesting, shapes and dtypes. Two ways to fill one:
 ``abstract_params`` gives a tree's tensors on the ``meta`` device (no
 allocation) and ``shardings_for`` its specs on a mesh. Under a mesh a rank
 holds its resident part of a tree (``sharding/axes.py::resident_spec``):
-``local_defs`` shrinks a ParamDef tree to those shapes and ``shard_tree``
-cuts a full tree down to them.
+``local_defs`` shrinks a ParamDef tree to those shapes, ``shard_tree``
+cuts a full tree down to them and ``init_shard`` draws a rank's parts of
+``init_params``' tree one leaf at a time.
 
 As in the reference, ``ParamDef.dtype`` defaults to ``"bfloat16"`` whatever
 ``ModelConfig.dtype`` says; only the cache follows ``cfg.dtype``.
@@ -153,24 +154,23 @@ def shardings_for(defs, mesh, rules=None):
                                                 mesh, rules), defs)
 
 
-# the tensor-parallel axes of the decoder-only dense and MoE families
-TP_AXES = ("heads", "kv_heads", "d_ff", "vocab", "experts")
+# the tensor-parallel axes: every logical axis the rule table puts on
+# 'model' but a layout-B cache's sequence
+TP_AXES = ("heads", "kv_heads", "d_ff", "vocab", "experts", "d_inner",
+           "rwkv_heads")
 
 
 def resident_axes(cfg) -> tuple:
-    """The logical axes a rank of ``cfg``'s model keeps sharded. A
-    ``dense`` or ``moe`` model: the tensor-parallel axes (heads, KV heads,
-    d_ff, vocabulary and experts, each over 'model' where the rule table
-    puts it there), a layout-B cache's sequence, and under the
-    expert-parallel MoE the experts' ZeRO-3 d_ff slices. The ``ssm``,
-    ``hybrid``, ``encdec`` and ``vlm`` families keep their dense weights
-    whole (their tensor parallelism is ROADMAP item 8b): the cache's
-    sequence, and the experts with their slices under the expert-parallel
-    MoE."""
-    ep = ("experts", "fsdp") if cfg.moe_impl == "ep" else ()
-    if cfg.family in ("dense", "moe"):
-        return TP_AXES + ("kv_seq",) + ep[1:]
-    return ("kv_seq",) + ep
+    """The logical axes a rank of ``cfg``'s model keeps sharded, the same
+    for every family: the tensor-parallel axes (attention heads and KV
+    heads, d_ff, vocabulary, experts, Mamba's ``d_inner`` and RWKV's
+    heads, each over 'model' where the rule table puts it there), a
+    layout-B cache's sequence, and under the expert-parallel MoE the
+    experts' ZeRO-3 d_ff slices. A leaf the rule table leaves whole
+    (RWKV's ``wcr`` and ``w_lora_a``, a vocabulary that 'model' does not
+    divide) stays whole on each rank."""
+    ep = ("fsdp",) if cfg.moe_impl == "ep" else ()
+    return TP_AXES + ("kv_seq",) + ep
 
 
 def _resident(pd: ParamDef, mesh, resident) -> tuple:
@@ -199,6 +199,27 @@ def shard_tree(tree, defs, mesh, resident):
     return tree_map(lambda x, pd: local_slice(
         x, _resident(pd, mesh, resident), mesh, coords).contiguous(),
         tree, defs)
+
+
+def init_shard(defs, mesh, resident, *, device=None, seed: int = 0):
+    """This rank's resident parts of ``init_params(defs, seed=seed)``: each
+    leaf drawn whole, in ``init_params``'s order from its generator, and
+    cut at once, so that a rank never holds more than one whole leaf
+    beside its parts (two ranks of jamba's 26 GB period on one card)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    coords = None if mesh is None else mesh.coords()
+
+    def one(pd):
+        if not is_def(pd):
+            return pd
+        full = _materialize(pd, gen, dev)
+        if mesh is None:
+            return full
+        from repro_torch.sharding.axes import local_slice
+        return local_slice(full, _resident(pd, mesh, resident), mesh,
+                           coords).clone()
+    return tree_map(one, defs)
 
 
 def resident_specs(defs, mesh, resident):

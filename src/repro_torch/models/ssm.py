@@ -24,6 +24,23 @@ channel mix's three, eight launches a layer; Mamba's ``in_proj_x``,
 ``in_proj_z`` and ``out_proj``, three. The low-rank products (RWKV's decay
 LoRA, Mamba's dt, B and C projections) stay matmuls. Elsewhere the
 products are plain matmuls, as the reference leaves them to XLA.
+
+Tensor parallelism (the reference's ``tp`` rules over 'model'; a layer
+finds its share off its weights' shapes, ``layers.tp_mesh``). RWKV: r, k,
+v and g are column-parallel over the rank's heads (``rwkv_heads``), as
+are the decay LoRA's B, ``w0``, ``u`` and the per-head group norm, and
+``wo`` is row-parallel, then the psum; the channel mix's ``wck`` is
+column-parallel over d_ff and ``wcv`` row-parallel, then the psum, while
+``wcr`` stays whole, as the rule table leaves it. Mamba: ``in_proj_x`` and
+``in_proj_z`` are column-parallel over ``d_inner``, the conv, the scan and
+their cache are the rank's channels, and ``out_proj`` is row-parallel,
+then the psum; the dt, B and C projections contract the rank's channels,
+so their three partial sums go out in one psum. The conjugate copy
+(``comm.copy_to_model``) sits on the mixer's input x: the replicated
+leaves read between it and the sharded products (the ``mu_*`` mixes,
+``w_lora_a``, ``wcr``) get the ranks' parts of their gradients, which the
+train step sums over 'model' as it sums the MoE router's, and one mean a
+mixer in the backward hands every rank dL/dx.
 """
 from __future__ import annotations
 
@@ -35,8 +52,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import wide
-from repro_torch.models.layers import mm
+from repro_torch.models.layers import mm, tp_mesh
 from repro_torch.models.params import ParamDef
+from repro_torch.sharding import comm
 
 
 # --------------------------------------------------------------------------- #
@@ -155,14 +173,18 @@ def _group_norm(y: torch.Tensor, scale, bias) -> torch.Tensor:
 def rwkv_time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   state: Optional[dict] = None):
     """x: (B, T, d). state (decode): {"shift_tm": (B, d),
-    "wkv": (B, H, hd, hd)}. Returns (out (B, T, d), new_state)."""
+    "wkv": (B, H, hd, hd)}, H the rank's heads. Returns (out (B, T, d),
+    new_state)."""
     B, T, d = x.shape
-    H, hd = cfg.num_heads, cfg.rwkv_head_dim
+    # the local head count: a tensor-parallel rank's share
+    H, hd = p["wr"].shape[-2], cfg.rwkv_head_dim
+    mesh = tp_mesh(H, cfg.num_heads)
     c = min(cfg.ssm_chunk, T)
     if T % c:
         raise ValueError(f"sequence length {T} is not a multiple of "
                          f"ssm_chunk {c}")
     gemv = state is not None and T == 1
+    x = comm.copy_to_model(x, mesh)
     prev = None if state is None else state["shift_tm"]
     xp = _token_shift(x, prev)
 
@@ -197,20 +219,23 @@ def rwkv_time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
     y = y.to(x.dtype) * F.silu(g)
     y = y.permute(0, 2, 1, 3).reshape(B, T, H * hd)
     out = _fc(y, p["wo"].reshape(H * hd, d), gemv)
-    return out, {"shift_tm": x[:, -1, :], "wkv": s_fin}
+    return comm.reduce_from_model(out, mesh), {"shift_tm": x[:, -1, :],
+                                               "wkv": s_fin}
 
 
 def rwkv_channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
                      state: Optional[dict] = None):
     """x: (B, T, d). state (decode): {"shift_cm": (B, d)}. Squared-ReLU key,
     sigmoid receptance. Returns (out (B, T, d), new_state)."""
+    mesh = tp_mesh(p["wck"].shape[-1], cfg.d_ff)
     gemv = state is not None and x.shape[1] == 1
+    x = comm.copy_to_model(x, mesh)
     prev = None if state is None else state["shift_cm"]
     xp = _token_shift(x, prev)
     xk = _ddlerp(x, xp, p["mu_ck"])
     xr = _ddlerp(x, xp, p["mu_cr"])
     k = torch.square(torch.relu(_fc(xk, p["wck"], gemv)))
-    v = _fc(k, p["wcv"], gemv)
+    v = comm.reduce_from_model(_fc(k, p["wcv"], gemv), mesh)
     r = torch.sigmoid(_fc(xr, p["wcr"], gemv))
     return r * v, {"shift_cm": x[:, -1, :]}
 
@@ -264,13 +289,16 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def mamba_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
               state: Optional[dict] = None):
     """x: (B, T, d). state (decode): {"conv": (B, cw-1, di),
-    "ssm": (B, di, n)}. Returns (out (B, T, d), new_state)."""
+    "ssm": (B, di, n)}, di the rank's channels. Returns (out (B, T, d),
+    new_state)."""
     B, T, d = x.shape
+    mesh = tp_mesh(p["in_proj_x"].shape[-1], cfg.d_inner)
     c = min(cfg.ssm_chunk, T)
     if T % c:
         raise ValueError(f"sequence length {T} is not a multiple of "
                          f"ssm_chunk {c}")
     gemv = state is not None and T == 1
+    x = comm.copy_to_model(x, mesh)
     xz = _fc(x, p["in_proj_x"], gemv)
     z = _fc(x, p["in_proj_z"], gemv)
 
@@ -279,11 +307,18 @@ def mamba_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
                                           conv_state)
     xc = F.silu(xc)
 
-    # selective parameters, in f32
-    dt = mm(mm(xc, p["w_dt_in"]), p["w_dt_out"])
+    # selective parameters, in f32. The dt, B and C projections contract
+    # d_inner: a rank's are partial sums, summed in one psum (whose
+    # backward, the psum of the ranks' cotangents, is the row-parallel
+    # output's m dy of their mean)
+    r, n = p["w_dt_in"].shape[-1], p["w_b"].shape[-1]
+    proj = torch.cat([mm(xc, p["w_dt_in"]), mm(xc, p["w_b"]),
+                      mm(xc, p["w_c"])], dim=-1)
+    dt_in, Bt, Ct = torch.split(comm.psum(proj, mesh, "model"), [r, n, n],
+                                dim=-1)
+    dt = mm(dt_in, p["w_dt_out"])
     dt = F.softplus(dt.float() + p["dt_bias"].float())    # (B, T, di)
-    Bt = mm(xc, p["w_b"]).float()
-    Ct = mm(xc, p["w_c"]).float()
+    Bt, Ct = Bt.float(), Ct.float()
     A = -torch.exp(p["a_log"].float())                    # (di, n) < 0
 
     # (B, T, di, n) each: 2.15 GB in f32 at jamba's B 2 x S 2048, so the
@@ -300,4 +335,5 @@ def mamba_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
     y = y + p["d_skip"].float() * xc.float()
     y = y.to(x.dtype) * F.silu(z)
     out = _fc(y, p["out_proj"], gemv)
-    return out, {"conv": new_conv, "ssm": h_fin}
+    return comm.reduce_from_model(out, mesh), {"conv": new_conv,
+                                               "ssm": h_fin}

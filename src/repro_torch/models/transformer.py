@@ -26,12 +26,17 @@ d_inner, d_state) f32. The reference's ``lax.scan`` over superblocks is a
 Python loop over the leading index of the stacked tensors; cache updates
 land in place in the stacked cache.
 
-Under tensor parallelism (a ``dense`` or ``moe`` rank's resident weights,
+Under tensor parallelism (a rank's resident weights in any family,
 ``models/params.py::resident_axes``) the layers find their shares from
-their weights' shapes; the logits are the rank's vocabulary columns, the
-loss the vocabulary-parallel cross-entropy, and sampling merges the
-ranks' (max, global index) in one all-gather (``comm.sharded_argmax``),
-the Gumbel noise hashed from each cell's global index.
+their weights' shapes, and the cache holds the rank's part: an attention
+position's KV heads (or, in layout B, its positions) and whisper's cross
+keys and values, an RWKV position's ``wkv`` heads (the token-shift
+carries whole), a Mamba position's ``d_inner`` channels. The logits are
+the rank's vocabulary columns, the loss the vocabulary-parallel
+cross-entropy, and sampling merges the ranks' (max, global index) in one
+all-gather (``comm.sharded_argmax``), the Gumbel noise hashed from each
+cell's global index; a vocabulary that 'model' does not divide stays
+whole and takes the one-rank forms.
 """
 from __future__ import annotations
 

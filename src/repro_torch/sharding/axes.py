@@ -23,9 +23,9 @@ every logical axis that the rule table maps to 'model' (the tensor-parallel
 heads, KV heads, d_ff, vocabulary and experts, the recurrent d_inner and
 heads, and a layout-B cache's sequence) and the ZeRO-3 ``fsdp`` dim. It
 resolves through the active profile, so under ``dp`` nothing shards over
-'model'. A model family narrows the set (``models/params.py::
-resident_axes``): the recurrent and encoder-decoder families keep their
-dense weights whole (ROADMAP item 8b). ``local_slice`` cuts a rank's part
+'model'. Every model family keeps the whole set but the ZeRO-3 dim, which
+only the expert-parallel MoE keeps (``models/params.py::resident_axes``).
+``local_slice`` cuts a rank's part
 of a full tensor by a spec and ``gather_slices`` puts the parts back.
 """
 from __future__ import annotations

@@ -96,6 +96,11 @@ def test_flash_kernel_matches_plain(card, B, H, KH, S, L, offset, D, dtype):
     (1, 8, 2, 130, 70, 64),         # Sq > Skv, GQA
     (2, 4, 1, 100, 300, 160),       # MQA at pixtral's head dim
     (1, 2, 2, 64, 64, 32),
+    # whisper-medium on one of two tensor-parallel ranks (8 / 8 heads):
+    # the encoder at B 2 and at the generate's 8 rows, the cross attention
+    (2, 8, 8, 1500, 1500, 64),
+    (8, 8, 8, 1500, 1500, 64),
+    (2, 8, 8, 448, 1500, 64),
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_kernel_non_causal(card, B, H, KH, Sq, Skv, D, dtype):
@@ -298,6 +303,13 @@ def test_bf16_flash_refuses_unaligned_inputs(card):
     (2, 48, 1, 500, 128, (499, 3)),
     # whisper's cross cache: G 1, every length the 1,500 frames
     (8, 16, 16, 1500, 64, (1500,) * 8),
+    # one of two tensor-parallel ranks: whisper-medium's cross cache and
+    # self cache (8 / 8 heads), jamba's (16 / 4 of 128), pixtral-12b's
+    # (16 / 4 of 160)
+    (8, 8, 8, 1500, 64, (1500,) * 8),
+    (8, 8, 8, 448, 64, (1, 8, 9, 24, 63, 64, 65, 448)),
+    (8, 16, 4, 1024, 128, (1, 64, 65, 341, 342, 700, 1023, 1024)),
+    (8, 16, 4, 1024, 160, (1, 77, 700, 1023, 1024, 5, 333, 512)),
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_kernel_matches_plain(card, B, H, KH, L, D, lens, dtype):
@@ -437,6 +449,47 @@ def test_attention_kernels_at_tensor_parallel_heads(card, dtype):
                  dtype)
 
 
+# the decode FCs of the recurrent, hybrid, encoder-decoder and VLM
+# families on one of two tensor-parallel ranks (``chip_smoke.tp_gemv_plan``):
+# rwkv6-7b's r, k, v, g (d -> 2048), wo, wck, wcv and the whole wcr;
+# jamba's in_proj x, z and out_proj (d_inner 4096 a rank), its attention
+# (16 / 4 heads of 128) and MLP; whisper-medium's q, k, v, o, cross q and
+# o and GELU MLP; pixtral-12b's (16 / 4 heads of 160) and MLP
+FAMILY_TP2_GEMV = [
+    (4096, 2048, "none"), (2048, 4096, "none"), (4096, 7168, "none"),
+    (7168, 4096, "none"), (4096, 4096, "none"), (4096, 512, "none"),
+    (4096, 7168, "silu"), (1024, 512, "none"), (512, 1024, "none"),
+    (1024, 2048, "gelu"), (2048, 1024, "none"), (5120, 2560, "none"),
+    (5120, 640, "none"), (2560, 5120, "none"), (5120, 7168, "silu"),
+    (5120, 7168, "none"), (7168, 5120, "none")]
+
+
+@pytest.mark.parametrize("d_in,d_out,act", FAMILY_TP2_GEMV)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_matvec_kernel_at_family_tensor_parallel_shapes(card, d_in, d_out,
+                                                        act, dtype):
+    x = _rand((8, d_in), 1, dtype)
+    w = _rand((d_in, d_out), 2, dtype, d_in ** -0.5)
+    _close_tight(pim_matvec(x, w, None, act),
+                 ref.matvec_ref(x, w, None, act), dtype)
+
+
+@pytest.mark.parametrize("B,H,KH,S,D", [
+    (2, 16, 4, 2048, 128),     # jamba's prefill step on a rank
+    (2, 16, 4, 1024, 160),     # pixtral-12b's, 256 patches + 768 tokens
+    (2, 8, 8, 448, 64),        # whisper-medium's decoder
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_at_family_tensor_parallel_heads(card, B, H, KH, S, D,
+                                                      dtype):
+    """The causal full-sequence calls of the prefill steps on one of two
+    tensor-parallel ranks."""
+    q = _rand((B, H, S, D), 1, dtype)
+    k, v = _rand((B, KH, S, D), 2, dtype), _rand((B, KH, S, D), 3, dtype)
+    _close_tight(flash_attention(q, k, v, causal=True),
+                 ref.flash_attention_ref(q, k, v, causal=True), dtype)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_matvec_kernel_is_deterministic(card, dtype):
     """The K-slices sum in a fixed order: two calls agree bitwise."""
@@ -522,6 +575,7 @@ def _rwkv_inputs(BH, T_, K, dtype, seed, strong=False):
 
 @pytest.mark.parametrize("BH,T_,K", [
     (128, 2048, 64),       # the full-sequence prefill of rwkv6-7b, B 2
+    (32, 2048, 64),        # B 1 on one of two tensor-parallel ranks
     (4, 200, 64),          # ragged last chunk
     (6, 37, 16),           # one ragged chunk, a narrow head
     (2, 1, 64),            # one step
@@ -677,6 +731,7 @@ def _mamba_inputs(B, T_, d, n, dtype, seed):
 
 @pytest.mark.parametrize("B,T_,d,n", [
     (2, 2048, 8192, 16),   # jamba-v0.1-52b's full-sequence prefill step
+    (2, 2048, 4096, 16),   # the same on one of two tensor-parallel ranks
     (1, 200, 8192, 16),    # ragged T
     (2, 37, 128, 4),       # the reduced config's widths
     (3, 5, 100, 5),        # a d_state that is no power of two
@@ -1239,6 +1294,7 @@ def test_train_steps_on_the_card_match_the_cpu(card, remat):
 
 @pytest.mark.parametrize("BH,T_,K,U,strong,final", [
     (128, 2048, 64, 64, False, False),   # rwkv6-7b's training shape, B 2
+    (32, 2048, 64, 32, False, False),    # B 1 on one of two ranks
     (4, 200, 64, 4, False, True),        # a ragged last sub-chunk, dS_T
     (6, 37, 16, 3, False, True),         # U < BH, K 16
     (16, 512, 64, 16, True, False),      # the model's strong decays
@@ -1272,6 +1328,7 @@ def test_rwkv_chunk_bwd_kernel_matches_plain(card, BH, T_, K, U, strong,
 
 @pytest.mark.parametrize("B,T_,d,n,final", [
     (1, 2048, 8192, 16, False),   # jamba's training shape, B 1
+    (2, 2048, 4096, 16, False),   # B 2 on one of two ranks (d_inner 4096)
     (1, 200, 8192, 16, True),     # a ragged last checkpoint, dh_T
     (2, 37, 128, 4, True),        # the reduced widths
     (2, 37, 100, 5, False),       # n no power of two

@@ -430,26 +430,23 @@ TP_FAMILIES = {"llama3.2-1b": "dense", "granite-20b": "dense",
 @pytest.mark.parametrize("arch", sorted(TP_FAMILIES))
 @pytest.mark.parametrize("impl", ["gspmd", "ep"])
 def test_resident_axes_by_family_and_profile(arch, impl):
-    """``dense`` and ``moe``: the tensor-parallel axes, the cache's
-    sequence and (EP) the ZeRO-3 slices, every leaf's resident spec on
-    (1, 2) the rule table's (``assert_unified_layout``); the other four
-    families: the cache's sequence and the experts under EP alone. Under
+    """Every family: the tensor-parallel axes (Mamba's ``d_inner`` and
+    RWKV's heads among them), the cache's sequence and (EP) the ZeRO-3
+    slices, every leaf's resident spec on (1, 2) the rule table's
+    (``assert_unified_layout``), a rank holding less than the tree. Under
     ``dp`` a (1, 2) rank holds every leaf whole whatever the axes."""
     from repro_torch.core.unified_memory import assert_unified_layout
     from repro_torch.models.params import resident_axes
     cfg = dataclasses.replace(get_arch(arch), moe_impl=impl)
     got = resident_axes(cfg)
     assert cfg.family == TP_FAMILIES[arch]
-    ep = ("experts", "fsdp") if impl == "ep" else ()
+    ep = ("fsdp",) if impl == "ep" else ()
     mesh = Mesh((1, 2), ("data", "model"))
     defs = T.param_defs(cfg.reduced())
-    if cfg.family in ("dense", "moe"):
-        assert set(got) == {"heads", "kv_heads", "d_ff", "vocab", "experts",
-                            "kv_seq"} | set(ep)
-        stats = assert_unified_layout(defs, mesh, cfg.reduced())
-        assert stats["resident_param_bytes"] < stats["param_bytes"]
-    else:
-        assert set(got) == {"kv_seq"} | set(ep)
+    assert set(got) == {"heads", "kv_heads", "d_ff", "vocab", "experts",
+                        "d_inner", "rwkv_heads", "kv_seq"} | set(ep)
+    stats = assert_unified_layout(defs, mesh, cfg.reduced())
+    assert stats["resident_param_bytes"] < stats["param_bytes"]
     token = X.set_profile("dp")
     try:
         local = local_defs(defs, mesh, got)
