@@ -30,7 +30,10 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      positions, lengths 0 to 512 in it; the lse to 1e-4 / 1e-3, beside
      PyTorch's memory-efficient attention with its log-sum-exp, where the
      plain version with the second split's keys dropped must fail the
-     bound); gpt2-xl's, gpt2-2.5b's, whisper's and pixtral's
+     bound); flash's segmented mode at phase 21a's packed chunk on a rank
+     (R 8, C 128, 24 heads on one KV head of 128, a prefix of 512 rows),
+     bitwise over two calls, beside SDPA with the mask; gpt2-xl's,
+     gpt2-2.5b's, whisper's and pixtral's
      decode FCs and norms, qwen3-moe's k/v FC, kimi-k2's prefill norm and
      whisper's and pixtral's prefill-step norms) plus ragged cases, in
      float32 and bfloat16 (tolerances of the reference's kernel tests:
@@ -317,7 +320,15 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      once a layer a decode step, flash, the GEMV and the norm launched,
      one gather a layer a dispatch and no other collective, both ranks'
      tokens equal; at depth 2 in float32 the tokens, dispatches and host
-     syncs of one rank's layout-A serve; (b) qwen3-moe-30b-a3b at its
+     syncs of one rank's layout-A serve; then the same prompts served
+     packed and with the int8 cache (``layout_b_serve``: twice each, 8
+     new tokens, the second repeating the first's tokens; each rank
+     writes the positions its shard owns and gathers the prefix it reads
+     in one collective a layer, an int8 cache's scales with its codes, a
+     packed chunk only where it has a prefix; flash in its segmented
+     mode once a layer a packed chunk, decode attention once a layer a
+     decode step; the collective plan; both ranks' tokens equal; the
+     depth-2 float32 parity of each); (b) qwen3-moe-30b-a3b at its
      widths (128 experts, top 8, d_ff 768) cut to 4 of 48 layers,
      ``moe_impl="ep"``, 64 experts a rank: the same serve, one psum over
      'model' a MoE layer a dispatch, and at depth 2 in float32 the
@@ -376,7 +387,8 @@ wkv's backward by phase 17, the Mamba scan's and the flash backward at D
 shapes by phase 19, the flash backward at D 96 by phase 20c and at D
 160 by phase 20, and at D 112, which no path launches: 0 launches, its
 ``checked_calls`` those of phase 2; then decode attention's partial mode
-with rank 0's launches in phase 21a's serve, the kernels at llama's
+with rank 0's launches in phase 21a's serve, flash's segmented mode at a
+layout-B rank's heads with those of 21a's packed serve, the kernels at llama's
 tensor-parallel shapes with the launches rank 0 counted at each shape in
 phase 22a, and each kernel at phase 23's shapes with those rank 0
 counted there, the Mamba scan's backward at a rank's shape with none),
@@ -499,6 +511,9 @@ FAMILY_TP2_FLASH = ((2, 2048, 2048, 0, 16, 4, 128),
                     (2, 1024, 1024, 0, 16, 4, 160),
                     (8, 128, 1024, 512, 16, 4, 160),
                     (2, 448, 448, 0, 8, 8, 64))
+# a layout-B rank's heads (H, KH, D): phase 21a's granite-20b, 48 query
+# heads split over two ranks, on its one KV head of 128
+LAYOUT_B_HEADS = (24, 1, 128)
 # the flash backward, as (B, S, Skv, H, KH, D, causal): llama3.2-1b's
 # training shape (phase 16's batch of 4 x 1024), a ragged S, jamba's
 # attention layer in phase 18 (B 2 x S 2048, 32 / 8 heads of 128), the
@@ -662,11 +677,15 @@ def kernel_cases(torch, dtype):
     # segmented flash: the packed layouts the planner gives -- the packed
     # serve's widest dispatch (phase 3b's prompts), and a ragged one with
     # padding columns, lanes without a prefix and Skv off the 32-key tile;
-    # both at llama's heads and at WIDE_FLASH's
+    # both at llama's heads and at WIDE_FLASH's; and the widest dispatch
+    # at a layout-B rank's heads (phase 21a's packed granite-20b: 24 of
+    # 48 query heads on its one KV head of 128, over the 512 prefix rows
+    # gathered from both shards), bitwise over two calls
     layouts = (([len(p) for p in serve_prompts(2)], 128),
                ((80, 30, 12, 9, 3), 37))
     heads = ((H, KH, D), (20, 20, 96), (64, 8, 112), (32, 8, 160))
-    for (h, kh, hd), (plens, C) in itertools.product(heads, layouts):
+    for (h, kh, hd), (plens, C) in list(itertools.product(heads, layouts)) \
+            + [(LAYOUT_B_HEADS, layouts[0])]:
         info, R, span = packed_layout(torch, plens, C)
         Skv = span + C
         q = rn(R, h, C, hd)
@@ -677,7 +696,7 @@ def kernel_cases(torch, dtype):
         cases.append(dict(
             kernel="flash_attention_segmented", tol=TIGHT_TOL,
             label=f"R{R} C{C} span{span}" + heads_label(h, kh, hd),
-            rows=rows,
+            rows=rows, deterministic=(h, kh, hd) == LAYOUT_B_HEADS,
             run=lambda q=q, k=k, v=v, i=info: flash_attention_segmented(
                 q, k, v, i),
             plain=lambda q=q, k=k, v=v, i=info: ref.segment_attention_ref(
@@ -4338,16 +4357,20 @@ def multirank_cfgs(small: bool):
 
 class HostClock:
     """Recorder hooks that keep the host's clock at each prefill and
-    decode dispatch (each decode ends in the engine's one host sync)."""
+    decode dispatch (each decode ends in the engine's one host sync), and
+    count the packed prefill dispatches that read a cached prefix
+    (``prefix_span`` > 0: on a layout-B cache, one gather a layer)."""
 
     def __init__(self):
         self.marks = []
+        self.prefix_dispatches = 0
 
     def bind(self, engine) -> None:
         pass
 
-    def on_prefill(self, *a, **k) -> None:
+    def on_prefill(self, *a, kv=0, chunk=0, packed=False, **k) -> None:
         self.marks.append(("prefill", time.perf_counter()))
+        self.prefix_dispatches += int(packed and kv > chunk)
 
     def on_decode(self, *a, **k) -> None:
         self.marks.append(("decode", time.perf_counter()))
@@ -4367,11 +4390,12 @@ class HostClock:
 
 
 def mesh_serve(torch, cfg, params, mesh, dev: str, prompts, max_new: int,
-               profile: bool = False) -> dict:
-    """One serve of ``prompts`` (8 slots, max_len 1024, chunks of 128)
-    under ``mesh`` (None: one rank, no collectives), its launches (on the
-    card also by shape: ``launch_shapes``), collectives, dispatches and
-    host syncs counted from 0."""
+               profile: bool = False, **scfg_kw) -> dict:
+    """One serve of ``prompts`` (8 slots, max_len 1024, chunks of 128;
+    ``scfg_kw``: further ``ServeConfig`` fields, ``pack``) under ``mesh``
+    (None: one rank, no collectives), its launches (on the card also by
+    shape: ``launch_shapes``), collectives, dispatches, packed dispatches
+    with a prefix and host syncs counted from 0."""
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.sharding import comm
@@ -4381,8 +4405,8 @@ def mesh_serve(torch, cfg, params, mesh, dev: str, prompts, max_new: int,
     scope = use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
     with scope:
         eng = ServeEngine(cfg, params, ServeConfig(
-            max_slots=8, max_len=1024, prefill_chunk=128), recorder=clock,
-            device=dev)
+            max_slots=8, max_len=1024, prefill_chunk=128, **scfg_kw),
+            recorder=clock, device=dev)
         for p in prompts:
             eng.add_request(p, max_new_tokens=max_new)
         if dev == "cuda":
@@ -4402,6 +4426,7 @@ def mesh_serve(torch, cfg, params, mesh, dev: str, prompts, max_new: int,
     return dict(
         tokens={str(k): [int(t) for t in v] for k, v in results.items()},
         dispatches=dict(eng.dispatch_counts), host_syncs=eng.host_syncs,
+        prefix_dispatches=clock.prefix_dispatches,
         launches=ops.launch_counts(), by_shape=tally, comm=comm.stats(),
         wall_s=wall,
         prefill_s=clock.prefill_s(t0),
@@ -4411,59 +4436,136 @@ def mesh_serve(torch, cfg, params, mesh, dev: str, prompts, max_new: int,
 
 
 def _serve_checks(tag: str, run: dict, per_prefill: int, per_decode: int,
-                  dev: str, kernels) -> None:
+                  dev: str, kernels, per_prefix: int = 0) -> None:
     """A mesh serve's collectives: ``per_prefill`` a prefill chunk and
-    ``per_decode`` a decode step (both in a fused step), no other; on the
-    card each kernel of ``kernels`` ran."""
+    ``per_decode`` a decode step (both in a fused step), and
+    ``per_prefix`` more a packed chunk with a prefix (layout B's gathers),
+    no other; on the card each kernel of ``kernels`` ran."""
     dc = run["dispatches"]
     want = per_prefill * dc["prefill"] + per_decode * dc["decode"] \
-        + (per_prefill + per_decode) * dc.get("fused", 0)
+        + (per_prefill + per_decode) * dc.get("fused", 0) \
+        + per_prefix * run.get("prefix_dispatches", 0)
     if run["comm"]["collectives"] != want:
         raise RuntimeError(f"{tag}: {run['comm']['collectives']} "
                            f"collectives, the plan gives {want} "
-                           f"({per_prefill} a chunk, {per_decode} a step: "
-                           f"{dc})")
+                           f"({per_prefill} a chunk, {per_decode} a step, "
+                           f"{per_prefix} more a chunk with a prefix: {dc}, "
+                           f"{run.get('prefix_dispatches', 0)} with one)")
     if dev == "cuda":
         for k in kernels:
             if not run["launches"].get(k):
                 raise RuntimeError(f"{tag}: {k} never launched")
 
 
-def depth2_mesh_parity(torch, tag: str, cfg, mesh, dev: str,
-                       prompts, **depth2) -> dict:
-    """``cfg`` at depth 2 in float32 (``depth2``: further config changes,
-    jamba's ``JAMBA_STACK``): the mesh serve of the prompts' first 96
-    tokens against the one-rank serve (tokens, dispatches, host syncs)."""
+def depth2_weights(torch, cfg, dev: str, **depth2):
+    """The float32 weights of ``cfg`` at depth 2 (``depth2``: further
+    config changes), drawn from seed 1."""
     from repro_torch.models import transformer as T
-    from repro_torch.models.params import (init_params, resident_axes,
-                                           shard_tree)
+    from repro_torch.models.params import init_params
+
+    cfg2 = dataclasses.replace(cfg, **{"num_layers": 2, **depth2},
+                               dtype="float32")
+    full2 = init_params(T.param_defs(cfg2), device=dev, seed=1)
+    leaves_to_f32(torch, full2)
+    return full2
+
+
+def depth2_mesh_parity(torch, tag: str, cfg, mesh, dev: str,
+                       prompts, scfg_kw=None, prompt_len=96, weights=None,
+                       **depth2) -> dict:
+    """``cfg`` at depth 2 in float32 (``depth2``: further config changes,
+    jamba's ``JAMBA_STACK``; ``scfg_kw``: the serve's ``ServeConfig``
+    fields, ``pack``; ``weights``: ``depth2_weights``'s tree, drawn here
+    if None): the mesh serve of the prompts' first ``prompt_len`` tokens
+    (None: whole) against the one-rank serve (tokens, dispatches, host
+    syncs)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import resident_axes, shard_tree
 
     cfg2 = dataclasses.replace(cfg, **{"num_layers": 2, **depth2},
                                dtype="float32")
     defs2 = T.param_defs(cfg2)
-    full2 = init_params(defs2, device=dev, seed=1)
-    leaves_to_f32(torch, full2)
-    short_prompts = [p[:96] for p in prompts]
-    one = mesh_serve(torch, cfg2, full2, None, dev, short_prompts, 16)
+    full2 = depth2_weights(torch, cfg, dev, **depth2) if weights is None \
+        else weights
+    short_prompts = [p[:prompt_len] for p in prompts]
+    scfg_kw = scfg_kw or {}
+    one = mesh_serve(torch, cfg2, full2, None, dev, short_prompts, 16,
+                     **scfg_kw)
     two = mesh_serve(torch, cfg2, shard_tree(
         full2, defs2, mesh, resident_axes(cfg2)), mesh, dev,
-        short_prompts, 16)
+        short_prompts, 16, **scfg_kw)
     for key in ("tokens", "dispatches", "host_syncs"):
         if one[key] != two[key]:
             raise RuntimeError(f"{tag}: depth-2 float32 {key} differ "
                                f"between the mesh serve and one rank: "
                                f"{two[key]} vs {one[key]}")
     del full2
-    if dev == "cuda":
+    if dev == "cuda" and weights is None:
         torch.cuda.empty_cache()
     return dict(tokens=sum(map(len, one["tokens"].values())),
                 dispatches=one["dispatches"], host_syncs=one["host_syncs"])
 
 
+# phase 21a's serves beside its batched bf16 one: packed (the flash
+# kernel's segmented mode over the prefix gathered from both shards) and
+# with the int8 cache (its scales gathered with its codes), as (config
+# fields, ServeConfig fields)
+LAYOUT_B_SERVES = {"packed": ({}, {"pack": True}),
+                   "int8": ({"kv_dtype": "int8"}, {})}
+
+
+def layout_b_serve(torch, cfg, params, mesh, dev: str, prompts,
+                   kind: str) -> dict:
+    """21a's serve ``kind`` of ``LAYOUT_B_SERVES`` on this rank: twice,
+    8 new tokens, no profile; the second serve must repeat the first's
+    tokens, and each makes its collective plan (a chunk psums the
+    embedding, ``wo`` and the MLP a layer and gathers the prefix a layer:
+    a packed chunk only where it has one, ``prefix_span`` > 0; a decode
+    step adds the argmax's gather, the query heads' gather and the
+    partials' combine a layer) and, on the card, launches decode
+    attention ``n_attn`` times a decode step and flash in its chunk's mode
+    (segmented when packed) ``n_attn`` times a chunk, the other mode
+    never. Returns the second serve."""
+    cfg_kw, scfg_kw = LAYOUT_B_SERVES[kind]
+    cfg = dataclasses.replace(cfg, **cfg_kw)
+    n_attn = cfg.layer_kinds().count("attn")
+    pack = bool(scfg_kw.get("pack"))
+    flash, other = (("flash_attention_segmented", "flash_attention") if pack
+                    else ("flash_attention", "flash_attention_segmented"))
+    tag = f"21a {kind}"
+    runs = []
+    for _ in range(2):
+        run = mesh_serve(torch, cfg, params, mesh, dev, prompts, 8,
+                         **scfg_kw)
+        _serve_checks(tag, run, 1 + (2 if pack else 3) * n_attn,
+                      2 + 4 * n_attn, dev, ("decode_attention", flash,
+                                            "pim_matvec", "layernorm"),
+                      per_prefix=n_attn if pack else 0)
+        dc, got = run["dispatches"], run["launches"]
+        if dev == "cuda" and (
+                got.get("decode_attention") != n_attn * dc["decode"]
+                or got.get(flash) != n_attn * dc["prefill"]
+                or got.get(other, 0)):
+            raise RuntimeError(f"{tag}: launches {got} in {dc} of "
+                               f"{n_attn} layers")
+        runs.append(run)
+    if runs[0]["tokens"] != runs[1]["tokens"]:
+        raise RuntimeError(f"{tag}: a second serve gave other tokens")
+    run = dict(runs[1], first_serve_s=runs[0]["wall_s"])
+    run["collectives_per_prefill_chunk"] = 1 + (2 if pack else 3) * n_attn
+    run["collectives_per_decode_step"] = 2 + 4 * n_attn
+    log(f"{tag}: {run['ms_per_decode_step']:.2f} ms a decode step, "
+        f"prefill {run['prefill_s']:.2f} s in {dc['prefill']} dispatches, "
+        f"{run['comm']['collectives']} collectives "
+        f"({run['comm']['ms']:.1f} ms), peak {run['peak_bytes']} B")
+    return run
+
+
 def multirank_serves(torch, rank: int, dev: str, small: bool) -> dict:
-    """21a (granite-20b: tensor parallelism, its cache in layout B) and
-    21b (qwen3-moe: tensor-parallel attention, expert-parallel MoE) on
-    this rank."""
+    """21a (granite-20b: tensor parallelism, its cache in layout B;
+    served batched, then packed and with the int8 cache,
+    ``layout_b_serve``) and 21b (qwen3-moe: tensor-parallel attention,
+    expert-parallel MoE) on this rank."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as T
     from repro_torch.models.params import (init_params, resident_axes,
@@ -4510,9 +4612,35 @@ def multirank_serves(torch, rank: int, dev: str, small: bool) -> dict:
         short = mesh_serve(torch, cfg, params, mesh, dev, prompts, 4,
                            profile=(rank == 0 and dev == "cuda"))
         run["profile"] = short.get("profile")
+        if tag == "21a":
+            for kind in LAYOUT_B_SERVES:
+                out[f"21a {kind}"] = tp_part(
+                    f"21a {kind}", rank, "two serves", lambda kind=kind:
+                    layout_b_serve(torch, cfg, params, mesh, dev, prompts,
+                                   kind))
         del params
-        run["parity_f32"] = depth2_mesh_parity(torch, tag, cfg, mesh, dev,
-                                               prompts)
+        if tag != "21a":
+            run["parity_f32"] = depth2_mesh_parity(torch, tag, cfg, mesh,
+                                                   dev, prompts)
+        else:
+            # one depth-2 tree for the three serves; the packed and int8
+            # ones on whole prompts: continuation chunks that read a
+            # prefix, and positions in both shards
+            w2 = depth2_weights(torch, cfg, dev)
+            run["parity_f32"] = depth2_mesh_parity(torch, tag, cfg, mesh,
+                                                   dev, prompts, weights=w2)
+            for kind, (cfg_kw, scfg_kw) in LAYOUT_B_SERVES.items():
+                out[f"21a {kind}"]["parity_f32"] = tp_part(
+                    f"21a {kind}", rank, "depth-2 parity",
+                    lambda cfg_kw=cfg_kw, scfg_kw=scfg_kw, kind=kind:
+                    depth2_mesh_parity(
+                        torch, f"21a {kind}",
+                        dataclasses.replace(cfg, **cfg_kw), mesh, dev,
+                        prompts, scfg_kw=scfg_kw, prompt_len=None,
+                        weights=w2))
+            del w2
+            if dev == "cuda":
+                torch.cuda.empty_cache()
         out[tag] = run
         log(f"{tag} rank {rank}: {run['ms_per_decode_step']:.2f} ms a decode "
             f"step, {run['comm']['collectives']} collectives, peak "
@@ -5638,7 +5766,8 @@ MULTIRANK = {
     "21": (lambda torch, rank, dev, small: dict(
         multirank_serves(torch, rank, dev, small),
         **{"21c": dp_train(torch, rank, dev, small)}), MULTIRANK_JOIN_S,
-        (("21a", "tokens"), ("21b", "tokens"), ("21c", "plain", "losses"),
+        (("21a", "tokens"), ("21a packed", "tokens"), ("21a int8", "tokens"),
+         ("21b", "tokens"), ("21c", "plain", "losses"),
          ("21c", "compressed", "losses"))),
     "22": (lambda torch, rank, dev, small: {
         "22a": tp_serve(torch, rank, dev, small),
@@ -5986,6 +6115,11 @@ def main() -> None:
          "B8 L512 D128 H48/1 partial",
          launched("decode_attention",
                   multi["ranks"][0]["21a"]["launches"]["decode_attention"])),
+        ("flash_attention_segmented layout B", "flash_attention_segmented",
+         REPORTED["flash_attention_segmented"]
+         + heads_label(*LAYOUT_B_HEADS),
+         launched("flash_attention_segmented", multi["ranks"][0][
+             "21a packed"]["launches"]["flash_attention_segmented"])),
         ("flash_attention TP2", "flash_attention",
          "B8 S128 span640 off512 H16/4",
          counted("flash_attention", "22a",

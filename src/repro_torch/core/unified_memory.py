@@ -8,9 +8,10 @@ paper's second contribution and drive the simulator's PIM timing, and the
 verifier's bank footprints. The capacity helpers quantify what a
 *partitioned* plan would cost against the unified one (Fig. 13 ablation).
 
-The reference's ``assert_unified_layout`` checks one sharding per
-parameter across a device mesh; the port has no mesh yet, so that check
-waits for the sharded slice.
+``assert_unified_layout`` checks one sharding per parameter across a
+device mesh, as the reference's does, on the port's meshes
+(``launch/mesh.py``), and also that a rank's resident layout is that
+sharding.
 """
 from __future__ import annotations
 

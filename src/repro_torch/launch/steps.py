@@ -6,10 +6,13 @@ for every family;
 ``"prefill"`` is the full-sequence forward with last-position logits (the
 serving prefill of a whole prompt batch from a zero state), for every
 family (MoE FFNs route the whole (B, S) batch as one group; a ``vlm``
-batch carries ``patch_embeds``, an ``encdec`` one ``frame_embeds``). The
-engine runs its decode step itself (``serve/engine.py``). The steps run
-on the card unless ``device="cpu"`` is given; they move the batch there
-(each array in its own dtype), and the params must already be there.
+batch carries ``patch_embeds``, an ``encdec`` one ``frame_embeds``);
+every other kind (the dry run's ``decode`` cells) is the serve step, one
+``decode_step`` token against the cache (the engine runs its own decode
+dispatches, ``serve/engine.py``). The steps run on the card unless
+``device="cpu"`` is given; they move the batch there (each array in its
+own dtype), and the params (and the serve step's cache) must already be
+there.
 """
 from __future__ import annotations
 
@@ -61,14 +64,27 @@ def make_prefill_step_fn(cfg: ModelConfig, device=None):
     return prefill_step
 
 
+def make_serve_step_fn(cfg: ModelConfig, device=None):
+    """One decode token against the KV cache (generation stage):
+    ``serve_step(params, tokens (B, 1), cache, cur_len (B,)) -> (logits
+    (B, V), cache)``, through ``T.decode_step``."""
+    on_dev = _to(resolve_device(device))
+
+    def serve_step(params, tokens, cache, cur_len):
+        return T.decode_step(cfg, params, on_dev(tokens), cache,
+                             on_dev(cur_len))
+    return serve_step
+
+
 def step_fn_for(cfg: ModelConfig, kind: str, device=None,
                 microbatches: int = 1):
+    """The step of a shape kind: ``"train"``, ``"prefill"``, and the serve
+    step for any other, as the reference's ``step_fn_for``."""
     if kind == "train":
         return make_train_step_fn(cfg, microbatches, device)
-    if kind != "prefill":
-        raise ValueError(f"unknown step kind {kind!r}: the port has "
-                         f"\"train\" and \"prefill\"")
-    return make_prefill_step_fn(cfg, device)
+    if kind == "prefill":
+        return make_prefill_step_fn(cfg, device)
+    return make_serve_step_fn(cfg, device)
 
 
 # per-arch gradient-accumulation depth of the reference's train cells

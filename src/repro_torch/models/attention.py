@@ -13,9 +13,10 @@ layouts: A, the heads whole on each rank, and, under a mesh whose 'model'
 extent does not divide the KV heads, B: each rank holds the positions
 [shard S/m, (shard + 1) S/m) of the cache, the decode kernel's partial
 mode gives the shard's attention and log-sum-exp, and one all-gather over
-'model' combines them. A prefill chunk writes the positions its rank owns
-and all-gathers the prefix it reads (the reference leaves that gather to
-GSPMD). An int8 cache is
+'model' combines them. A prefill chunk, batched or packed, writes the
+positions its rank owns and all-gathers the prefix it reads in one
+collective, an int8 cache's scales with its codes (the reference leaves
+that gather to GSPMD). An int8 cache is
 dequantized to bf16 in plain PyTorch before the kernels, as the reference
 does it outside its kernels.
 
@@ -258,29 +259,28 @@ def attention_prefill_cached(cfg: ModelConfig, p: dict, x: torch.Tensor,
     positions = offset + torch.arange(C, device=x.device)[None].expand(B, C)
     q, k_new, v_new = qkv_project(cfg, p, x, positions)
     new_cache = {}
+    # a layout-B shard writes the positions it owns, at offset - first
     mesh, first = _seq_shard(cfg, cache["k"])
-    if mesh is not None and cfg.kv_dtype == "int8":
-        raise NotImplementedError(
-            "the int8 cache is not sequence-sharded (layout B) in the port")
+    at = offset - first
     if cfg.kv_dtype == "int8":
         kq, ks = _quantize_kv(k_new)                 # scales (B, KH, C)
         vq, vs = _quantize_kv(v_new)
         k_cache, v_cache = write_kv_chunk(cache["k"], cache["v"], kq, vq,
-                                          tok_valid, offset)
-        k_sc = _write_scale_chunk(cache["k_scale"], ks, tok_valid, offset)
-        v_sc = _write_scale_chunk(cache["v_scale"], vs, tok_valid, offset)
+                                          tok_valid, at)
+        k_sc = _write_scale_chunk(cache["k_scale"], ks, tok_valid, at)
+        v_sc = _write_scale_chunk(cache["v_scale"], vs, tok_valid, at)
         new_cache.update(k_scale=k_sc, v_scale=v_sc)
+        leaves = (k_cache, v_cache, k_sc, v_sc)
     else:
         k_cache, v_cache = write_kv_chunk(cache["k"], cache["v"], k_new, v_new,
-                                          tok_valid, offset - first)
-    if mesh is None:
-        span = min(offset + C, k_cache.shape[2])
-        k_att, v_att = k_cache[:, :, :span], v_cache[:, :, :span]
-    else:
-        k_att, v_att = _gather_prefix(k_cache, v_cache, offset + C, mesh)
+                                          tok_valid, at)
+        leaves = (k_cache, v_cache)
+    # positions [0, offset + C): a slice, or under layout B one all-gather
+    # of every rank's share (an int8 cache's scales in the same collective)
+    att = _prefix(leaves, offset + C, mesh)
+    k_att, v_att = att[:2]
     if cfg.kv_dtype == "int8":
-        k_att = _dequantize(k_att, k_sc[:, :, :span])
-        v_att = _dequantize(v_att, v_sc[:, :, :span])
+        k_att, v_att = _dequantize(k_att, att[2]), _dequantize(v_att, att[3])
     o = ops.flash_attention(q, k_att, v_att, causal=True, q_offset=offset)
     new_cache.update(k=k_cache, v=v_cache)
     return out_project(p, o, cfg), new_cache
@@ -291,26 +291,42 @@ def attention_prefill_cached(cfg: ModelConfig, p: dict, x: torch.Tensor,
 # of a long one) -- per-token (slot, position) K/V scatter, per-row cache
 # prefix gather, segment-masked flash attention
 # --------------------------------------------------------------------------- #
-def _scatter_packed(cache: torch.Tensor, new: torch.Tensor,
-                    seg_slot: torch.Tensor, seg_pos: torch.Tensor,
-                    tok_valid: torch.Tensor) -> None:
-    """cache (B, KH, L, ...) <- new (R, KH, C, ...) at cache row
-    ``seg_slot[r, j]``, position ``seg_pos[r, j]``, in place, for valid
-    tokens only, without a host sync.
+def _packed_targets(seg_slot: torch.Tensor, seg_pos: torch.Tensor,
+                    tok_valid: torch.Tensor, B: int, L: int):
+    """The cells a packed chunk writes in a cache of B rows and L
+    positions: (row, position) (R * C,) each, the tokens kept (R * C,),
+    and ``writer`` (1,), the token that writes cell (0, 0) or -1.
 
-    The reference drops an invalid token's write (``mode="drop"``); here it
-    goes to (slot 0, position L-1) and writes that cell's own current value
-    back. No valid prefill token targets position L-1 (a prompt holds at
-    most max_len-1 tokens, so its cached prefix ends at L-3), and every
-    duplicate write to that cell carries the same value, so the result is
-    the reference's exactly."""
-    L = cache.shape[2]
-    slot = torch.where(tok_valid, seg_slot, 0).long()
-    pos = torch.where(tok_valid, seg_pos, L - 1).long()
-    keep = tok_valid.reshape(tok_valid.shape + (1,) * (new.dim() - 2))
-    old = cache[slot, :, pos]                     # (R, C, KH, ...)
-    cache[slot, :, pos] = torch.where(keep, new.transpose(1, 2).to(cache.dtype),
-                                      old)
+    The reference drops a token's write (``mode="drop"``) where it is
+    invalid; here such a token writes cell (0, 0), with the value that cell
+    ends with (``writer``'s, else its own old value), so that every write
+    to a cell carries one value whatever order the scatter takes. The
+    packing planner covers every prompt position once, so no two kept
+    tokens of one dispatch share a cell."""
+    keep = tok_valid.reshape(-1)
+    flat = seg_slot.reshape(-1).long() * L + seg_pos.reshape(-1).long()
+    cell = torch.where(keep, flat, B * L)         # B * L: the dropped
+    writer = torch.full((B * L + 1,), -1, dtype=torch.long,
+                        device=cell.device)
+    writer.scatter_(0, cell, torch.arange(cell.numel(), device=cell.device))
+    row = torch.where(keep, seg_slot.reshape(-1).long(), 0)
+    pos = torch.where(keep, seg_pos.reshape(-1).long(), 0)
+    return row, pos, keep, writer[:1]
+
+
+def _scatter_packed(cache: torch.Tensor, new: torch.Tensor,
+                    targets) -> None:
+    """cache (B, KH, L, ...) <- new (R, KH, C, ...) at ``targets``
+    (``_packed_targets``), in place, for the kept tokens only, without a
+    host sync."""
+    row, pos, keep, writer = targets
+    vals = new.transpose(1, 2).to(cache.dtype).reshape(
+        (keep.numel(),) + tuple(new.shape[1:2]) + tuple(new.shape[3:]))
+    fill = torch.where((writer >= 0).reshape((1,) * vals.dim()),
+                       vals.index_select(0, writer.clamp(min=0)),
+                       cache[0, :, 0][None])
+    keep = keep.reshape((-1,) + (1,) * (vals.dim() - 1))
+    cache[row, :, pos] = torch.where(keep, vals, fill)
 
 
 def write_kv_packed(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -322,11 +338,11 @@ def write_kv_packed(k_cache: torch.Tensor, v_cache: torch.Tensor,
     k_new/v_new: (R, KH, C, hd); token j of lane r lands at cache row
     ``seg_slot[r, j]``, position ``seg_pos[r, j]`` (the lane count R is
     decoupled from the cache's slot count). Invalid tokens (padding between
-    packed segments) are not written. The packing planner covers every
-    prompt position once, so no two valid tokens of one dispatch share a
-    cell; valid positions lie below L-1 (see ``_scatter_packed``)."""
+    packed segments) are not written (``_packed_targets``)."""
+    targets = _packed_targets(seg_slot, seg_pos, tok_valid,
+                              k_cache.shape[0], k_cache.shape[2])
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-        _scatter_packed(cache, new, seg_slot, seg_pos, tok_valid)
+        _scatter_packed(cache, new, targets)
     return k_cache, v_cache
 
 
@@ -334,7 +350,9 @@ def _write_scale_packed(scale_cache: torch.Tensor, scale_new: torch.Tensor,
                         seg_slot: torch.Tensor, seg_pos: torch.Tensor,
                         tok_valid: torch.Tensor) -> torch.Tensor:
     """scale_cache: (B, KH, L); scale_new: (R, KH, C); in place."""
-    _scatter_packed(scale_cache, scale_new, seg_slot, seg_pos, tok_valid)
+    _scatter_packed(scale_cache, scale_new, _packed_targets(
+        seg_slot, seg_pos, tok_valid, scale_cache.shape[0],
+        scale_cache.shape[2]))
     return scale_cache
 
 
@@ -380,45 +398,59 @@ def attention_prefill_packed(cfg: ModelConfig, p: dict, x: torch.Tensor,
     [the gathered prefix rows ; the chunk's K/V] under the segment mask,
     through the flash kernel's segmented mode. Padding rows give finite
     garbage that callers discard; their cache writes are dropped. Returns
-    (out (R, C, d), cache)."""
-    if _seq_shard(cfg, cache["k"])[0] is not None:
-        raise NotImplementedError(
-            "packed prefill does not write a sequence-sharded cache "
-            "(layout B) in the port")
+    (out (R, C, d), cache).
+
+    On a layout-B shard (``_seq_shard``) the chunk's K/V are whole on every
+    rank (the KV weights stay whole), and a rank writes the tokens whose
+    ``seg_pos`` lies in its shard [first, first + S_loc), at seg_pos -
+    first, dropping the others as it drops padding. The collectives are
+    the same on every rank, since ``prefix_span`` is the planner's host
+    int: a chunk with ``prefix_span > 0`` then all-gathers each lane's
+    prefix rows [0, prefix_span) over 'model' in one collective a layer,
+    in rank order, after every rank's writes (an int8 cache's scales ride
+    in the same collective); a chunk with ``prefix_span == 0`` (whole
+    prompts only) attends its own K/V and gathers nothing. With the query
+    heads split, a rank attends its own heads and ``wo`` ends in the
+    psum, as on the unsharded cache."""
     q, k_new, v_new = qkv_project(cfg, p, x, seg_pos)
     new_cache = {}
+    # a layout-B shard keeps the tokens whose positions it owns
+    mesh, first = _seq_shard(cfg, cache["k"])
+    keep, pos = tok_valid, seg_pos
+    if mesh is not None:
+        S_loc = cache["k"].shape[2]
+        keep = tok_valid & (seg_pos >= first) & (seg_pos < first + S_loc)
+        pos = seg_pos - first
     if cfg.kv_dtype == "int8":
         kq, ks = _quantize_kv(k_new)                        # scales (R, KH, C)
         vq, vs = _quantize_kv(v_new)
         k_cache, v_cache = write_kv_packed(cache["k"], cache["v"], kq, vq,
-                                           seg_slot, seg_pos, tok_valid)
-        k_sc = _write_scale_packed(cache["k_scale"], ks, seg_slot, seg_pos,
-                                   tok_valid)
-        v_sc = _write_scale_packed(cache["v_scale"], vs, seg_slot, seg_pos,
-                                   tok_valid)
+                                           seg_slot, pos, keep)
+        k_sc = _write_scale_packed(cache["k_scale"], ks, seg_slot, pos, keep)
+        v_sc = _write_scale_packed(cache["v_scale"], vs, seg_slot, pos, keep)
         new_cache.update(k_scale=k_sc, v_scale=v_sc)
+        leaves = (k_cache, v_cache, k_sc, v_sc)
         # the chunk attends its own K/V through the same int8 round trip
         # the cache stores
         k_att, v_att = _dequantize(kq, ks), _dequantize(vq, vs)
     else:
         k_cache, v_cache = write_kv_packed(cache["k"], cache["v"], k_new,
-                                           v_new, seg_slot, seg_pos,
-                                           tok_valid)
+                                           v_new, seg_slot, pos, keep)
+        leaves = (k_cache, v_cache)
         k_att, v_att = k_new, v_new
     new_cache.update(k=k_cache, v=v_cache)
 
-    span = min(prefix_span, k_cache.shape[2]) if prefix_span > 0 else 0
-    if span > 0:
+    span = 0
+    if prefix_span > 0:
         # each lane's continuation prefix, gathered from its cache row after
         # the scatter (a later lane may read what an earlier lane of this
         # dispatch just wrote); the mask trims it to prefix_len
-        k_pref = k_cache[:, :, :span].index_select(0, row_slot.long())
-        v_pref = v_cache[:, :, :span].index_select(0, row_slot.long())
+        pref = _prefix(leaves, prefix_span, mesh, rows=row_slot.long())
+        k_pref, v_pref = pref[:2]
         if cfg.kv_dtype == "int8":
-            k_pref = _dequantize(k_pref, k_sc[:, :, :span].index_select(
-                0, row_slot.long()))
-            v_pref = _dequantize(v_pref, v_sc[:, :, :span].index_select(
-                0, row_slot.long()))
+            k_pref, v_pref = (_dequantize(k_pref, pref[2]),
+                              _dequantize(v_pref, pref[3]))
+        span = k_pref.shape[2]
         k_att = torch.cat([k_pref.to(k_att.dtype), k_att], dim=2)
         v_att = torch.cat([v_pref.to(v_att.dtype), v_att], dim=2)
     info = packed_segment_info(seg_pos, seg_ids, tok_valid, prefix_len, span)
@@ -492,20 +524,34 @@ def _seq_shard(cfg: ModelConfig, k_cache: torch.Tensor, mesh=None):
     return mesh, comm.axis_index(mesh, "model") * k_cache.shape[2]
 
 
-def _gather_prefix(k_cache: torch.Tensor, v_cache: torch.Tensor, end: int,
-                   mesh):
-    """Positions [0, min(end, S)) of a layout-B cache, all-gathered over
-    'model' in one collective: each rank sends the same number of its
-    first positions, the fewest that cover the span."""
-    S_loc = k_cache.shape[2]
+def _prefix(leaves, end: int, mesh, rows: Optional[torch.Tensor] = None):
+    """Positions [0, min(end, S)) of cache leaves (B, KH, S_loc, ...) (K,
+    V and an int8 cache's scales), of the cache rows ``rows`` if given:
+    a slice without ``mesh``; of a layout-B cache (S = m S_loc), one
+    all-gather over 'model' of every leaf as bytes, in which each rank
+    sends the same number of its first positions, the fewest that cover
+    the span, and the parts join in rank order."""
+    S_loc = leaves[0].shape[2]
     span = min(end, S_loc * model_extent(mesh))
     n = min(S_loc, span)
-    parts = comm.gather_parts(torch.stack([k_cache[:, :, :n],
-                                           v_cache[:, :, :n]]), mesh, "model")
-    kv = torch.cat([part[:, :, :, :min(n, span - r * S_loc)]
-                    for r, part in enumerate(parts) if span > r * S_loc],
-                   dim=3)
-    return kv[0], kv[1]
+    heads = [t[:, :, :n] if rows is None else t[:, :, :n].index_select(0, rows)
+             for t in leaves]
+    if mesh is None:
+        return heads
+    # the widest dtype first, so that every leaf's bytes stay aligned
+    order = sorted(range(len(heads)), key=lambda i: -heads[i].element_size())
+    sizes = [heads[i].numel() * heads[i].element_size() for i in order]
+    parts = comm.gather_parts(torch.cat([
+        heads[i].contiguous().view(torch.uint8).reshape(-1) for i in order]),
+        mesh, "model")
+    out = [None] * len(heads)
+    for j, i in enumerate(order):
+        lo = sum(sizes[:j])
+        out[i] = torch.cat([
+            part[lo:lo + sizes[j]].view(heads[i].dtype).reshape(
+                heads[i].shape)[:, :, :min(n, span - r * S_loc)]
+            for r, part in enumerate(parts) if span > r * S_loc], dim=2)
+    return out
 
 
 def decode_attention(cfg: ModelConfig, q: torch.Tensor, k_cache: torch.Tensor,

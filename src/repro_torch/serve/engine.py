@@ -79,8 +79,11 @@ rank runs the same engine over the same requests: the collectives give
 every rank the same bits, so the host's decisions agree. Each rank holds
 its resident part of the cache (``models.params.local_defs``): under
 decode layout B the positions of its sequence shard, so a rank's cache
-does not snapshot. The params are the caller's, cut to the rank's part
-(``models.params.shard_tree``).
+does not snapshot. Every prefill path runs on such a shard, batched or
+packed, bf16 or int8: a chunk writes the positions its rank owns and
+gathers the prefix it reads (``models/attention.py``), and a decode
+dispatch keeps its one host sync. The params are the caller's, cut to
+the rank's part (``models.params.shard_tree``).
 """
 from __future__ import annotations
 

@@ -78,13 +78,14 @@ def test_engine_without_a_device_refuses_the_cpu():
 
 @pytest.mark.parametrize("kind,error,match", [
     pytest.param("prefill", RuntimeError, "no CUDA device", id="prefill"),
-    pytest.param("decode", ValueError, "unknown step kind", id="decode"),
+    pytest.param("decode", RuntimeError, "no CUDA device", id="decode"),
     pytest.param("train", RuntimeError, "no CUDA device", id="train"),
 ])
 def test_step_functions_without_a_device_refuse_the_cpu(kind, error, match):
-    """The prefill and train steps (rwkv6-7b's too: every family trains)
-    refuse the CPU unless asked for it; the kinds the port has no step for
-    raise whatever the device (the engine runs its own decode step)."""
+    """The prefill, serve and train steps (rwkv6-7b's too: every family
+    trains) refuse the CPU unless asked for it; a kind other than train
+    and prefill (the dry run's decode cells) is the serve step, as in the
+    reference."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(error, match=match):

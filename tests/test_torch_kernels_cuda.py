@@ -153,6 +153,9 @@ def _segment_layout(R, C, prefix_lens, seed):
     (2, 8, 2, 128, (300, 0), 128),
     (4, 16, 4, 20, (0, 0, 0, 0), 64),       # no prefix: keys are the chunk
     (1, 4, 1, 70, (33,), 32),
+    # a layout-B rank's packed chunk (granite-20b on two ranks: 24 of 48
+    # query heads on one KV head of 128), over a gathered prefix of 512
+    (8, 24, 1, 128, (400, 0, 260, 0, 130, 0, 0, 512), 128),
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_segmented_kernel_matches_plain(card, R, H, KH, C, prefix_lens, D,

@@ -18,12 +18,17 @@ the port's one-rank ``apply_moe``; tensor parallelism on (1, 2):
 llama3.2-1b's logits, loss and every gathered gradient leaf, and the
 decode logits of granite-20b (KH 1, layout B) and qwen3-moe (KH 2 = m,
 non-EP and EP) against the reference under GSPMD on the same weights and
-the port's one rank, four engines (batched, packed, fused with superstep
-4, int8 cache) against the one-rank engine, and AdamW and Adafactor on
-the ranks' parts against the full tree's update; decode layout B on 2 and 4 ranks
-against the reference's layout B and the port's layout A (a row ends
-inside the first shard); a granite-20b ``.reduced()`` (KH 1) engine on
-2 ranks against the port's one-rank engine (the greedy tokens,
+the port's one rank, four llama engines (batched, packed, fused with
+superstep 4, int8 cache) and three granite-20b ones in layout B (packed,
+int8, both) against the one-rank engine with their collective plans, and
+AdamW and Adafactor on the ranks' parts against the full tree's update;
+decode layout B on 2 and 4 ranks against the reference's layout B and
+the port's layout A (a row ends inside the first shard); the layout-B
+prefill on 2 and 4 ranks (``attention_prefill_packed`` in float32 and
+int8, with and without a prefix, and the int8 ``attention_prefill_cached``)
+against the reference under GSPMD and the port's one rank, outputs,
+cache shards and collective counts; a granite-20b ``.reduced()`` (KH 1)
+engine on 2 ranks against the port's one-rank engine (the greedy tokens,
 dispatches and host syncs; the one-rank engine is held against the
 reference engine by ``test_torch_configs.py``); MoE routing under a
 (2, 1) mesh with capacity drops against the reference's two routing
@@ -34,6 +39,7 @@ ranks against the one-rank step on the whole batch; the clip norm of a
 sharded EP tree against the full tree's; ``launch.train --smoke`` on 2
 ranks.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -97,6 +103,116 @@ def _decode_inputs():
                 lens=np.array(DEC_LENS, np.int32))
 
 
+# layout-B prefill at function level (granite-20b .reduced(), KH 1): a
+# packed chunk whose lane 0 continues slot 1 at positions 20-27 over a
+# prefix of 20 (a shard boundary inside both, at m = 2 and 4), lane 1 two
+# whole prompts (slot 0 at 0-4, slot 2 at 0-1) and a padding column; the
+# same chunk's lane 1 alone (no prefix); a batched int8 chunk at 12-23
+PF = dict(B=3, L=32, C=8, span=24, CC=12, off=12)
+PF_CASES = ("packed", "packed_int8", "packed_no_prefix", "cached_int8")
+
+
+def _pf_layout():
+    C = PF["C"]
+    slot = np.array([[1] * C, [0] * 5 + [2] * 2 + [0]], np.int32)
+    pos = np.array([list(range(20, 28)), list(range(5)) + [0, 1, 0]],
+                   np.int32)
+    ids = np.array([[0] * C, [1] * 5 + [2] * 2 + [-1]], np.int32)
+    return dict(seg_slot=slot, seg_pos=pos, seg_ids=ids, valid=ids >= 0,
+                row_slot=np.array([1, 0], np.int32),
+                prefix_len=np.array([20, 0], np.int32))
+
+
+def _pf_inputs():
+    cfg = get_arch("granite-20b").reduced()
+    d, H, hd, B, L = cfg.d_model, cfg.num_heads, cfg.head_dim, PF["B"], \
+        PF["L"]
+    rng = np.random.default_rng(80)
+    out = {"wq": _x((d, H, hd), 81, d ** -0.5),
+           "wk": _x((d, 1, hd), 82, d ** -0.5),
+           "wv": _x((d, 1, hd), 83, d ** -0.5),
+           "wo": _x((H, hd, d), 84, (H * hd) ** -0.5),
+           "x": _x((2, PF["C"], d), 85), "xc": _x((B, PF["CC"], d), 86),
+           "k": _x((B, 1, L, hd), 87), "v": _x((B, 1, L, hd), 88),
+           "k8": rng.integers(-127, 128, (B, 1, L, hd)).astype(np.int8),
+           "v8": rng.integers(-127, 128, (B, 1, L, hd)).astype(np.int8),
+           "ks": (rng.random((B, 1, L)) * 0.05).astype(np.float32),
+           "vs": (rng.random((B, 1, L)) * 0.05).astype(np.float32),
+           "cvalid": np.array([[True] * 12, [True] * 5 + [False] * 7,
+                               [False] * 12])}
+    out.update(_pf_layout())
+    return out
+
+
+def _pf_case(case, a):
+    """(kv_dtype, the cache's leaves, the call's inputs) of a case, from
+    the arrays ``a`` (numpy, ``pf_`` prefix stripped)."""
+    int8 = case.endswith("int8")
+    cache = ({"k": a["k8"], "v": a["v8"], "k_scale": a["ks"],
+              "v_scale": a["vs"]} if int8 else {"k": a["k"], "v": a["v"]})
+    if case == "cached_int8":
+        return "int8", cache, dict(x=a["xc"], tok_valid=a["cvalid"])
+    lanes = slice(1, 2) if case == "packed_no_prefix" else slice(0, 2)
+    lay = {k: a[k][lanes] for k in ("seg_slot", "seg_pos", "seg_ids",
+                                     "valid", "row_slot", "prefix_len")}
+    return ("int8" if int8 else "bf16"), cache, dict(
+        x=a["x"][lanes], span=0 if case == "packed_no_prefix" else PF["span"],
+        **lay)
+
+
+def _pf_valid(case, a):
+    """The valid query rows of a case's output."""
+    if case == "cached_int8":
+        return a["cvalid"]
+    return a["valid"][1:2] if case == "packed_no_prefix" else a["valid"]
+
+
+def _pf_port(cfg, case, a, mesh=None, rank=0):
+    """The port's call of a case on a rank's part (its query heads and its
+    shard of the cache) or, without ``mesh``, on the whole: (out, cache)."""
+    from repro_torch.models import attention as A
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.axes import use_mesh
+    kv, cache, inp = _pf_case(case, a)
+    cfg = dataclasses.replace(cfg, kv_dtype=kv)
+    m = comm.axis_size(mesh, "model")
+    h = cfg.num_heads // m
+    t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731  (a copy)
+    p = {"wq": t(a["wq"][:, rank * h:(rank + 1) * h]), "wk": t(a["wk"]),
+         "wv": t(a["wv"]), "wo": t(a["wo"][rank * h:(rank + 1) * h])}
+    S = PF["L"] // m
+    cache = {k: t(v[:, :, rank * S:(rank + 1) * S]) for k, v in cache.items()}
+    scope = use_mesh(mesh) if mesh is not None else \
+        contextlib.nullcontext()
+    with scope:
+        if case == "cached_int8":
+            out, new = A.attention_prefill_cached(
+                cfg, p, t(inp["x"]), cache, t(inp["tok_valid"]), PF["off"])
+        else:
+            out, new = A.attention_prefill_packed(
+                cfg, p, t(inp["x"]), cache, *(t(inp[k]) for k in (
+                    "seg_slot", "seg_pos", "seg_ids", "valid", "row_slot",
+                    "prefix_len")), prefix_span=inp["span"])
+    return out.numpy(), {k: v.numpy() for k, v in new.items()}
+
+
+def _prefill_b_on_ranks(mesh, a, out):
+    """Each case of ``PF_CASES`` on this rank: its output, its cache shard
+    and its collectives."""
+    from repro_torch.sharding import comm
+    cfg = dataclasses.replace(get_arch("granite-20b").reduced(),
+                              dtype="float32")
+    m, i = comm.axis_size(mesh, "model"), comm.axis_index(mesh, "model")
+    pf = {k[3:]: v for k, v in a.items() if k.startswith("pf_")}
+    for case in PF_CASES:
+        comm.reset_stats()
+        o, new = _pf_port(cfg, case, pf, mesh, i)
+        out[f"pf{m}_{case}_out"] = o
+        out[f"pf{m}_{case}_comm"] = comm.stats()["collectives"]
+        for k, v in new.items():
+            out[f"pf{m}_{case}_{k}"] = v
+
+
 def _grad_inputs(rank, equal=False):
     r = 0 if equal else rank
     return {"w": _x((16, 24), 30 + r), "b": {"s": _x((24,), 40 + r, 3.0)}}
@@ -148,6 +264,7 @@ def _write_inputs(path):
     cfg = _moe_cfg()
     arrays = {f"moe_{k}": v for k, v in _moe_inputs(cfg, EP_B, EP_S).items()}
     arrays.update({f"dec_{k}": v for k, v in _decode_inputs().items()})
+    arrays.update({f"pf_{k}": v for k, v in _pf_inputs().items()})
     g = _moe_inputs(_moe_cfg(capacity_factor=GROUP_CF), GROUP_B, GROUP_S)
     arrays.update({f"grp_{k}": v for k, v in g.items()})
     for tag, seed in (("llama", 70), ("granite", 71), ("qwen", 72)):
@@ -257,6 +374,36 @@ def reference_main(inp: str, out: str) -> None:
             cfg, q, k, v, n, mesh))
         res[f"dec{m}"] = np.asarray(fn(a["dec_q"], a["dec_k"], a["dec_v"],
                                        a["dec_lens"]))
+
+    from repro.sharding.axes import logical_sharding as jax_sharding
+    pf = {k[3:]: v for k, v in a.items() if k.startswith("pf_")}
+    cache_axes = ("batch", "kv_heads", "kv_seq", "head_dim")
+    for m in (2, 4):
+        mesh = Mesh(devs[:m].reshape(1, m), ("data", "model"))
+        for case in PF_CASES:
+            kv, cache, inp = _pf_case(case, pf)
+            cfg = dataclasses.replace(jax_arch("granite-20b").reduced(),
+                                      dtype="float32", kv_dtype=kv)
+            cache = {k: jax.device_put(v, jax_sharding(
+                v.shape, cache_axes[:v.ndim], mesh)) for k, v in cache.items()}
+            p = {k: jnp.asarray(pf[k]) for k in ("wq", "wk", "wv", "wo")}
+            if case == "cached_int8":
+                fn = jax.jit(lambda p, x, c, v, cfg=cfg:
+                             JA.attention_prefill_cached(cfg, p, x, c, v,
+                                                         PF["off"]))
+                args = (inp["x"], cache, inp["tok_valid"])
+            else:
+                fn = jax.jit(lambda p, x, c, *lay, cfg=cfg, span=inp["span"]:
+                             JA.attention_prefill_packed(
+                                 cfg, p, x, c, *lay, prefix_span=span))
+                args = (inp["x"], cache) + tuple(inp[k] for k in (
+                    "seg_slot", "seg_pos", "seg_ids", "valid", "row_slot",
+                    "prefix_len"))
+            with mesh:
+                o, new = fn(p, *args)
+            res[f"pf{m}_{case}_out"] = np.asarray(o)
+            for k, v in new.items():
+                res[f"pf{m}_{case}_{k}"] = np.asarray(v)
 
     cfg = jcfg(capacity_factor=GROUP_CF)
     mesh = Mesh(devs[:2].reshape(2, 1), ("data", "model"))
@@ -434,6 +581,7 @@ def _four_ranks(rank, world, tmp):
         cfg = _moe_cfg(moe_impl="ep", fsdp_params=fsdp)
         _ep_on_ranks(meshes[dp, mp_], cfg, a, out, tag)
     _decode_on_ranks(meshes[1, 4], a, out, "dec4")
+    _prefill_b_on_ranks(meshes[1, 4], a, out)
     _compression_on_ranks(meshes[4, 1], rank, out, "cmp4")
     # the clip norm of an EP tree held in parts, fsdp on
     cfg = _moe_cfg(moe_impl="ep", fsdp_params=True)
@@ -519,21 +667,28 @@ def _tp_on_ranks(mesh, a, out):
         out[f"tpdec_{tag}_comm"] = comm.stats()["collectives"]
 
 
-TP_SERVES = {"batched": ({}, {}), "packed": ({}, {"pack": True}),
-             "fused": ({}, {"policy": "interleaved", "fuse": True,
-                            "superstep": 4}),
-             "int8": ({"kv_dtype": "int8"}, {})}
+# the engines on (1, 2): llama3.2-1b's (layout A) and granite-20b's
+# (layout B) packed, int8 and both
+TP_SERVES = {"batched": ("llama", {}, {}),
+             "packed": ("llama", {}, {"pack": True}),
+             "fused": ("llama", {}, {"policy": "interleaved", "fuse": True,
+                                     "superstep": 4}),
+             "int8": ("llama", {"kv_dtype": "int8"}, {}),
+             "granite_packed": ("granite", {}, {"pack": True}),
+             "granite_int8": ("granite", {"kv_dtype": "int8"}, {}),
+             "granite_packed_int8": ("granite", {"kv_dtype": "int8"},
+                                     {"pack": True})}
 
 
 def _tp_serve_params(kind):
-    cfg_kw, scfg_kw = TP_SERVES[kind]
-    cfg = dataclasses.replace(_tp_cfg("llama"), **cfg_kw)
+    arch, cfg_kw, scfg_kw = TP_SERVES[kind]
+    cfg = dataclasses.replace(_tp_cfg(arch), **cfg_kw)
     return cfg, tree_map(lambda t: t.float(), init_params(
         T.param_defs(cfg), device="cpu", seed=8)), scfg_kw
 
 
 def _tp_serves(mesh, out):
-    """The four llama3.2-1b engines on the rank's tensor-parallel part."""
+    """The ``TP_SERVES`` engines on the rank's tensor-parallel part."""
     from repro_torch.models.params import resident_axes, shard_tree
     from repro_torch.sharding import comm
     from repro_torch.sharding.axes import use_mesh
@@ -605,6 +760,7 @@ def _two_ranks(rank, world, tmp):
         x.grad.numpy()
     out["c_index"] = comm.axis_index(model2, "model")
     _decode_on_ranks(model2, a, out, "dec2")
+    _prefill_b_on_ranks(model2, a, out)
     _compression_on_ranks(data2, rank, out, "cmp2")
     # MoE routing under (2, 1): each rank its half of the batch
     cfg = _moe_cfg(capacity_factor=GROUP_CF)
@@ -656,10 +812,29 @@ def _dp_batch(cfg):
 SERVE_PROMPTS = (9, 40, 23)
 
 
+class _PrefixCount:
+    """Recorder hooks that count the packed prefill dispatches with a
+    prefix (``prefix_span`` > 0: a layout-B cache gathers it)."""
+
+    def __init__(self):
+        self.n = 0
+
+    def bind(self, engine) -> None:
+        pass
+
+    def on_prefill(self, step, *, kv, chunk, packed=False, **_):
+        self.n += int(packed and kv > chunk)
+
+    def __getattr__(self, hook):
+        return lambda *a, **k: None
+
+
 def _serve(cfg, params, **scfg_kw):
     from repro_torch.serve import ServeConfig, ServeEngine
+    count = _PrefixCount()
     eng = ServeEngine(cfg, params, ServeConfig(
-        max_slots=4, max_len=64, prefill_chunk=16, **scfg_kw), device="cpu")
+        max_slots=4, max_len=64, prefill_chunk=16, **scfg_kw),
+        recorder=count, device="cpu")
     rng = np.random.default_rng(7)
     for n in SERVE_PROMPTS:
         eng.add_request(rng.integers(0, cfg.vocab_size, n),
@@ -667,7 +842,7 @@ def _serve(cfg, params, **scfg_kw):
     res = eng.run_until_done()
     return dict(tokens={str(k): [int(t) for t in v] for k, v in res.items()},
                 dispatches=dict(eng.dispatch_counts),
-                host_syncs=eng.host_syncs)
+                host_syncs=eng.host_syncs, prefix_dispatches=count.n)
 
 
 # --------------------------------------------------------------------------- #
@@ -800,6 +975,56 @@ def test_layout_b_decode_matches_the_reference_and_layout_a(runs, m):
     np.testing.assert_array_equal(ranks[0][f"dec{m}"], ranks[-1][f"dec{m}"])
 
 
+def _assert_shard(got, want, key):
+    """A cache shard's cells: float within 1e-5; int8 codes equal, or one
+    quantum apart at a rounding tie (at most 1 cell in 1000)."""
+    if got.dtype == np.int8:
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, \
+            (key, int(diff.max()), int((diff > 0).sum()))
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("case", PF_CASES)
+@pytest.mark.parametrize("m", [2, 4])
+def test_layout_b_prefill_matches_the_reference_and_one_rank(runs, m, case):
+    """granite-20b .reduced() (KH 1) in layout B on m ranks, each with its
+    share of the query heads: ``attention_prefill_packed`` (a continuation
+    lane whose prefix and writes cross shard boundaries, two whole
+    prompts, padding; bf16 path in float32 and int8; the whole prompts
+    alone, no prefix) and the int8 ``attention_prefill_cached`` (a chunk
+    across a boundary, a short row and an idle one). Each rank's output on
+    the valid rows against the reference under GSPMD (its cache sharded by
+    ``cache_defs``' axes) and the port's one rank; each rank's cache
+    shard against the reference's slice of it. The collectives are the
+    plan on every rank: the prefix's all-gather (scales included) and
+    ``wo``'s psum, or the psum alone without a prefix."""
+    a, ref = runs["inputs"], runs["ref"]
+    pf = {k[3:]: v for k, v in a.items() if k.startswith("pf_")}
+    cfg = dataclasses.replace(get_arch("granite-20b").reduced(),
+                              dtype="float32")
+    one, one_cache = _pf_port(cfg, case, pf)
+    valid = _pf_valid(case, pf)
+    want = ref[f"pf{m}_{case}_out"]
+    np.testing.assert_allclose(one[valid], want[valid], **TOL)
+    S = PF["L"] // m
+    plan = 1 if case == "packed_no_prefix" else 2
+    ranks = runs["four"] if m == 4 else runs["two"]
+    for i, r in enumerate(ranks):
+        got = r[f"pf{m}_{case}_out"]
+        np.testing.assert_allclose(got[valid], want[valid], **TOL)
+        np.testing.assert_allclose(got[valid], one[valid], **TOL)
+        for key in one_cache:
+            shard = r[f"pf{m}_{case}_{key}"]
+            _assert_shard(shard, ref[f"pf{m}_{case}_{key}"][
+                :, :, i * S:(i + 1) * S], key)
+            _assert_shard(shard, one_cache[key][:, :, i * S:(i + 1) * S],
+                          key)
+        assert int(r[f"pf{m}_{case}_comm"]) == plan
+
+
 def test_layout_b_engine_serve_on_two_ranks_matches_one_rank(runs):
     """granite-20b .reduced() (KH 1) on (1, 2), tensor-parallel with its
     cache in layout B: each rank holds 32 of the 64 positions and half the
@@ -876,20 +1101,33 @@ def test_tensor_parallel_decode_logits(runs, tag):
 def test_tensor_parallel_engines_match_one_rank(runs, kind):
     """llama3.2-1b .reduced() served on (1, 2) against the one-rank
     engine: greedy tokens, dispatches and host syncs, batched, packed,
-    fused with supersteps of 4 and with the int8 cache. The batched
-    serve's collectives are the plan: a prefill chunk psums the embedding
-    and two a layer (attention's and the MLP's ``wo``), a decode step the
-    same and the sampled argmax's gather."""
+    fused with supersteps of 4 and with the int8 cache; granite-20b
+    .reduced() (KH 1, its cache in layout B) packed, with the int8 cache
+    and both. The collectives are the plan. llama's batched serve: a
+    prefill chunk psums the embedding and two a layer (attention's and the
+    MLP's ``wo``), a decode step the same and the sampled argmax's gather.
+    granite's: a chunk also gathers the prefix a layer (a packed one only
+    where it has one, ``prefix_span`` > 0), a decode step also gathers the
+    query heads and combines the partials a layer; int8 costs no more
+    collectives than bf16."""
     cfg, params, scfg_kw = _tp_serve_params(kind)
     want = _serve(cfg, params, **scfg_kw)
+    dc, n, pack = want["dispatches"], cfg.num_layers, bool(
+        scfg_kw.get("pack"))
     for r in runs["two"]:
         got = json.loads(str(r[f"tpserve_{kind}"]))
         comm = got.pop("comm")
         assert got == want
         if kind == "batched":
-            dc, n = want["dispatches"], cfg.num_layers
             assert comm == dc["prefill"] * (1 + 2 * n) \
                 + dc["decode"] * (2 + 2 * n)
+        elif kind.startswith("granite"):
+            assert dc.get("fused", 0) == 0
+            assert comm == dc["prefill"] * (1 + (2 if pack else 3) * n) \
+                + pack * want["prefix_dispatches"] * n \
+                + dc["decode"] * (2 + 4 * n)
+    if kind.startswith("granite") and pack:
+        assert 0 < want["prefix_dispatches"] <= dc["prefill"]
 
 
 @pytest.mark.parametrize("name", ["adamw", "adafactor"])

@@ -1,7 +1,10 @@
 """The port's sharding rules, meshes, shapes, specs and dry run against
 the reference's, in one process on the CPU (no ranks: rules resolve on
 the mesh's axis names and sizes alone, as the reference's tests resolve
-them on ``_FakeMesh``).
+them on ``_FakeMesh``): the dry run's per-rank bytes, its ``--set``
+overrides (parsed as the reference parses them; ``kv_dtype=int8`` sets
+the cache's bytes), ``--tag``, ``--microbatches`` and ``--skip-done``,
+and the serve step its decode cells name against the reference's.
 
 Also: ``local_slice`` / ``gather_slices``, ``assert_unified_layout``'s
 stats at (1, 1), the decode kernel's plain version in its partial mode,
@@ -9,6 +12,7 @@ and the train step with ``compress_grads`` and no mesh (it compresses
 nothing, as the reference's).
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -348,6 +352,161 @@ def test_dry_run_covers_every_cell():
                                  for a in ASSIGNED)
     rec = dryrun.run_cell("rwkv6-7b", "long_500k", "multi")
     assert rec["kind"] == "decode" and rec["bytes_per_rank"]["cache"] > 0
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-20b"])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_dry_run_overrides_set_the_cache_bytes(arch, kv_dtype):
+    """``run_cell(..., overrides=["kv_dtype=..."])`` on a ``decode_32k``
+    cell: a rank's cache bytes are the shard shapes of the reference's
+    ``cache_defs`` on the overridden config (int8 codes and their f32
+    scales), and its step is the serve step."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(arch, "decode_32k", "single",
+                          overrides=[f"kv_dtype={kv_dtype}"])
+    shape = get_shape("decode_32k")
+    jcfg = dataclasses.replace(jax_arch(arch), kv_dtype=kv_dtype)
+    tok = JX.set_profile(jcfg.rules_profile)
+    try:
+        want = _shard_bytes(RT.cache_defs(jcfg, shape.global_batch,
+                                          shape.seq_len),
+                            _FakeMesh(PROD["single"]))
+    finally:
+        JX._active_profile.reset(tok)
+    assert rec["bytes_per_rank"]["cache"] == want
+    assert rec["kind"] == "decode" and rec["step"] == "serve_step"
+
+
+def _jax_apply_overrides():
+    """The reference's ``_apply_overrides``; its module sets XLA_FLAGS at
+    import, so the backend comes up first and the variable is restored."""
+    import os
+    jax.devices()
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch.dryrun import _apply_overrides
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+    return _apply_overrides
+
+
+@pytest.mark.parametrize("overrides", [
+    ["scan_layers=false"], ["use_pallas=yes"], ["num_layers=3"],
+    ["rope_theta=500000"], ["kv_dtype=int8"], ["remat=full"],
+    ["kv_dtype=int8", "capacity_factor=2.0", "fsdp_params=1"]],
+    ids=["bool", "bool_yes", "int", "float", "str", "remat", "several"])
+def test_dry_run_override_parsing_matches_the_reference(overrides):
+    """``--set`` of a bool, an int, a float and a string (and several at
+    once) gives the reference's ``ModelConfig``, field for field."""
+    from repro_torch.launch.dryrun import _apply_overrides
+    got = _apply_overrides(get_arch("qwen3-moe-30b-a3b"), overrides)
+    want = _jax_apply_overrides()(jax_arch("qwen3-moe-30b-a3b"), overrides)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert _apply_overrides(get_arch("llama3.2-1b"), []) == \
+        get_arch("llama3.2-1b")
+
+
+def test_dry_run_command_line_tag_and_overrides(tmp_path):
+    """``main`` with ``--tag`` and ``--set`` writes
+    ``{arch}__{shape}__{mesh}__{tag}.json`` recording its overrides (the
+    reference's name and key), ``--microbatches`` sets a train cell's
+    depth, and the record without a tag has no suffix."""
+    from repro_torch.launch import dryrun
+    dryrun.main(["--arch", "granite-20b", "--shape", "decode_32k",
+                 "--out", str(tmp_path), "--tag", "t", "--set",
+                 "kv_dtype=int8", "--set", "remat=full"])
+    rec = json.loads((tmp_path / "granite-20b__decode_32k__single__t.json"
+                      ).read_text())
+    assert rec["overrides"] == ["kv_dtype=int8", "remat=full"]
+    base = dryrun.run_cell("granite-20b", "decode_32k", "single")
+    assert rec["bytes_per_rank"]["cache"] < base["bytes_per_rank"]["cache"]
+    dryrun.main(["--arch", "llama3.2-1b", "--shape", "train_4k", "--out",
+                 str(tmp_path), "--microbatches", "8"])
+    rec = json.loads((tmp_path / "llama3.2-1b__train_4k__single.json"
+                      ).read_text())
+    assert rec["microbatches"] == 8 and rec["overrides"] == []
+    assert rec["step"] == "train_step"
+
+
+def test_dry_run_skip_done_skips_the_cells_that_are_ok(tmp_path):
+    """``--all --skip-done`` runs only the cells whose file is missing or
+    does not say ``ok``; the others' files stay as they were."""
+    from repro_torch.launch import dryrun
+    cells = dryrun.cell_list("single")
+    for i, (arch, shape, mesh) in enumerate(cells[2:]):
+        (tmp_path / f"{arch}__{shape}__{mesh}.json").write_text(
+            json.dumps({"ok": True, "mark": i}))
+    arch, shape, mesh = cells[1]
+    (tmp_path / f"{arch}__{shape}__{mesh}.json").write_text(
+        json.dumps({"ok": False}))
+    out = dryrun.main(["--all", "--skip-done", "--out", str(tmp_path)])
+    assert [(r["arch"], r["shape"], r["mesh"]) for r in out] == cells[:2]
+    for i, (arch, shape, mesh) in enumerate(cells[2:]):
+        assert json.loads((tmp_path / f"{arch}__{shape}__{mesh}.json"
+                           ).read_text()) == {"ok": True, "mark": i}
+    arch, shape, mesh = cells[1]
+    assert json.loads((tmp_path / f"{arch}__{shape}__{mesh}.json"
+                       ).read_text())["ok"]
+
+
+def _np_trees(cfg, jcfg, seed):
+    """The port's and the reference's trees of the same float32 leaves,
+    drawn from a numpy seed in sorted-path order."""
+    from repro.models.params import is_def as jax_is_def
+    rng = np.random.default_rng(seed)
+    leaves = []
+    for pd in tree_leaves(T.param_defs(cfg)):
+        if pd.init in ("ones", "zeros"):
+            leaves.append(np.full(pd.shape, pd.init == "ones", np.float32))
+        else:
+            std = 0.5 if pd.init == "small_normal" else pd.fan_in() ** -0.5
+            leaves.append((rng.standard_normal(pd.shape) * std
+                           ).astype(np.float32))
+    it = iter(leaves)
+    port = tree_map(lambda pd: torch.from_numpy(next(it).copy()),
+                    T.param_defs(cfg))
+    _, treedef = jax.tree_util.tree_flatten(RT.param_defs(jcfg),
+                                            is_leaf=jax_is_def)
+    return port, jax.tree_util.tree_unflatten(
+        treedef, [jnp.asarray(x) for x in leaves])
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-20b"])
+def test_serve_step_matches_the_reference(arch):
+    """``step_fn_for(cfg, "decode")``, the dry run's decode step: one
+    token a row against a filled cache at ragged lengths, logits and every
+    cache leaf against the reference's ``serve_step`` under ``jax.jit``,
+    float32, within 1e-4."""
+    from repro.launch.steps import step_fn_for as jax_step_fn_for
+    from repro.models.params import is_def as jax_is_def
+    from repro_torch.launch.steps import step_fn_for
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    jcfg = dataclasses.replace(jax_arch(arch).reduced(), dtype="float32")
+    params, jparams = _np_trees(cfg, jcfg, 20)
+    B, L = 3, 24
+    rng = np.random.default_rng(21)
+    cache_np = tree_map(lambda pd: rng.standard_normal(pd.shape).astype(
+        np.float32), T.cache_defs(cfg, B, L))
+    _, treedef = jax.tree_util.tree_flatten(RT.cache_defs(jcfg, B, L),
+                                            is_leaf=jax_is_def)
+    jcache = jax.tree_util.tree_unflatten(
+        treedef, [jnp.asarray(x) for x in tree_leaves(cache_np)])
+    tokens = rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)
+    lens = np.array([0, 9, 23], np.int32)
+    want, wcache = jax.jit(jax_step_fn_for(jcfg, "decode"))(
+        jparams, jnp.asarray(tokens), jcache, jnp.asarray(lens))
+    got, gcache = step_fn_for(cfg, "decode", device="cpu")(
+        params, tokens, tree_map(lambda x: torch.from_numpy(x.copy()),
+                                 cache_np), lens)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    assert len(tree_leaves(gcache)) == len(jax.tree.leaves(wcache)) > 0
+    for g, w in zip(tree_leaves(gcache), jax.tree.leaves(wcache)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
 
 
 def test_abstract_params_allocate_nothing():
