@@ -93,6 +93,11 @@ repository's ``src/repro_torch``. Phases, each of which must pass:
      too, and its difference from the unpacked one logged) -- the check
      of the tensor-core routes (flash, the GEMV) at model level, which the
      float32 parity phases never run;
+  3e. before 3d, the dry run's cost analysis on the card: 3d's prefill
+     step, counted once under ``launch/cost.py``'s mode, must count the
+     ``flops_dot`` of the same step traced on meta tensors; logs its
+     achieved share of 989 TFLOP/s and the traced ``temp_bytes`` beside
+     the card's ``max_memory_allocated`` rise;
   4. serve prompts through llama3.2-1b at full width and depth 2 in
      float32 on the card and, through the plain versions, on the CPU,
      unpacked, packed and with the int8 cache: greedy tokens, dispatch
@@ -1639,6 +1644,9 @@ def full_width_serves(torch, checks) -> dict:
     t0 = time.perf_counter()
     tokens = torch.from_numpy(np.random.default_rng(8).integers(
         0, cfg.vocab_size, (2, 1024))).to("cuda")
+    out["3e cost"] = cost_check(torch, cfg, params, tokens)
+    log(f"phase 3e took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     out["3d bf16 steps"] = bf16_steps(torch, cfg, params, "llama",
                                       serve_prompts(cfg.vocab_size),
                                       {"tokens": tokens}, pack=True)
@@ -1843,9 +1851,10 @@ def policy_serves(torch, cfg, params, unpacked: dict, packed: dict,
     policy and of ``SAMPLED`` (new packed shapes, module loads), two
     measured ones in turns (serial, interleaved, sampled, pim_aware,
     pim_aware, sampled, interleaved, serial), then one profiled serve of
-    each for the device's busy share. Launches per decode round are
-    phase 3's per decode step, per prefill chunk phase 3b's per packed
-    dispatch."""
+    each policy for the device's busy share (the sampled serve is timed
+    but not profiled, which pays for phase 3e). Launches per decode round
+    are phase 3's per decode step, per prefill chunk phase 3b's per
+    packed dispatch."""
     from repro_torch.trace import drive
 
     per_round = unpacked["launches_per_decode_step"]
@@ -1869,17 +1878,21 @@ def policy_serves(torch, cfg, params, unpacked: dict, packed: dict,
     out = {}
     for name, kw in serves:
         a, b = runs[name]
-        t0 = time.perf_counter()
-        prof = device_profile(torch, lambda kw=kw: drive(
-            policy_engine(cfg, params, **kw), arrivals))
-        log(f"phase 9 profile {name} took {time.perf_counter() - t0:.1f} s")
+        prof = {}
+        if name != SAMPLED[0]:
+            t0 = time.perf_counter()
+            prof = device_profile(torch, lambda kw=kw: drive(
+                policy_engine(cfg, params, **kw), arrivals))
+            prof = dict(busy_share=prof["busy_share"], profile=prof)
+            log(f"phase 9 profile {name} took "
+                f"{time.perf_counter() - t0:.1f} s")
         out[name] = dict(
             {k: v for k, v in a.items() if k != "results"},
             **{k: (a[k] + b[k]) / 2 for k in POLICY_TIMED},
             **{f"{k}_runs": [a[k], b[k]] for k in POLICY_TIMED},
             same_tokens_both_runs=a["results"] == b["results"],
             same_tokens_as_serial=a["results"] == runs["serial"][0]["results"],
-            busy_share=prof["busy_share"], profile=prof)
+            **prof)
         log("serve " + json.dumps(out[name]))
     keys = POLICY_TIMED[2:] + ("rounds_per_host_sync",
                                "pure_decode_rounds_per_host_sync",
@@ -1889,13 +1902,10 @@ def policy_serves(torch, cfg, params, unpacked: dict, packed: dict,
         log(f"9 {name} against serial (means of two serves): " + json.dumps(
             {k: [out[name][k], out["serial"][k]] for k in keys}))
     name = SAMPLED[0]
-    log(f"9 {name} against greedy (two serves each; busy seconds of one "
-        "profiled serve): " + json.dumps(
-            {k: [out[name][k], out["interleaved"][k]] for k in (
-                "ms_per_decode_round_runs", "decode_tok_s_runs",
-                "ms_per_decode_round", "same_tokens_both_runs")}
-            | {"busy_s": [out[name]["profile"]["busy_s"],
-                          out["interleaved"]["profile"]["busy_s"]]}))
+    log(f"9 {name} against greedy (two serves each): " + json.dumps(
+        {k: [out[name][k], out["interleaved"][k]] for k in (
+            "ms_per_decode_round_runs", "decode_tok_s_runs",
+            "ms_per_decode_round", "same_tokens_both_runs")}))
     return out
 
 
@@ -2044,6 +2054,90 @@ def bf16_steps(torch, cfg, params, name: str, prompts, step_batch,
                                            errs["kernel packed"]))
     log(f"bf16 steps {name} " + json.dumps(out))
     return out
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def cost_check(torch, cfg, params, tokens) -> dict:
+    """Phase 3e: the dry run's cost analysis on the card. Phase 3d's
+    llama3.2-1b prefill step (B 2, S 1024) on phase 3's bf16 weights runs
+    once under ``launch/cost.py``'s counting mode, and the same step is
+    traced on meta tensors: their ``flops_dot`` must be equal (each
+    kernel wrapper adds its formula on every device; fails otherwise).
+    Logs the step's achieved share of 989 TFLOP/s -- the whole count
+    (``flops_hlo``'s convention) over the step's CUDA-event time -- with
+    the card's name and power limit, and the traced ``temp_bytes`` beside
+    the card's ``max_memory_allocated`` rise over the step (a finding,
+    not a check: the caching allocator rounds, and the kernels' own
+    workspaces are not the step's tensors)."""
+    from repro_torch.launch.cost import CostCounter
+    from repro_torch.launch.steps import step_fn_for
+    from repro_torch.models.params import tree_map
+
+    batch = {"tokens": tokens}
+    step = step_fn_for(cfg, "prefill")
+    t0 = time.perf_counter()
+    ms = time_ms(torch, lambda: step(params, batch), iters=5, warmup=1)
+    torch.cuda.synchronize()
+    seconds = {"timed": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with CostCounter((params, batch)) as card:
+        out = step(params, batch)
+    torch.cuda.synchronize()
+    card.finish(out)
+    rise = torch.cuda.max_memory_allocated() - base
+    del out
+    seconds["counted"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    meta_params = tree_map(lambda t: t.to("meta"), params)
+    meta_batch = {"tokens": tokens.to("meta")}
+    with CostCounter((meta_params, meta_batch)) as meta:
+        out = step_fn_for(cfg, "prefill", device="meta")(meta_params,
+                                                          meta_batch)
+    meta.finish(out)
+    seconds["traced"] = time.perf_counter() - t0
+    got, want = card.summary(), meta.summary()
+    if got["flops_dot"] != want["flops_dot"]:
+        fail(f"3e: the card's counted flops_dot {got['flops_dot']} is not "
+             f"the meta trace's {want['flops_dot']}")
+    res = dict(card=card_line(), ms=ms, flops_dot=want["flops_dot"],
+               flops_hlo=want["flops"], flops_hlo_card=got["flops"],
+               bytes_hlo=want["bytes"],
+               achieved_share=want["flops"] / (ms / 1e3)
+               / PEAK_FLOPS["bfloat16"],
+               temp_bytes=want["temp_bytes"],
+               output_bytes=want["output_bytes"],
+               max_memory_allocated_rise=rise,
+               rise_over_temp=rise / max(want["temp_bytes"], 1),
+               kernels={k: v["calls"] for k, v in want["kernels"].items()},
+               seconds=seconds)
+    log("cost 3e " + json.dumps(res))
+    return res
+
+
+def cost_phase(torch) -> dict:
+    """Phase 3e alone (``--phases 3e``): phase 3's weights, 3d's batch."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    cfg = get_arch("llama3.2-1b")
+    params = init_params(T.param_defs(cfg),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 1024))).to("cuda")
+    return cost_check(torch, cfg, params, tokens)
 
 
 def leaves_to_f32(torch, tree) -> None:
@@ -5905,7 +5999,7 @@ def main() -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases (2, 12, 12b, 12c, 14, 15, "
+                    help="comma-separated phases (2, 3e, 12, 12b, 12c, 14, 15, "
                          "16, 17, 18, 19, 20, 20c, 21, 22, 23, 21-23; 16 "
                          "runs 16b and 16c, 17 17b, 18 18b, 20 20b, 21-23 "
                          "the three in one spawn as the whole run does) to "
@@ -5922,11 +6016,7 @@ def main() -> None:
     from repro_torch.kernels import _build
 
     try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True)
-        card = smi.stdout.strip().splitlines()[0]
+        card = card_line()
         print(card, flush=True)
         log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
             f"{torch.cuda.get_device_name(0)}")
@@ -5947,6 +6037,7 @@ def main() -> None:
         if only is not None:
             alone = dict(FLEET_PHASES, **{
                 "2": lambda torch, checks: check_kernels(torch),
+                "3e": lambda torch, checks: cost_phase(torch),
                 "14": whisper_phases, "15": pixtral_phases,
                 "16": train_phases, "17": rwkv_train_phases,
                 "18": jamba_train_phases, "19": whisper_train_phase,

@@ -11,6 +11,15 @@ switch that picks one. Mixed operand dtypes promote first, as
 ``jnp.promote_types`` does in the reference, since the kernels take one
 dtype.
 
+A meta tensor (the dry run's shape inference, ``launch/cost.py``) gets
+empty meta tensors of the shapes and dtypes the kernel returns, and what
+the kernel's autograd Function saves on the card (flash's ``lse``, the
+Mamba scan's checkpoints); nothing is computed there. Each wrapper and
+each backward carries its kernel's cost formula (``_*_cost``: dot-class
+flops as the reference's formulation of the function performs them,
+the other flops, transcendentals, bytes read and written once), which
+it adds to the active ``cost.CostCounter`` on every device.
+
 Gradients: where an input requires one, the static flash mode (queries
 from position 0) goes through ``FlashAttentionFn``, the norm through
 ``NormFn``, the RWKV6 wkv through ``RwkvChunkFn`` and the Mamba scan
@@ -26,6 +35,7 @@ for a gradient; on the CPU autograd runs through their plain versions.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -39,6 +49,7 @@ from repro_torch.kernels.flash_attention_bwd import \
     flash_attention_bwd as _flash_bwd
 from repro_torch.kernels.layernorm import layernorm as _norm
 from repro_torch.kernels.layernorm import layernorm_bwd as _norm_bwd
+from repro_torch.kernels.mamba_chunk import CK as _MAMBA_CK
 from repro_torch.kernels.mamba_chunk import mamba_chunk as _mamba_chunk
 from repro_torch.kernels.mamba_chunk_bwd import \
     mamba_chunk_bwd as _mamba_chunk_bwd
@@ -47,6 +58,8 @@ from repro_torch.kernels.pim_matvec import pim_matvec as _matvec
 from repro_torch.kernels.rwkv_chunk import rwkv_chunk as _rwkv_chunk
 from repro_torch.kernels.rwkv_chunk_bwd import \
     rwkv_chunk_bwd as _rwkv_chunk_bwd
+from repro_torch.launch import cost
+from repro_torch.launch.cost import KernelCost, nbytes
 
 KERNELS = {"flash_attention": _flash, "flash_attention_segmented": _flash_seg,
            "decode_attention": _decode, "pim_matvec": _matvec,
@@ -73,6 +86,21 @@ def _use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel path for tensors on {t.device}")
+
+
+def _counted(name: str, cost_fn):
+    """The wrapper adds ``cost_fn(*its arguments)`` to the active counter
+    under ``name`` and the aten ops it runs are not counted; without a
+    counter it runs as it is."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if not cost._ACTIVE:
+                return fn(*args, **kwargs)
+            with cost.kernel(name, cost_fn, *args, **kwargs):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
 def _wants_grad(*ts) -> bool:
@@ -113,7 +141,10 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
         q, k, v = (_rows16(t) for t in (q, k, v))
-        if _use_kernel(q):
+        if q.is_meta:
+            o, lse = torch.empty_like(q), q.new_empty(q.shape[:3],
+                                                      dtype=torch.float32)
+        elif _use_kernel(q):
             o, lse = _flash(q, k, v, causal=causal, return_lse=True)
         else:
             o, lse = ref.flash_attention_ref(q, k, v, causal=causal,
@@ -124,14 +155,27 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        if _use_kernel(q):
-            dq, dk, dv = _flash_bwd(q, k, v, o, lse, _rows16(do),
-                                    causal=ctx.causal)
-        else:
-            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
-                                                     causal=ctx.causal)
-        return dq, dk, dv, None
+        # saved tensors unpack once (remat's checkpoint allows no more)
+        return (*_flash_backward(*ctx.saved_tensors, do, ctx.causal), None)
+
+
+def _flash_bwd_cost(q, k, v, o, lse, do, causal) -> KernelCost:
+    """The four products of attention's gradient (dV, dP, dQ, dK) over the
+    full score matrix, as autodiff of the reference's attention takes
+    them; the kernel's recomputed QK^T is not the function's work."""
+    B, H, S, D = q.shape
+    scores = B * H * S * k.shape[2]
+    return KernelCost(dot=8 * scores * D, other=4 * scores,
+                      bytes=nbytes(q, k, v, o, lse, do) + nbytes(q, k, v))
+
+
+@_counted("flash_attention_bwd", _flash_bwd_cost)
+def _flash_backward(q, k, v, o, lse, do, causal):
+    if q.is_meta:
+        return tuple(torch.empty_like(t) for t in (q, k, v))
+    if _use_kernel(q):
+        return _flash_bwd(q, k, v, o, lse, _rows16(do), causal=causal)
+    return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
 
 
 class NormFn(torch.autograd.Function):
@@ -142,7 +186,9 @@ class NormFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, mode: str, eps):
         x = x.contiguous()
-        if _use_kernel(x):
+        if x.is_meta:
+            y = torch.empty_like(x)
+        elif _use_kernel(x):
             y = _norm(x, scale, bias, mode=mode, eps=eps)
         else:
             y = ref.norm_ref(x, scale, bias, mode=mode, eps=eps)
@@ -152,14 +198,27 @@ class NormFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        x, scale, bias = ctx.saved_tensors
-        if _use_kernel(x):
-            dx, ds, db = _norm_bwd(x, scale, bias, dy.contiguous(),
-                                   mode=ctx.mode, eps=ctx.eps)
-        else:
-            dx, ds, db = ref.norm_bwd_ref(x, scale, bias, dy, mode=ctx.mode,
-                                          eps=ctx.eps)
-        return dx, ds, db, None, None
+        return (*_norm_backward(*ctx.saved_tensors, dy, ctx.mode, ctx.eps),
+                None, None)
+
+
+def _norm_bwd_cost(x, scale, bias, dy, mode, eps) -> KernelCost:
+    n = x.numel()
+    return KernelCost(other=(_NORM_PASSES[mode] + 6) * n,
+                      transcendentals=n // x.shape[-1],
+                      bytes=nbytes(x, scale, bias, dy)
+                      + nbytes(x, scale, bias))
+
+
+@_counted("layernorm_bwd", _norm_bwd_cost)
+def _norm_backward(x, scale, bias, dy, mode, eps):
+    if x.is_meta:
+        return tuple(None if t is None else torch.empty_like(t)
+                     for t in (x, scale, bias))
+    if _use_kernel(x):
+        return _norm_bwd(x, scale, bias, dy.contiguous(), mode=mode,
+                         eps=eps)
+    return ref.norm_bwd_ref(x, scale, bias, dy, mode=mode, eps=eps)
 
 
 def _common(*ts: torch.Tensor):
@@ -169,6 +228,17 @@ def _common(*ts: torch.Tensor):
     return [t.to(dt) for t in ts]
 
 
+def _matvec_cost(x, w, bias=None, activation: str = "none") -> KernelCost:
+    n, d_in = x.shape
+    out = n * w.shape[1]
+    act = activation != "none"
+    return KernelCost(dot=2 * out * d_in,
+                      other=out * ((bias is not None) + act),
+                      transcendentals=out * act,
+                      bytes=nbytes(x, w, bias) + out * x.element_size())
+
+
+@_counted("pim_matvec", _matvec_cost)
 def fused_matvec(x, w, bias=None, activation: str = "none"):
     """act(x @ w + bias); x: (n, d_in), w: (d_in, d_out)."""
     if bias is None:
@@ -176,12 +246,28 @@ def fused_matvec(x, w, bias=None, activation: str = "none"):
     else:
         x, w, bias = _common(x, w, bias)
     _no_backward_on_card("pim_matvec", x, w, bias)
+    if x.is_meta:
+        return x.new_empty((x.shape[0], w.shape[1]))
     if not _use_kernel(x):
         return ref.matvec_ref(x, w, bias, activation)
     return _matvec(x.contiguous(), w.contiguous(),
                    None if bias is None else bias.contiguous(), activation)
 
 
+def _flash_cost(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                segment_info=None) -> KernelCost:
+    """Both products over the full (Sq, Skv) score matrix, masked or
+    not, as the reference's masked attention computes them; the softmax's
+    five passes a score."""
+    B, H, S, D = q.shape
+    scores = B * H * S * k.shape[2]
+    return KernelCost(dot=4 * scores * D, other=5 * scores,
+                      transcendentals=scores,
+                      bytes=nbytes(q, k, v, *(segment_info or ()))
+                      + nbytes(q))
+
+
+@_counted("flash_attention", _flash_cost)
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     segment_info=None):
     """q: (B, H, S, D); k, v: (B, KH, Skv, D) -> (B, H, S, D) in q.dtype.
@@ -197,6 +283,8 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                          else "flash_attention_segmented", q, k, v)
     if segment_info is not None:
         segment_info = [t.to(torch.int32) for t in segment_info]
+    if q.is_meta:
+        return torch.empty_like(q, dtype=out_dtype)
     if not _use_kernel(q):
         o = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                                     segment_info=segment_info)
@@ -216,6 +304,18 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return o.to(out_dtype)
 
 
+def _decode_cost(q, k, v, lengths, return_lse: bool = False) -> KernelCost:
+    """Both products over every cache position, as the reference's decode
+    attention computes them."""
+    B, H, D = q.shape
+    scores = B * H * k.shape[2]
+    return KernelCost(dot=4 * scores * D, other=5 * scores,
+                      transcendentals=scores,
+                      bytes=nbytes(q, k, v, lengths) + nbytes(q)
+                      + 4 * B * H * return_lse)
+
+
+@_counted("decode_attention", _decode_cost)
 def decode_attention(q, k, v, lengths, return_lse: bool = False):
     """q: (B, H, D); k, v: (B, KH, S, D); lengths (B,) -> (B, H, D);
     ``return_lse`` (the partial mode of layout B's cache shards) -> (o,
@@ -224,7 +324,11 @@ def decode_attention(q, k, v, lengths, return_lse: bool = False):
     q, k, v = _common(q, k, v)
     _no_backward_on_card("decode_attention", q, k, v)
     lengths = lengths.to(torch.int32)
-    if not _use_kernel(q):
+    if q.is_meta:
+        out = (q.new_empty(q.shape), q.new_empty(q.shape[:2],
+                                                 dtype=torch.float32))
+        out = out if return_lse else out[0]
+    elif not _use_kernel(q):
         out = ref.decode_attention_ref(q, k, v, lengths, return_lse)
     else:
         out = _decode(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -234,22 +338,45 @@ def decode_attention(q, k, v, lengths, return_lse: bool = False):
     return out.to(out_dtype)
 
 
+_NORM_PASSES = {"layernorm": 7, "np_layernorm": 5, "rmsnorm": 4}
+
+
+def _norm_cost(x, scale=None, bias=None, *, mode: str = "layernorm",
+               eps=None) -> KernelCost:
+    n = x.numel()
+    return KernelCost(other=_NORM_PASSES[mode] * n,
+                      transcendentals=n // x.shape[-1],
+                      bytes=nbytes(x, scale, bias) + nbytes(x))
+
+
+@_counted("layernorm", _norm_cost)
 def layernorm(x, scale=None, bias=None, *, mode: str = "layernorm",
               eps=None):
     """x: (rows, d) -> (rows, d) in x.dtype; see ``ref.norm_ref``. Under a
     gradient it runs through ``NormFn``."""
     if _wants_grad(x, scale, bias):
         return NormFn.apply(x, scale, bias, mode, eps)
+    if x.is_meta:
+        return torch.empty_like(x)
     if not _use_kernel(x):
         return ref.norm_ref(x, scale, bias, mode=mode, eps=eps)
     return _norm(x.contiguous(), scale, bias, mode=mode, eps=eps)
 
 
+def _softmax_cost(x, mask_bitmap) -> KernelCost:
+    n = x.numel()
+    return KernelCost(other=6 * n, transcendentals=n,
+                      bytes=nbytes(x, mask_bitmap) + nbytes(x))
+
+
+@_counted("masked_softmax", _softmax_cost)
 def masked_softmax(x, mask_bitmap):
     """x: (..., n) scores; mask_bitmap: (..., n), nonzero = keep (bool or
     int8) -> softmax over the last axis in x.dtype, masked entries exactly
     0; see ``ref.masked_softmax_ref``."""
     _no_backward_on_card("masked_softmax", x)
+    if x.is_meta:
+        return torch.empty_like(x)
     if not _use_kernel(x):
         return ref.masked_softmax_ref(x, mask_bitmap)
     if mask_bitmap.dtype not in (torch.bool, torch.int8):
@@ -275,24 +402,59 @@ class RwkvChunkFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, ds):
-        r, k, v, w, u = ctx.saved_tensors
-        if dy is None:
-            dy = torch.zeros(r.shape, dtype=w.dtype, device=r.device)
-        if _use_kernel(r):
-            grads = _rwkv_chunk_bwd(r, k, v, w, u, dy.contiguous(),
-                                    None if ds is None else ds.contiguous())
-        else:
-            grads = ref.rwkv_chunk_bwd_ref(r, k, v, w, u, dy, ds)
-        return (*grads, None)
+        return (*_rwkv_backward(*ctx.saved_tensors, dy, ds), None)
+
+
+def _rwkv_bwd_cost(r, k, v, w, u, dy, ds) -> KernelCost:
+    """Autodiff of the reference's einsums: two products for each."""
+    BH, T, K = r.shape
+    V = v.shape[-1]
+    steps = BH * T
+    return KernelCost(dot=4 * steps * (K * V + K + V),
+                      other=6 * steps * K * V,
+                      bytes=nbytes(r, k, v, w, u, dy, ds) + nbytes(r, k, v)
+                      + 4 * (steps * K + u.numel()))
+
+
+@_counted("rwkv_chunk_bwd", _rwkv_bwd_cost)
+def _rwkv_backward(r, k, v, w, u, dy, ds):
+    if dy is None:
+        dy = torch.zeros(r.shape, dtype=w.dtype, device=r.device)
+    if r.is_meta:
+        return (*(torch.empty_like(t) for t in (r, k, v)),
+                torch.empty_like(r, dtype=w.dtype),
+                torch.empty_like(u, dtype=torch.float32))
+    if _use_kernel(r):
+        return _rwkv_chunk_bwd(r, k, v, w, u, dy.contiguous(),
+                               None if ds is None else ds.contiguous())
+    return ref.rwkv_chunk_bwd_ref(r, k, v, w, u, dy, ds)
 
 
 def _rwkv_forward(r, k, v, w, u, out_dtype):
+    if r.is_meta:
+        BH, _, K = r.shape
+        return (torch.empty_like(r, dtype=out_dtype or r.dtype),
+                r.new_empty((BH, K, v.shape[-1]), dtype=torch.float32))
     if not _use_kernel(r):
         u_rows = u.repeat(r.shape[0] // u.shape[0], 1)
         return ref.rwkv_chunk_ref(r, k, v, w, u_rows, out_dtype=out_dtype)
     return _rwkv_chunk(r, k, v, w, u, out_dtype=out_dtype)
 
 
+def _rwkv_cost(r, k, v, w, u, *, out_dtype=None) -> KernelCost:
+    """The reference's einsums once a step (``_wkv_scan``: r.S, then
+    r.(u k) and its product with v); the state's update k v^T, w S, +."""
+    BH, T, K = r.shape
+    V = v.shape[-1]
+    steps = BH * T
+    out = (out_dtype or r.dtype).itemsize
+    return KernelCost(dot=2 * steps * (K * V + K + V),
+                      other=steps * (3 * K * V + K + V),
+                      bytes=nbytes(r, k, v, w, u) + steps * V * out
+                      + 4 * BH * K * V)
+
+
+@_counted("rwkv_chunk", _rwkv_cost)
 def rwkv_chunk(r, k, v, w, u, *, out_dtype=None):
     """The RWKV6 wkv from a zero state. r, k, v, w: (BH, T, K); u: (BH, K)
     as in the reference's ops, or (H, K) broadcast over the batch (row bh
@@ -319,7 +481,9 @@ class MambaChunkFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, u, C):
         ctx.set_materialize_grads(False)
-        if _use_kernel(a):
+        if a.is_meta:
+            y, h, ck = _mamba_meta(a, checkpoints=True)
+        elif _use_kernel(a):
             y, h, ck = _mamba_chunk(a, u, C, checkpoints=True)
         else:
             (y, h), ck = ref.mamba_chunk_ref(a, u, C), None
@@ -328,23 +492,60 @@ class MambaChunkFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dh):
-        a, u, C, ck = ctx.saved_tensors
-        if dy is None:
-            dy = a.new_zeros(a.shape[:3])
-        dy = dy.to(a.dtype)
-        if _use_kernel(a):
-            return _mamba_chunk_bwd(a, u, C, dy.contiguous(),
-                                    None if dh is None else dh.contiguous(),
-                                    ck=ck)
-        return ref.mamba_chunk_bwd_ref(a, u, C, dy, dh)
+        return _mamba_backward(*ctx.saved_tensors, dy, dh)
+
+
+def _mamba_bwd_cost(a, u, C, ck, dy, dh) -> KernelCost:
+    """Autodiff of the einsum (dh += dy C, dC = h.dy) once a step."""
+    B, T, d, n = a.shape
+    return KernelCost(dot=4 * B * T * d * n, other=4 * B * T * d * n,
+                      bytes=nbytes(a, u, C, ck, dy, dh) + nbytes(a, u, C))
+
+
+@_counted("mamba_chunk_bwd", _mamba_bwd_cost)
+def _mamba_backward(a, u, C, ck, dy, dh):
+    if dy is None:
+        dy = a.new_zeros(a.shape[:3])
+    dy = dy.to(a.dtype)
+    if a.is_meta:
+        return tuple(torch.empty_like(t) for t in (a, u, C))
+    if _use_kernel(a):
+        return _mamba_chunk_bwd(a, u, C, dy.contiguous(),
+                                None if dh is None else dh.contiguous(),
+                                ck=ck)
+    return ref.mamba_chunk_bwd_ref(a, u, C, dy, dh)
+
+
+def _mamba_meta(a, checkpoints: bool = False):
+    """``mamba_chunk``'s outputs as empty meta tensors: y, h_T and, where
+    the forward saves them, the checkpoints every ``CK`` steps."""
+    B, T, d, n = a.shape
+    y = a.new_empty((B, T, d))
+    h = a.new_empty((B, d, n), dtype=torch.float32)
+    if not checkpoints:
+        return y, h
+    return y, h, a.new_empty((B, -(-T // _MAMBA_CK), d, n),
+                             dtype=torch.float32)
 
 
 def _mamba_forward(a, u, C):
+    if a.is_meta:
+        return _mamba_meta(a)
     if not _use_kernel(a):
         return ref.mamba_chunk_ref(a, u, C)
     return _mamba_chunk(a, u, C)
 
 
+def _mamba_cost(a, u, C) -> KernelCost:
+    """The reference's einsum h.C once a step; h = a h + u."""
+    B, T, d, n = a.shape
+    ck = 4 * B * -(-T // _MAMBA_CK) * d * n if _wants_grad(a, u, C) else 0
+    return KernelCost(dot=2 * B * T * d * n, other=2 * B * T * d * n,
+                      bytes=nbytes(a, u, C) + B * T * d * a.element_size()
+                      + 4 * B * d * n + ck)
+
+
+@_counted("mamba_chunk", _mamba_cost)
 def mamba_chunk(a, u, C):
     """The Mamba selective scan from a zero state. a, u: (B, T, d, n);
     C: (B, T, n), promoted to one dtype. Returns (y (B, T, d) in that

@@ -13,6 +13,14 @@ dispatches, ``serve/engine.py``). The steps run on the card unless
 ``device="cpu"`` is given; they move the batch there (each array in its
 own dtype), and the params (and the serve step's cache) must already be
 there.
+
+Under a mesh (``sharding.axes.use_mesh``) a step is one rank's program:
+its params (and cache, and optimizer state) are the rank's resident
+parts (``models/params.py::local_defs``) and its batch the rank's rows.
+The train step then sums each gradient leaf over the mesh axes that
+replicate it (``train/step.py::_reduce_grads``), updates the rank's
+parts with Adafactor's sharded means, and returns the ranks' mean loss,
+as the reference's step under GSPMD does.
 """
 from __future__ import annotations
 
@@ -20,9 +28,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
-from repro_torch.models.params import resolve_device
+from repro_torch.models.params import (resident_axes, resident_specs,
+                                       resolve_device)
 from repro_torch.optim.adafactor import adafactor_update
-from repro_torch.train.step import accumulate
+from repro_torch.sharding import comm
+from repro_torch.sharding.axes import _current_mesh
+from repro_torch.train.step import DATA_AXES, _reduce_grads, accumulate
 
 
 def _to(dev):
@@ -42,8 +53,23 @@ def make_train_step_fn(cfg: ModelConfig, microbatches: int = 1, device=None):
     def train_step(params, opt_state, batch):
         batch = {k: on_dev(v) for k, v in batch.items()}
         loss, _metrics, grads = accumulate(cfg, params, batch, microbatches)
+        mesh, specs = _current_mesh(), None
+        if mesh is not None and mesh.size > 1:
+            specs = resident_specs(T.param_defs(cfg), mesh,
+                                   resident_axes(cfg))
+            grads = _reduce_grads(grads, specs, mesh, mesh.axis_names,
+                                  mesh.size)
+            n = 1
+            for a in DATA_AXES:
+                loss = comm.psum_raw(loss.float()[None], mesh, a,
+                                     kind="metrics")[0]
+                n *= comm.axis_size(mesh, a)
+            loss = loss / n
+        else:
+            mesh = None
         params, opt_state, _ = adafactor_update(params, grads, opt_state,
-                                                lr=1e-4)
+                                                lr=1e-4, specs=specs,
+                                                mesh=mesh)
         return params, opt_state, {"loss": loss}
     return train_step
 

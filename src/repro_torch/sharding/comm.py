@@ -16,6 +16,14 @@ CUDA events before the copy out and after the copy back (host wall time
 on the CPU); the transport of each kind is named there. On an axis of
 extent 1 nothing is sent and nothing is counted.
 
+On meta tensors (the dry run, ``launch/cost.py``) a collective needs no
+group and sends nothing: it counts in ``STATS`` as a sent one would, and
+returns the n ranks' parts as empty meta tensors. On every device each
+collective is also recorded into the active ``cost.CostCounter`` under
+the reference's opcode -- ``all-reduce`` for a sum or a max, whatever
+its transport, ``all-gather`` for a gather -- with its per-device result
+bytes (``launch/hlo.py``'s convention).
+
 Gradients. The convention: the global loss is the sum of the ranks'
 losses, and a rank's loss counts a value replicated over k ranks by its
 share, 1/k of it. Then the backward of a collective is fixed: ``psum``'s
@@ -47,6 +55,7 @@ from typing import List
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch import cost
 from repro_torch.sharding.axes import axis_sizes
 
 STATS = {"collectives": 0, "bytes": 0, "host_bytes": 0, "ms": 0.0,
@@ -94,11 +103,19 @@ def _count(kind: str, x: torch.Tensor, staged: int, transport: str) -> None:
 
 
 def gather_parts(x: torch.Tensor, mesh, axis: str,
-                 kind: str = "all_gather") -> List[torch.Tensor]:
-    """Every rank's x along ``axis``, in rank order: one all-gather."""
+                 kind: str = "all_gather", op: str = "all-gather"
+                 ) -> List[torch.Tensor]:
+    """Every rank's x along ``axis``, in rank order: one all-gather.
+    ``op`` is the reference's opcode for what the caller makes of the
+    parts (``all-reduce`` for a sum or max of them)."""
     n = axis_size(mesh, axis)
     if n == 1:
         return [x]
+    nbytes = x.numel() * x.element_size()
+    cost.record_collective(op, nbytes * (n if op == "all-gather" else 1))
+    if x.is_meta:
+        _count(kind, x, 0, "none (meta)")
+        return [torch.empty_like(x) for _ in range(n)]
     group = mesh.groups[axis]
     x = x.contiguous()
     if x.is_cuda:
@@ -143,7 +160,7 @@ def psum_raw(x: torch.Tensor, mesh, axis: str, out_dtype=None,
     is its name in ``STATS``."""
     if axis_size(mesh, axis) == 1:
         return x if out_dtype is None else x.to(out_dtype)
-    total = _sum(gather_parts(x, mesh, axis, kind), x.dtype)
+    total = _sum(gather_parts(x, mesh, axis, kind, "all-reduce"), x.dtype)
     return total.to(x.dtype if out_dtype is None else out_dtype)
 
 
@@ -180,7 +197,7 @@ class _Psum(torch.autograd.Function):
 class _Pmax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
-        parts = gather_parts(x, mesh, axis, "pmax")
+        parts = gather_parts(x, mesh, axis, "pmax", "all-reduce")
         y = parts[0]
         for p in parts[1:]:
             y = torch.maximum(y, p)

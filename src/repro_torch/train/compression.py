@@ -43,7 +43,7 @@ def _compressed(gs, errs, mesh, axis):
     gs = [g.float() + e for g, e in zip(gs, errs)]
     amax = torch.stack([g.abs().max() for g in gs])
     if n > 1:
-        parts = comm.gather_parts(amax, mesh, axis, "pmax")
+        parts = comm.gather_parts(amax, mesh, axis, "pmax", "all-reduce")
         amax = torch.stack(parts).amax(dim=0)
     scales = torch.clamp(amax / 127.0, min=1e-12)
     qs = [_quantize(g, scales[i]) for i, g in enumerate(gs)]

@@ -131,9 +131,19 @@ def test_ops_send_cpu_tensors_to_the_plain_versions():
 
 
 def test_ops_refuse_a_device_without_a_path():
-    x = torch.empty(2, 8, device="meta")
+    """A device with neither a kernel nor a plain version raises. Meta
+    (the dry run's shape inference) has a route of its own: an empty meta
+    output of the kernel's shape and dtype, and no launch."""
+    class Elsewhere:                    # a tensor as ``_use_kernel`` reads it
+        is_cuda = False
+        device = torch.device("xpu")
     with pytest.raises(ValueError, match="no kernel path"):
-        ops.layernorm(x, torch.empty(8, device="meta"), mode="rmsnorm")
+        ops._use_kernel(Elsewhere())
+    before = ops.launch_counts()
+    x = torch.empty(2, 8, dtype=torch.bfloat16, device="meta")
+    y = ops.layernorm(x, torch.empty(8, device="meta"), mode="rmsnorm")
+    assert y.is_meta and y.shape == x.shape and y.dtype == x.dtype
+    assert ops.launch_counts() == before
 
 
 @pytest.mark.parametrize("call", [

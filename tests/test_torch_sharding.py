@@ -13,6 +13,7 @@ nothing, as the reference's).
 """
 import dataclasses
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -329,8 +330,10 @@ def _shard_bytes(defs, mesh):
 ])
 def test_dry_run_parameter_bytes_per_rank(arch, shape, mesh):
     """The dry run's per-rank parameter bytes against the sum of the shard
-    shapes that the reference's specs imply, and the keys it names as
-    unfilled."""
+    shapes that the reference's specs imply, and the cost keys it fills:
+    present and finite, the counts and collective bytes positive (each of
+    these cells shards its layers over 'model'), and only the code size
+    named as unfilled."""
     from repro_torch.launch import dryrun
     rec = dryrun.run_cell(arch, shape, mesh)
     tok = JX.set_profile(jax_arch(arch).rules_profile)
@@ -341,8 +344,21 @@ def test_dry_run_parameter_bytes_per_rank(arch, shape, mesh):
         JX._active_profile.reset(tok)
     assert rec["bytes_per_rank"]["params"] == want
     assert rec["chips"] == (512 if mesh == "multi" else 256)
-    assert set(rec["not_filled"]) >= {"memory", "flops_hlo",
-                                      "collective_bytes"}
+    assert rec["not_filled"] == ["memory.code_bytes"]
+    for key in ("flops_hlo", "flops_dot", "bytes_hlo"):
+        assert math.isfinite(rec[key]) and rec[key] > 0, key
+    assert rec["flops_hlo"] > rec["flops_dot"]
+    assert set(rec["cost_raw"]) == {"flops", "bytes"}
+    assert all(math.isfinite(v) and v > 0 for v in rec["cost_raw"].values())
+    mem = rec["memory"]
+    assert set(mem) == {"argument_bytes", "output_bytes", "temp_bytes",
+                        "alias_bytes"}
+    assert all(isinstance(v, int) and v >= 0 for v in mem.values())
+    assert mem["argument_bytes"] >= rec["bytes_per_rank"]["params"] > 0
+    assert mem["temp_bytes"] > 0 and mem["output_bytes"] > 0
+    coll = rec["collective_bytes"]
+    assert math.isfinite(coll["total"]) and coll["total"] > 0
+    assert coll["total"] == sum(v for k, v in coll.items() if k != "total")
 
 
 def test_dry_run_covers_every_cell():
